@@ -1,0 +1,309 @@
+"""Wrappers around the CUDA kernels.
+
+Each wrapper takes the vec operator's inputs (``VecTable``\\ s and the
+instruction's parameters) and returns what the operator returns.  A table
+on the CPU goes to the plain version in ``ref``; a table on a CUDA device
+goes to the kernel, and a launch that fails raises.  Outputs and scratch
+are allocated here with ``torch.empty``; the kernels allocate nothing and
+never synchronise.
+
+The epilogue keeps the JAX package's contract (``repro/kernels/ops.py``):
+the kernels' ±3e38 sentinels for empty min/max map back to ±inf, the
+count comes first, bucket ids decode back to key values, and the result
+is compacted to ``max_groups``.  There is no lane padding and no bucket
+limit: the Hopper kernels accumulate with atomics instead of a one-hot.
+
+``LAUNCHES`` counts, per kernel, the calls that launched it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.expr import AggSpec, Expr
+from ..relational import runtime as rt
+from . import exprcode, ref
+
+LAUNCHES: Dict[str, int] = {"fused_select_agg": 0, "grouped_select_agg": 0,
+                            "grouped_join_agg": 0}
+
+_FN = {"sum": 0, "min": 1, "max": 2}
+_SENTINEL = 3.0e38
+
+_PROGRAMS: Dict[tuple, Tuple[exprcode.ExprProgram, torch.Tensor]] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# checks and launch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _on_card(*tables: rt.VecTable) -> bool:
+    """True for CUDA tables, False for CPU tables; raises on a mix or on
+    any other device."""
+    devs = {t.device for t in tables}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs lie on several devices: {sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must lie on the CPU or a CUDA device, not {dev}")
+    return True
+
+
+def _check(t: torch.Tensor, rows: int, what: str, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} lies on {t.device}, expected {device}")
+    if t.dim() != 1 or t.shape[0] != rows:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected ({rows},)")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+    exprcode.column_type(t.dtype)  # raises on other dtypes
+
+
+def _columns(table: rt.VecTable, names: Sequence[str], what: str) -> List[torch.Tensor]:
+    cols = [table.cols[n] for n in names]
+    for n, c in zip(names, cols):
+        _check(c, table.capacity, f"{what} column {n!r}", table.device)
+    if table.valid.dtype != torch.bool:
+        raise ValueError(f"{what} validity must be bool, not {table.valid.dtype}")
+    _check(table.valid, table.capacity, f"{what} validity", table.device)
+    return cols
+
+
+def _program(pred: Optional[Expr], values: Tuple[Expr, ...], names: Tuple[str, ...],
+             types: Tuple[str, ...], device: torch.device
+             ) -> Tuple[exprcode.ExprProgram, torch.Tensor]:
+    """The lowered program and its copy on ``device`` (cached per query)."""
+    key = (pred, values, names, types, str(device))
+    if key not in _PROGRAMS:
+        prog = exprcode.compile_program(pred, values, dict(zip(names, types)),
+                                        {n: j for j, n in enumerate(names)})
+        _PROGRAMS[key] = (prog, torch.from_numpy(prog.code.copy()).to(device))
+    return _PROGRAMS[key]
+
+
+class _Cols:
+    """Host arrays describing the kernel's column slots."""
+
+    def __init__(self, cols: Sequence[torch.Tensor], src: Sequence[int]) -> None:
+        if len(cols) > 32:
+            raise ValueError(f"{len(cols)} columns; the kernels take at most 32")
+        self.ptrs = np.array([c.data_ptr() for c in cols] or [0], np.uint64)
+        self.types = np.array([exprcode.COL_TYPES[exprcode.column_type(c.dtype)]
+                               for c in cols] or [0], np.int32)
+        self.src = np.array(list(src) or [0], np.int32)
+        self.n = len(cols)
+        self.vm_types = tuple(exprcode.column_type(c.dtype) for c in cols)
+
+
+def _keys(slots: Sequence[int], domains: Sequence[Tuple[int, int]]):
+    if len(slots) > 8:
+        raise ValueError(f"{len(slots)} key columns; the kernels take at most 8")
+    lo = np.array([int(a) for a, _ in domains] or [0], np.int64)
+    size = np.array([int(b) - int(a) + 1 for a, b in domains] or [1], np.int64)
+    return np.array(list(slots) or [0], np.int32), lo, size
+
+
+def _fns(aggs: Sequence[AggSpec]) -> np.ndarray:
+    return np.array([_FN[a.fn] for a in aggs] or [0], np.int32)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _from_sentinel(x: torch.Tensor) -> torch.Tensor:
+    inf = torch.full_like(x, float("inf"))
+    return torch.where(x >= _SENTINEL, inf, torch.where(x <= -_SENTINEL, -inf, x))
+
+
+def _value_aggs(aggs: Sequence[AggSpec]) -> List[AggSpec]:
+    return [a for a in aggs if a.fn != "count"]
+
+
+def _grouped_epilogue(cnt: torch.Tensor, acc: torch.Tensor, keys: Sequence[str],
+                      key_dtypes: Sequence[torch.dtype], aggs: Sequence[AggSpec],
+                      max_groups: int, key_domains: Sequence[Tuple[int, int]],
+                      num_buckets: int) -> rt.VecTable:
+    out = rt.decode_bucket_keys(keys, key_domains, key_dtypes, num_buckets, cnt.device)
+    k = 0
+    for a in aggs:
+        if a.fn == "count":
+            out[a.name] = cnt
+        else:
+            out[a.name] = _from_sentinel(acc[k])
+            k += 1
+    return rt.compact(rt.VecTable(out, cnt > 0), max_groups)
+
+
+def _grouped_buffers(n_acc: int, nb: int, device: torch.device):
+    cnt = torch.empty(nb, dtype=torch.int32, device=device)
+    acc = torch.empty((max(n_acc, 1), nb), dtype=torch.float32, device=device)
+    return cnt, acc
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def fused_select_agg(table: rt.VecTable, pred: Expr,
+                     aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
+    """VecTable → Single⟨aggs⟩ ({name: 0-dim tensor}) in one pass."""
+    aggs = tuple(aggs)
+    if not _on_card(table):
+        return ref.fused_select_agg(table, pred, aggs)
+    from .build import constant, entry
+
+    dev = table.device
+    vaggs = _value_aggs(aggs)
+    names = tuple(sorted(set(pred.fields()) | {f for a in vaggs for f in a.expr.fields()}))
+    cols = _columns(table, names, "fused_select_agg")
+    c = _Cols(cols, [0] * len(cols))
+    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
+    # per-block partials for the most blocks the kernel launches
+    max_blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
+                  * constant("fused_select_agg", "fsa_blocks_per_sm"))
+    n_acc = len(vaggs)
+    part_cnt = torch.empty(max_blocks, dtype=torch.int32, device=dev)
+    part_acc = torch.empty(max(max_blocks * n_acc, 1), dtype=torch.float32, device=dev)
+    out_cnt = torch.empty(1, dtype=torch.int32, device=dev)
+    out_acc = torch.empty(max(n_acc, 1), dtype=torch.float32, device=dev)
+    fns = _fns(vaggs)
+    err = entry("fused_select_agg")(
+        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
+        c.types.ctypes.data, c.src.ctypes.data, c.n, table.valid.data_ptr(),
+        table.capacity, fns.ctypes.data, n_acc, part_cnt.data_ptr(),
+        part_acc.data_ptr(), max_blocks, out_cnt.data_ptr(), out_acc.data_ptr(),
+        _stream(dev))
+    _raise_on(err, "fused_select_agg")
+    LAUNCHES["fused_select_agg"] += 1
+    vals = _from_sentinel(out_acc)
+    out, k = {}, 0
+    for a in aggs:
+        if a.fn == "count":
+            out[a.name] = out_cnt[0]
+        else:
+            out[a.name] = vals[k]
+            k += 1
+    return out
+
+
+def grouped_select_agg(table: rt.VecTable, pred: Optional[Expr], keys: Sequence[str],
+                       aggs: Sequence[AggSpec], max_groups: int,
+                       key_domains: Sequence[Tuple[int, int]],
+                       num_buckets: int) -> rt.VecTable:
+    """VecTable → Vec⟨keys+aggs⟩: fused predicate + dense-bucket grouped
+    aggregation (``vec.GroupAggDirect`` under ``use_kernels``)."""
+    keys, aggs = tuple(keys), tuple(aggs)
+    key_domains = tuple(key_domains)
+    if not _on_card(table):
+        return ref.grouped_select_agg(table, pred, keys, aggs, max_groups,
+                                      key_domains, num_buckets)
+    from .build import entry
+
+    dev = table.device
+    vaggs = _value_aggs(aggs)
+    pred_fields = set(pred.fields()) if pred is not None else set()
+    names = tuple(sorted(pred_fields | set(keys)
+                         | {f for a in vaggs for f in a.expr.fields()}))
+    cols = _columns(table, names, "grouped_select_agg")
+    c = _Cols(cols, [0] * len(cols))
+    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
+    slots, lo, size = _keys([names.index(k) for k in keys], key_domains)
+    nb = int(num_buckets)
+    cnt, acc = _grouped_buffers(len(vaggs), nb, dev)
+    fns = _fns(vaggs)
+    err = entry("grouped_select_agg")(
+        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
+        c.types.ctypes.data, c.src.ctypes.data, c.n, table.valid.data_ptr(),
+        table.capacity, slots.ctypes.data, lo.ctypes.data, size.ctypes.data,
+        len(keys), fns.ctypes.data, len(vaggs), nb, cnt.data_ptr(), acc.data_ptr(),
+        _stream(dev))
+    _raise_on(err, "grouped_select_agg")
+    LAUNCHES["grouped_select_agg"] += 1
+    return _grouped_epilogue(cnt, acc, keys, [table.cols[k].dtype for k in keys], aggs,
+                             max_groups, key_domains, nb)
+
+
+def build_tables(right: rt.VecTable, right_on: Sequence[str], names: Sequence[str],
+                 join_key_domains: Sequence[Tuple[int, int]], join_num_buckets: int
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Dense build tables over the join-bucket axis, made in torch outside
+    the kernel: a presence table, and each of ``names`` gathered at the
+    first build row of each bucket (duplicate keys: first occurrence wins),
+    in the column's own dtype."""
+    ridx = rt.build_first_index(right, right_on, join_key_domains, join_num_buckets)
+    present = ridx < right.capacity
+    ridx_c = torch.clamp(ridx, max=right.capacity - 1)
+    return present, [right.cols[n][ridx_c] for n in names]
+
+
+def grouped_join_agg(left: rt.VecTable, right: rt.VecTable, *, left_on: Sequence[str],
+                     right_on: Sequence[str],
+                     join_key_domains: Sequence[Tuple[int, int]],
+                     join_num_buckets: int, keys: Sequence[str],
+                     aggs: Sequence[AggSpec], max_groups: int,
+                     key_domains: Sequence[Tuple[int, int]],
+                     num_buckets: int, pred: Optional[Expr] = None) -> rt.VecTable:
+    """(probe VecTable, build VecTable) → Vec⟨keys+aggs⟩ in one pass over
+    the probe side (``vec.FusedJoinGroupAgg`` under ``use_kernels``)."""
+    kw = dict(left_on=tuple(left_on), right_on=tuple(right_on),
+              join_key_domains=tuple(join_key_domains),
+              join_num_buckets=int(join_num_buckets), keys=tuple(keys),
+              aggs=tuple(aggs), max_groups=int(max_groups),
+              key_domains=tuple(key_domains), num_buckets=int(num_buckets), pred=pred)
+    if not _on_card(left, right):
+        return ref.grouped_join_agg(left, right, **kw)
+    from .build import entry
+
+    dev = left.device
+    keys, aggs = kw["keys"], kw["aggs"]
+    vaggs = _value_aggs(aggs)
+    agg_fields = {f for a in vaggs for f in a.expr.fields()}
+    pred_fields = set(pred.fields()) if pred is not None else set()
+    if not pred_fields <= set(left.cols):
+        raise ValueError("grouped_join_agg: the predicate may read probe columns only")
+    rnames = tuple(sorted((set(keys) | agg_fields) & (set(right.cols) - set(right_on))))
+    lnames = tuple(sorted(pred_fields | set(left_on)
+                          | ((set(keys) | agg_fields) & set(left.cols))))
+    lcols = _columns(left, lnames, "grouped_join_agg probe")
+    _columns(right, rnames, "grouped_join_agg build")
+    nbj = kw["join_num_buckets"]
+    present, tables = build_tables(right, right_on, rnames, kw["join_key_domains"], nbj)
+    names = lnames + rnames
+    c = _Cols(lcols + tables, [0] * len(lcols) + [1] * len(tables))
+    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
+    jslots, jlo, jsize = _keys([names.index(k) for k in left_on], kw["join_key_domains"])
+    gslots, glo, gsize = _keys([names.index(k) for k in keys], kw["key_domains"])
+    nb = kw["num_buckets"]
+    cnt, acc = _grouped_buffers(len(vaggs), nb, dev)
+    fns = _fns(vaggs)
+    err = entry("grouped_join_agg")(
+        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
+        c.types.ctypes.data, c.src.ctypes.data, c.n, left.valid.data_ptr(),
+        left.capacity, jslots.ctypes.data, jlo.ctypes.data, jsize.ctypes.data,
+        len(left_on), present.data_ptr(), gslots.ctypes.data, glo.ctypes.data,
+        gsize.ctypes.data, len(keys), fns.ctypes.data, len(vaggs), nb,
+        cnt.data_ptr(), acc.data_ptr(), _stream(dev))
+    _raise_on(err, "grouped_join_agg")
+    LAUNCHES["grouped_join_agg"] += 1
+    key_dtypes = [left.cols[k].dtype if k in left.cols else right.cols[k].dtype
+                  for k in keys]
+    return _grouped_epilogue(cnt, acc, keys, key_dtypes, aggs, kw["max_groups"],
+                             kw["key_domains"], nb)

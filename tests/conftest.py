@@ -106,3 +106,8 @@ except ImportError:
         sys.modules["hypothesis.strategies"] = st
 
     _install_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where no CUDA device is visible")

@@ -1,0 +1,268 @@
+"""The port's kernel wrappers and plain versions against the JAX kernels.
+
+On the CPU a wrapper in ``repro_torch.kernels.ops`` takes its plain
+version (``ref``), since the CUDA kernels run only on a card.  Here both
+are held against ``repro.kernels.ops`` — the Pallas kernels, in interpret
+mode as ``tests/test_kernels.py`` runs them — on the same numpy tables:
+empty selections, ragged capacities, join keys outside the declared domain
+and duplicate build keys included.  Integers (keys, counts, validity) must
+match exactly; floats within rtol 1e-5, since the two sum in different
+orders.  The ctypes bindings are checked against the C signatures.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import expr as jexpr  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.relational import runtime as jrt  # noqa: E402
+from repro_torch.convert import vectable_from_arrays  # noqa: E402
+from repro_torch.core import expr as texpr  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+RTOL = 1e-5
+
+
+def _tables(seed=3, n=1003, m=61):
+    rng = np.random.default_rng(seed)
+    left = {
+        "a": rng.integers(-50, 50, n).astype(np.int32),
+        "x": rng.uniform(-2, 2, n).astype(np.float32),
+        "d": np.round(rng.uniform(0, 0.1, n), 2).astype(np.float32),
+        "k": rng.integers(0, 7, n).astype(np.int32),
+        "fk": rng.integers(-3, 40, n).astype(np.int32),  # partly out of domain
+    }
+    lvalid = rng.random(n) < 0.9
+    right = {
+        "rk": rng.integers(0, 30, m).astype(np.int32),  # duplicate keys
+        "g": rng.integers(0, 3, m).astype(np.int32),
+        "w": rng.uniform(0, 5, m).astype(np.float32),
+    }
+    rvalid = rng.random(m) < 0.9
+    return (left, lvalid), (right, rvalid)
+
+
+def _jax_table(cols, valid):
+    return jrt.VecTable({k: jnp.asarray(v) for k, v in cols.items()}, jnp.asarray(valid))
+
+
+def _torch_table(cols, valid):
+    return vectable_from_arrays(cols, valid, "cpu")
+
+
+def _close(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, what
+    if np.issubdtype(want.dtype, np.floating) or np.issubdtype(got.dtype, np.floating):
+        np.testing.assert_allclose(got.astype(np.float64), want.astype(np.float64),
+                                   rtol=RTOL, atol=1e-5, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _same_table(got, want):
+    _close(got.valid.numpy(), np.asarray(want.valid), "valid")
+    assert set(got.cols) == set(want.cols)
+    for k in want.cols:
+        _close(got.cols[k].numpy(), np.asarray(want.cols[k]), k)
+
+
+PREDS = {
+    "mixed": lambda m: (m.col("d") <= 0.07) & (m.col("a") > -10.5),
+    "empty": lambda m: m.col("a") > 1000,
+    "true": lambda m: m.const(True),
+}
+
+
+def _aggs(m):
+    return (m.AggSpec("sum", m.col("x") * (1.0 - m.col("d")), "s"),
+            m.AggSpec("min", m.col("x"), "mn"),
+            m.AggSpec("max", m.col("a") / 3, "mx"),
+            m.AggSpec("count", m.const(1), "c"))
+
+
+@pytest.mark.parametrize("pred", sorted(PREDS))
+def test_fused_select_agg_matches_pallas(pred):
+    (lc, lv), _ = _tables()
+    want = jops.fused_select_agg(_jax_table(lc, lv), PREDS[pred](jexpr), _aggs(jexpr))
+    t = _torch_table(lc, lv)
+    for fn in (ref.fused_select_agg, ops.fused_select_agg):
+        got = fn(t, PREDS[pred](texpr), _aggs(texpr))
+        assert got["c"].dtype == torch.int32  # exact count, not the TPU's f32 lane
+        for k in want:
+            _close(got[k].numpy(), np.asarray(want[k]), k)
+    if pred == "empty":
+        assert float(got["mn"]) == np.inf and float(got["mx"]) == -np.inf
+
+
+GROUPINGS = {
+    "one_key": (("k",), ((0, 6),)),
+    "two_keys": (("k", "a"), ((0, 6), (-50, 49))),
+    "clipped_keys": (("fk",), ((0, 29),)),  # keys outside the domain clip
+}
+
+
+@pytest.mark.parametrize("pred", ["mixed", "empty"])
+@pytest.mark.parametrize("grouping", sorted(GROUPINGS))
+def test_grouped_select_agg_matches_pallas(pred, grouping):
+    (lc, lv), _ = _tables()
+    keys, doms = GROUPINGS[grouping]
+    nb = int(np.prod([hi - lo + 1 for lo, hi in doms]))
+    mg = min(nb, 40)  # fewer groups than buckets: compaction drops the rest
+    want = jops.grouped_select_agg(_jax_table(lc, lv), PREDS[pred](jexpr), keys,
+                                   _aggs(jexpr), mg, doms, nb)
+    t = _torch_table(lc, lv)
+    for fn in (ref.grouped_select_agg, ops.grouped_select_agg):
+        got = fn(t, PREDS[pred](texpr), keys, _aggs(texpr), mg, doms, nb)
+        _same_table(got, want)
+
+
+JOIN_GROUPINGS = {
+    "probe_key": (("k",), ((0, 6),)),
+    "build_key": (("g", "k"), ((0, 2), (0, 6))),
+}
+
+
+def _join_kw(m, pred, grouping):
+    keys, doms = JOIN_GROUPINGS[grouping]
+    nb = int(np.prod([hi - lo + 1 for lo, hi in doms]))
+    p = None if pred == "none" else PREDS[pred](m)
+    return dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 29),),
+                join_num_buckets=30, keys=keys, max_groups=nb, key_domains=doms,
+                num_buckets=nb, pred=p,
+                aggs=(m.AggSpec("count", m.const(1), "c"),
+                      m.AggSpec("sum", m.col("w") * m.col("x"), "s"),
+                      m.AggSpec("max", m.col("w"), "mx"),
+                      m.AggSpec("min", m.col("a"), "mn")))
+
+
+@pytest.mark.parametrize("pred", ["mixed", "empty", "none"])
+@pytest.mark.parametrize("grouping", sorted(JOIN_GROUPINGS))
+def test_grouped_join_agg_matches_pallas(pred, grouping):
+    """A primary-key build side (every key of the domain once, shuffled),
+    probe keys partly outside the domain: the TPC-H orders shape."""
+    (lc, lv), (rc, _) = _tables()
+    rng = np.random.default_rng(5)
+    rc = {"rk": rng.permutation(30).astype(np.int32),
+          "g": rng.integers(0, 3, 30).astype(np.int32),
+          "w": rng.uniform(0, 5, 30).astype(np.float32)}
+    rv = np.ones(30, bool)
+    want = jops.grouped_join_agg(_jax_table(lc, lv), _jax_table(rc, rv),
+                                 **_join_kw(jexpr, pred, grouping))
+    for fn in (ref.grouped_join_agg, ops.grouped_join_agg):
+        got = fn(_torch_table(lc, lv), _torch_table(rc, rv),
+                 **_join_kw(texpr, pred, grouping))
+        _same_table(got, want)
+
+
+@pytest.mark.parametrize("pred", ["mixed", "none"])
+@pytest.mark.parametrize("grouping", sorted(JOIN_GROUPINGS))
+def test_grouped_join_agg_duplicate_build_keys(pred, grouping):
+    """Duplicate and invalid build rows, keys missing from the build side:
+    held against the JAX runtime's fused_join_group_agg, the semantics the
+    Pallas kernel implements — that kernel's presence table is gathered by
+    build-row index instead of bucket (ROADMAP Queue 3) and drops matches
+    on this input."""
+    (lc, lv), (rc, rv) = _tables()
+    want = jrt.fused_join_group_agg(_jax_table(lc, lv), _jax_table(rc, rv),
+                                    **_join_kw(jexpr, pred, grouping))
+    for fn in (ref.grouped_join_agg, ops.grouped_join_agg):
+        got = fn(_torch_table(lc, lv), _torch_table(rc, rv),
+                 **_join_kw(texpr, pred, grouping))
+        _same_table(got, want)
+
+
+def test_grouped_join_agg_smallest_presence_case():
+    """Probe key 0, build keys [2, 0]: one match.  (The Pallas kernel
+    finds none here; see ROADMAP Queue 3.)"""
+    left = vectable_from_arrays({"fk": np.array([0], np.int32)}, np.array([True]), "cpu")
+    right = vectable_from_arrays({"rk": np.array([2, 0], np.int32)}, np.ones(2, bool), "cpu")
+    out = ops.grouped_join_agg(left, right, left_on=("fk",), right_on=("rk",),
+                               join_key_domains=((0, 2),), join_num_buckets=3, keys=(),
+                               aggs=(texpr.AggSpec("count", texpr.const(1), "c"),),
+                               max_groups=1, key_domains=(), num_buckets=1)
+    assert out.to_numpy()["c"].tolist() == [1]
+
+
+def test_build_tables_first_occurrence_wins():
+    right = vectable_from_arrays(
+        {"rk": np.array([5, 2, 5, 9, 2, 40], np.int32),
+         "v": np.array([10, 20, 30, 40, 50, 60], np.int32)},
+        np.array([True, True, True, False, True, True]), "cpu")
+    present, (v,) = ops.build_tables(right, ("rk",), ("v",), ((0, 9),), 10)
+    assert present.tolist() == [False, False, True, False, False, True,
+                                False, False, False, False]
+    assert v[2] == 20 and v[5] == 10  # first valid occurrence; 9 is invalid, 40 out of domain
+    assert v.dtype == torch.int32  # build values keep their own type
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    (lc, lv), _ = _tables()
+    ops.reset_launches()
+    ops.fused_select_agg(_torch_table(lc, lv), PREDS["mixed"](texpr), _aggs(texpr))
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
+def test_wrappers_reject_other_devices():
+    t = vectable_from_arrays({"a": np.zeros(4, np.int32)}, np.ones(4, bool), "cpu")
+    meta = type(t)({"a": torch.zeros(4, dtype=torch.int32, device="meta")},
+                   torch.ones(4, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.fused_select_agg(meta, texpr.col("a") > 0, ())
+    with pytest.raises(ValueError, match="several devices"):
+        ops.grouped_join_agg(t, meta, left_on=("a",), right_on=("a",),
+                             join_key_domains=((0, 3),), join_num_buckets=4, keys=(),
+                             aggs=(), max_groups=1, key_domains=(), num_buckets=1)
+
+
+def _c_params(kernel):
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    fn = build.ENTRY[kernel][0]
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = []
+    for p in params:
+        if "*" in p:
+            kinds.append(build._P)
+        elif p.startswith("long long"):
+            kinds.append(build._L)
+        else:
+            assert p.startswith("int "), p
+            kinds.append(build._I)
+    return kinds
+
+
+@pytest.mark.parametrize("kernel", build.KERNELS)
+def test_ctypes_bindings_match_c_signatures(kernel):
+    assert _c_params(kernel) == build.ENTRY[kernel][1]
+
+
+def test_library_path_tracks_sources(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    p = build.library_path("fused_select_agg")
+    assert p.parent == tmp_path and p.name.startswith("fused_select_agg-")
+    assert p == build.library_path("fused_select_agg")
+    assert p != build.library_path("grouped_select_agg")
+
+
+def test_default_build_dir_is_ignored_by_git(monkeypatch):
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    root = Path(build.__file__).resolve().parents[3]
+    assert build.build_dir() == root / "build" / "repro_torch_kernels"
+    assert "build/" in (root / ".gitignore").read_text().split()
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
