@@ -8,15 +8,17 @@ numpy, never ``jax`` and nothing of ``repro``.
 Layout follows ``repro`` so each module's counterpart is easy to find:
 
 * ``core``          — IR types, expressions, programs, verifier, registry,
-  the ``cf``/``rel``/``vec`` flavors and the rewrite passes;
+  the ``cf``/``rel``/``vec``/``la`` flavors and the rewrite passes
+  (``Parallelize``, ``FuseKMeansStep`` among them);
 * ``compiler``      — table statistics and the fixed lowering driver;
 * ``frontends``     — ``Context`` / ``Frame`` (the dataflow frontend);
 * ``relational``    — the torch ``VecTable`` runtime and TPC-H;
-* ``backends``      — the vec emitters and the eager local backend;
+* ``backends``      — the vec, cf and la emitters and the eager local
+  backend;
 * ``kernels``       — CUDA kernels (``csrc``), their wrappers and plain
   PyTorch versions;
-* ``convert``       — carries tables across from numpy (or a JAX
-  ``VecTable``'s arrays) onto the device.
+* ``convert``       — carries tables and arrays across from numpy (or a
+  JAX ``VecTable``'s arrays) onto the device.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -2,9 +2,10 @@
 
 ``compile`` runs one fixed lowering path — the JAX package's ``local``
 target under the strategy ``groupby=direct, join=hash, encode=raw,
-fuse=fused``, sequential:
+fuse=fused``:
 
     CommonSubexpressionElimination, DeadCodeElimination
+    → Parallelize(n=parallel)                      (when parallel > 1)
     → LowerRelToVec(catalog with statistics, groupby/join/encode)
     → FuseSelectAgg, FuseSelectGroupAgg, FuseJoinGroupAgg, DeadCodeElimination
     → verify
@@ -21,7 +22,7 @@ from typing import Any, Dict, Optional
 from ..core import verify
 from ..core.passes import (
     CommonSubexpressionElimination, DeadCodeElimination, FuseJoinGroupAgg,
-    FuseSelectAgg, FuseSelectGroupAgg,
+    FuseSelectAgg, FuseSelectGroupAgg, Parallelize,
 )
 from ..core.passes.lower_vec import Catalog, LowerRelToVec
 from ..core.program import Program
@@ -60,28 +61,29 @@ def normalize_strategy(strategy: Any = None) -> Dict[str, str]:
 
 def compile(program: Program, catalog: Optional[Catalog] = None, *,
             use_kernels: bool = True, parallel: Optional[int] = None,
-            optimize: Optional[str] = None, strategy: Any = None):
+            optimize: Optional[str] = None, strategy: Any = None, device: Any = None):
     """Lower a ``rel`` program to the vec flavor and bind it to the torch
-    backend; returns a callable ``compiled(sources) -> [results]`` whose
-    ``.program`` is the lowered program."""
+    backend on ``device`` (``cuda`` unless given, resolved when it runs);
+    returns a callable ``compiled(sources) -> [results]`` whose
+    ``.program`` is the lowered program.  ``parallel=n`` splits the sources
+    into ``n`` chunks (the paper's parallelization rewrite)."""
     from ..backends.local import LocalBackend
 
-    if parallel is not None and parallel > 1:
-        raise NotImplementedError(
-            "parallel>1 is not ported to torch yet (ROADMAP Queue 1: parallel>1)")
     if optimize is not None:
         raise NotImplementedError(
             f"optimize={optimize!r} is not ported to torch yet (ROADMAP Queue 1: "
             "cost search, plan store, fallback ladder and taps)")
     chosen = normalize_strategy(strategy)
-    passes = [CommonSubexpressionElimination(), DeadCodeElimination(),
-              LowerRelToVec(catalog if catalog is not None else Catalog(),
-                            groupby=chosen["groupby"], join=chosen["join"],
-                            encode=chosen["encode"]),
-              FuseSelectAgg(), FuseSelectGroupAgg(), FuseJoinGroupAgg(),
-              DeadCodeElimination()]
+    passes = [CommonSubexpressionElimination(), DeadCodeElimination()]
+    if parallel is not None and parallel > 1:
+        passes.append(Parallelize(n=parallel))
+    passes += [LowerRelToVec(catalog if catalog is not None else Catalog(),
+                             groupby=chosen["groupby"], join=chosen["join"],
+                             encode=chosen["encode"]),
+               FuseSelectAgg(), FuseSelectGroupAgg(), FuseJoinGroupAgg(),
+               DeadCodeElimination()]
     for p in passes:
         program = p.apply(program)
         verify(program, allow_unknown_ops=True)
     verify(program)
-    return LocalBackend(use_kernels=use_kernels).compile(program)
+    return LocalBackend(use_kernels=use_kernels, device=device).compile(program)

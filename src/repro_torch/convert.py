@@ -1,14 +1,16 @@
-"""Carry tables across onto the device.
+"""Carry tables and arrays across onto the device.
 
 The state of this system is its tables, so this is the counterpart of
 carrying weights across: numpy columns — or a JAX ``VecTable``'s
 ``.cols`` / ``.valid`` as numpy arrays, holes included, so a table from
-the middle of a JAX pipeline carries over — become torch ``VecTable``\\ s.
+the middle of a JAX pipeline carries over — become torch ``VecTable``\\ s,
+and the ``la`` flavor's arrays (k-means points and centroids) become
+tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -37,3 +39,11 @@ def sources_from_context(ctx: Any, device: Any = None) -> Dict[str, VecTable]:
     return {name: VecTable.from_numpy(ctx._physical_columns(name), ctx.capacity(name),
                                       device=device)
             for name in ctx.tables}
+
+
+def tensors_from_arrays(*arrays: np.ndarray, device: Any = None) -> List[torch.Tensor]:
+    """Each array as a contiguous tensor on ``device`` (``cuda`` unless
+    given), with the x64-off dtypes: 64-bit ints and floats become 32-bit."""
+    dev = resolve_device(device)
+    return [torch.from_numpy(np.array(_np_x32(np.asarray(a)), copy=True)).to(dev)
+            for a in arrays]

@@ -2,7 +2,7 @@
 
 This package's own copy of ``repro.core``, trimmed to the flavors the
 torch port executes.  Importing ``repro_torch.core`` loads the ``cf``,
-``rel`` and ``vec`` flavors into the registry.
+``rel``, ``vec`` and ``la`` flavors into the registry.
 """
 
 from . import types, expr  # noqa: F401

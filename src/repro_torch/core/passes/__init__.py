@@ -9,5 +9,8 @@ from .rewriter import (  # noqa: F401
 )
 from .dce import DeadCodeElimination  # noqa: F401
 from .cse import CommonSubexpressionElimination  # noqa: F401
-from .fusion import FuseJoinGroupAgg, FuseSelectAgg, FuseSelectGroupAgg  # noqa: F401
+from .fusion import (  # noqa: F401
+    FuseJoinGroupAgg, FuseKMeansStep, FuseSelectAgg, FuseSelectGroupAgg,
+)
+from .parallelize import Parallelize  # noqa: F401
 from .lower_vec import Catalog, LowerRelToVec  # noqa: F401

@@ -16,6 +16,10 @@ collapse into single instructions that the backend JIT-compiles as one unit
   (the TPC-H Q3/Q12 shape) runs as one pass and the join result is never
   materialized; under ``use_kernels`` it is one ``grouped_join_agg`` CUDA
   kernel launch.
+* ``FuseKMeansStep`` — ``CDist2 → ArgMinRow → SegSum + SegCount`` becomes
+  ``la.KMeansStep`` (the "run-based aggregation" plan analysis the paper
+  credits for matching hand-written C++ k-means); under ``use_kernels`` it
+  is one ``kmeans_step`` CUDA kernel launch.
 """
 
 from __future__ import annotations
@@ -211,3 +215,52 @@ class FuseJoinGroupAgg(ProgramRule):
                         for ins in program.body if id(ins) not in dead]
             return program.with_body(new_body)
         return None
+
+
+class FuseKMeansStep(ProgramRule):
+    name = "fuse-kmeans-step"
+
+    def run(self, program: Program) -> Optional[Program]:
+        producers = program.producers()
+
+        segsum = segcount = None
+        for ins in program.body:
+            if ins.opcode == "la.SegSum":
+                segsum = ins
+            if ins.opcode == "la.SegCount":
+                segcount = ins
+        if segsum is None or segcount is None:
+            return None
+
+        lab = segsum.inputs[1]
+        if segcount.inputs[0].name != lab.name:
+            return None
+        argmin = producers.get(lab.name)
+        if argmin is None or argmin.opcode != "la.ArgMinRow":
+            return None
+        if program.uses(argmin.outputs[0]) != 2:
+            return None
+        cdist = producers.get(argmin.inputs[0].name)
+        if cdist is None or cdist.opcode != "la.CDist2":
+            return None
+        if program.uses(cdist.outputs[0]) != 1:
+            return None
+        x, c = cdist.inputs
+        if segsum.inputs[0].name != x.name:
+            return None
+
+        fused = Instruction(
+            "la.KMeansStep",
+            (x, c),
+            (segsum.outputs[0], segcount.outputs[0]),
+        )
+        dead = {id(cdist), id(argmin), id(segcount)}
+        new_body = []
+        for ins in program.body:
+            if id(ins) in dead:
+                continue
+            if ins is segsum:
+                new_body.append(fused)
+                continue
+            new_body.append(ins)
+        return program.with_body(new_body)

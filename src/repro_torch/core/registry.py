@@ -112,4 +112,4 @@ def infer_output_types(
 
 def ensure_flavors_loaded() -> None:
     """Import the standard flavor modules (idempotent)."""
-    from .ops import controlflow, relational, vec  # noqa: F401
+    from .ops import controlflow, linalg, relational, vec  # noqa: F401

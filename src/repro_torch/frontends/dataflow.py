@@ -179,7 +179,8 @@ class Frame:
         """Compile and run on ``device`` (``cuda`` unless given; ``"cpu"``
         runs the kernels' plain versions).  Defaults: ``use_kernels=True``
         and the strategy ``groupby=direct, join=hash, encode=raw,
-        fuse=fused`` — the only lowering path this package executes."""
+        fuse=fused`` — the only lowering path this package executes;
+        ``parallel=n`` splits the tables into ``n`` chunks."""
         return self._ctx.execute(self, parallel=parallel, use_kernels=use_kernels,
                                  optimize=optimize, strategy=strategy,
                                  device=device)
@@ -289,19 +290,20 @@ class Context:
 
     def compile(self, frame: Frame, parallel: Optional[int] = None,
                 use_kernels: bool = True, optimize: Optional[str] = None,
-                strategy: Any = None):
+                strategy: Any = None, device: Any = None):
         """Lower ``frame`` through this package's fixed driver.
 
         Defaults are the torch port's lowering path: strategy
-        ``groupby=direct, join=hash, encode=raw, fuse=fused``, sequential,
-        and ``use_kernels=True`` (the CUDA kernels on a card, their plain
-        versions on CPU tensors).  The direct tiers need key-domain bounds,
-        so the catalog always carries exact statistics."""
+        ``groupby=direct, join=hash, encode=raw, fuse=fused``, sequential
+        unless ``parallel`` > 1, ``use_kernels=True`` (the CUDA kernels on
+        a card, their plain versions on CPU tensors) and ``device``
+        ``cuda``.  The direct tiers need key-domain bounds, so the catalog
+        always carries exact statistics."""
         from ..compiler import compile as cvm_compile
 
         return cvm_compile(frame.program(), catalog=self.catalog(),
                            use_kernels=use_kernels, parallel=parallel,
-                           optimize=optimize, strategy=strategy)
+                           optimize=optimize, strategy=strategy, device=device)
 
     def _physical_columns(self, name: str) -> Dict[str, np.ndarray]:
         """Columns in their physical dtypes: string columns become i32
@@ -337,7 +339,7 @@ class Context:
                 use_kernels: bool = True, optimize: Optional[str] = None,
                 strategy: Any = None, device: Any = None) -> Dict[str, np.ndarray]:
         compiled = self.compile(frame, parallel=parallel, use_kernels=use_kernels,
-                                optimize=optimize, strategy=strategy)
+                                optimize=optimize, strategy=strategy, device=device)
         (out,) = compiled(self.sources(device))
         return self._decode_output(frame, _to_numpy(out))
 

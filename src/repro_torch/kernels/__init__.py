@@ -10,5 +10,7 @@
 * ``ref``        — the plain PyTorch version of each kernel.
 
 Kernels: ``fused_select_agg`` (TPC-H Q6/Q14/Q19), ``grouped_select_agg``
-(Q1, Q4 inner) and ``grouped_join_agg`` (Q4 outer, Q12).
+(Q1, Q4 inner), ``grouped_join_agg`` (Q4 outer, Q12), ``kmeans_step``
+(``la.KMeansStep``) and ``segsum`` (rows summed by segment id; no emitter
+calls it, as in the JAX package).
 """

@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
+KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg", "kmeans_step",
+           "segsum")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,8 @@ ENTRY = {
     "grouped_join_agg": ("gja_launch", [
         _P, _I, _I, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _I,
         _P, _I, _L, _P, _P, _P]),
+    "kmeans_step": ("kms_launch", [_P, _P, _L, _I, _I, _P, _P, _P]),
+    "segsum": ("seg_launch", [_P, _P, _L, _I, _I, _P, _P]),
 }
 
 #: where the CUDA toolkit installs nvcc by default
@@ -65,9 +68,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of the flags, its source and the
+    expression VM header where the source includes it."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (CSRC / "exprvm.cuh", CSRC / f"{name}.cu"):
-        h.update(src.read_bytes())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    if b'#include "exprvm.cuh"' in src:
+        h.update((CSRC / "exprvm.cuh").read_bytes())
+    h.update(src)
     return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 

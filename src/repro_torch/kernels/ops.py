@@ -1,11 +1,11 @@
 """Wrappers around the CUDA kernels.
 
-Each wrapper takes the vec operator's inputs (``VecTable``\\ s and the
-instruction's parameters) and returns what the operator returns.  A table
-on the CPU goes to the plain version in ``ref``; a table on a CUDA device
-goes to the kernel, and a launch that fails raises.  Outputs and scratch
-are allocated here with ``torch.empty``; the kernels allocate nothing and
-never synchronise.
+Each wrapper takes the operator's inputs (``VecTable``\\ s and the
+instruction's parameters, or the ``la`` flavor's tensors) and returns what
+the operator returns.  Inputs on the CPU go to the plain version in
+``ref``; inputs on a CUDA device go to the kernel, and a launch that fails
+raises.  Outputs and scratch are allocated here with ``torch.empty``; the
+kernels allocate nothing and never synchronise.
 
 The epilogue keeps the JAX package's contract (``repro/kernels/ops.py``):
 the kernels' ±3e38 sentinels for empty min/max map back to ±inf, the
@@ -18,7 +18,7 @@ limit: the Hopper kernels accumulate with atomics instead of a one-hot.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from ..relational import runtime as rt
 from . import exprcode, ref
 
 LAUNCHES: Dict[str, int] = {"fused_select_agg": 0, "grouped_select_agg": 0,
-                            "grouped_join_agg": 0}
+                            "grouped_join_agg": 0, "kmeans_step": 0, "segsum": 0}
 
 _FN = {"sum": 0, "min": 1, "max": 2}
 _SENTINEL = 3.0e38
@@ -46,9 +46,9 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(*tables: rt.VecTable) -> bool:
-    """True for CUDA tables, False for CPU tables; raises on a mix or on
-    any other device."""
+def _on_card(*tables: Any) -> bool:
+    """True for CUDA tables or tensors, False for CPU ones; raises on a mix
+    or on any other device."""
     devs = {t.device for t in tables}
     if len(devs) != 1:
         raise ValueError(f"kernel inputs lie on several devices: {sorted(map(str, devs))}")
@@ -307,3 +307,62 @@ def grouped_join_agg(left: rt.VecTable, right: rt.VecTable, *, left_on: Sequence
                   for k in keys]
     return _grouped_epilogue(cnt, acc, keys, key_dtypes, aggs, kw["max_groups"],
                              kw["key_domains"], nb)
+
+
+def _check_matrix(t: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> None:
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, not {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{what} must have {dim} dimension(s), not shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+
+
+def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(n, d) f32 rows summed by segment id (n,) int32 → (num_segments, d)
+    f32; ids outside [0, num_segments) are dropped."""
+    if not _on_card(data, seg_ids):
+        return ref.segsum(data, seg_ids, num_segments)
+    from .build import entry
+
+    _check_matrix(data, torch.float32, 2, "segsum data")
+    _check_matrix(seg_ids, torch.int32, 1, "segsum ids")
+    n, d = data.shape
+    if seg_ids.shape[0] != n:
+        raise ValueError(f"segsum: {seg_ids.shape[0]} ids for {n} rows")
+    if d < 1 or num_segments < 1:
+        raise ValueError(f"segsum takes d ≥ 1 and num_segments ≥ 1, not {d}, {num_segments}")
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
+    err = entry("segsum")(data.data_ptr(), seg_ids.data_ptr(), n, d, num_segments,
+                          out.data_ptr(), _stream(data.device))
+    _raise_on(err, "segsum")
+    LAUNCHES["segsum"] += 1
+    return out
+
+
+def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Points (n, d) f32 and centroids (k, d) f32 → (sums (k, d) f32,
+    counts (k,) f32) over each point's nearest centroid (``la.KMeansStep``
+    under ``use_kernels``)."""
+    if not _on_card(x, c):
+        return ref.kmeans_step(x, c)
+    from .build import constant, entry
+
+    _check_matrix(x, torch.float32, 2, "kmeans_step points")
+    _check_matrix(c, torch.float32, 2, "kmeans_step centroids")
+    (n, d), k = x.shape, c.shape[0]
+    if c.shape[1] != d:
+        raise ValueError(f"kmeans_step: points of width {d}, centroids of width {c.shape[1]}")
+    max_d = constant("kmeans_step", "kms_max_d")
+    if not (1 <= d <= max_d) or k < 1:
+        raise ValueError(f"kmeans_step takes 1 ≤ d ≤ {max_d} and k ≥ 1, not d={d}, k={k}")
+    sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.empty(k, dtype=torch.int32, device=x.device)
+    err = entry("kmeans_step")(x.data_ptr(), c.data_ptr(), n, d, k, sums.data_ptr(),
+                               counts.data_ptr(), _stream(x.device))
+    if err == constant("kmeans_step", "kms_err_table"):
+        raise ValueError(f"kmeans_step: {k} centroids of width {d} do not fit in the "
+                         "card's opt-in shared memory per block")
+    _raise_on(err, "kmeans_step")
+    LAUNCHES["kmeans_step"] += 1
+    return sums, counts.to(torch.float32)

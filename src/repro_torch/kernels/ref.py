@@ -16,6 +16,29 @@ from ..core.expr import AggSpec, Expr
 from ..relational import runtime as rt
 
 
+def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows of ``data`` (n, d) f32 summed by segment id (n,) i32 →
+    (num_segments, d) f32; ids outside [0, num_segments) are dropped."""
+    return rt.segment_sum(data, seg_ids, num_segments)
+
+
+def cdist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared distances (n, k): ‖x‖² − 2·x@cᵀ + ‖c‖², in that expansion,
+    the product a full-f32 ``torch.matmul`` (TF32 stays off)."""
+    x2 = (x * x).sum(1, keepdim=True)
+    c2 = (c * c).sum(1, keepdim=True).T
+    return x2 - 2.0 * torch.matmul(x, c.T) + c2
+
+
+def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One k-means step: (sums (k, d) f32, counts (k,) f32) of the points
+    ``x`` (n, d) over their nearest centroid in ``c`` (k, d); the argmin
+    takes the first index on ties."""
+    k = c.shape[0]
+    labels = torch.argmin(cdist2(x, c), dim=1)
+    return rt.segment_sum(x, labels, k), rt.segment_count(labels, k)
+
+
 def fused_select_agg(table: rt.VecTable, pred: Expr,
                      aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
     """Masked single-pass select + aggregate → {name: 0-dim tensor}; count

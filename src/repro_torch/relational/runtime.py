@@ -17,7 +17,7 @@ from the JAX package:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -221,6 +221,18 @@ def aggr(t: VecTable, aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
     return out
 
 
+_FOLD = {"sum": lambda v: v.sum(0, dtype=v.dtype), "min": lambda v: v.amin(0),
+         "max": lambda v: v.amax(0)}
+
+
+def combine_partials(partials: Sequence[Dict[str, torch.Tensor]],
+                     aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
+    """Fold per-chunk Single⟨aggs⟩ partials with each agg's combine
+    function; a sum keeps its partials' dtype (int32 counts stay int32)."""
+    return {a.name: _FOLD[a.combine_fn](torch.stack([p[a.name] for p in partials]))
+            for a in aggs}
+
+
 def _sort_perm(t: VecTable, keys: Sequence[str], ascending: Sequence[bool]) -> torch.Tensor:
     """Permutation: valid rows first, ordered by keys (stable).
 
@@ -285,7 +297,8 @@ _SUM_MAX_PARTIALS = 1 << 24
 
 
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """f32 sums of ``vals`` into ``num_segments`` slots, in two levels.
+    """f32 sums of the rows of ``vals`` (``(n,)`` or ``(n, d)``) into
+    ``num_segments`` slots, in two levels.
 
     One accumulator per segment that every row adds into loses about
     n·2^-24 of a sum over n rows (1.5e-4 relative on a 490,000-row Q1
@@ -293,12 +306,36 @@ def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> to
     longer chunks when the chunks × segments partials would pass
     ``_SUM_MAX_PARTIALS``), each chunk sums into partials of its own, and
     torch's reduction adds the partials of each segment."""
-    n = vals.shape[0]
+    n, rest = vals.shape[0], tuple(vals.shape[1:])
     chunks = max(1, min(-(-n // _SUM_CHUNK_ROWS), _SUM_MAX_PARTIALS // num_segments))
     rows = max(1, -(-n // chunks))
     slot = torch.arange(n, device=vals.device) // rows * num_segments + seg
-    part = torch.zeros(chunks * num_segments, dtype=vals.dtype, device=vals.device)
-    return part.index_add_(0, slot, vals).view(chunks, num_segments).sum(0)
+    part = torch.zeros((chunks * num_segments,) + rest, dtype=vals.dtype, device=vals.device)
+    return part.index_add_(0, slot, vals).view((chunks, num_segments) + rest).sum(0)
+
+
+def _dump_outside(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Segment ids as int64, those outside [0, num_segments) sent to the
+    dump slot ``num_segments``."""
+    seg = seg.to(torch.int64)
+    return torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+
+
+def segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows of ``data`` (n, d) summed by segment id (n,) → (num_segments, d);
+    ids outside [0, num_segments) are dropped (``jax.ops.segment_sum``'s
+    semantics), the sums are f32 in two levels (``_segment_sum``)."""
+    dump = _dump_outside(seg, num_segments)
+    return _segment_sum(_as_f32(data), dump, num_segments + 1)[:num_segments]
+
+
+def segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Occurrences of each segment id (n,) → (num_segments,) f32, counted
+    exactly in int32 first; ids outside [0, num_segments) are dropped."""
+    dump = _dump_outside(seg, num_segments)
+    counts = torch.zeros(num_segments + 1, dtype=torch.int32, device=seg.device)
+    counts.index_add_(0, dump, torch.ones_like(dump, dtype=torch.int32))
+    return counts[:num_segments].to(torch.float32)
 
 
 def _segment_agg(a: AggSpec, cols: Mapping[str, torch.Tensor], valid: torch.Tensor,
@@ -470,3 +507,22 @@ def fused_join_group_agg(left: VecTable, right: VecTable,
                            columns=sorted(needed))
     return group_agg_direct(joined, keys, aggs, max_groups, key_domains,
                             num_buckets)
+
+
+def concat(tables: Sequence[VecTable]) -> VecTable:
+    cols = {k: torch.cat([t.cols[k] for t in tables]) for k in tables[0].cols}
+    return VecTable(cols, torch.cat([t.valid for t in tables]))
+
+
+def split(t: VecTable, n: int) -> List[VecTable]:
+    """``n`` equal row ranges; each column of a chunk is a contiguous view
+    of the table's column, so the kernels take it without a copy."""
+    cap = t.capacity
+    if cap % n != 0:
+        raise ValueError(f"capacity {cap} not divisible by {n}")
+    c = cap // n
+    return [
+        VecTable({k: v[i * c:(i + 1) * c] for k, v in t.cols.items()},
+                 t.valid[i * c:(i + 1) * c])
+        for i in range(n)
+    ]

@@ -7,7 +7,10 @@ machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Integers exact; floats within rtol 1e-4, because the kernels add float
-sums with atomics, in an order that changes from run to run.
+sums with atomics, in an order that changes from run to run.  k-means
+steps go by the tie-margin rule of ``repro_torch.kmeans`` at rtol 1e-4:
+counts add up to n and sums to Σx whatever the ties, and each count and
+sum may move by what the points within a few f32 roundings of a tie carry.
 """
 
 import numpy as np
@@ -15,7 +18,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.convert import vectable_from_arrays  # noqa: E402
+from repro_torch.backends.local import LocalBackend  # noqa: E402
+from repro_torch.convert import tensors_from_arrays, vectable_from_arrays  # noqa: E402
+from repro_torch import kmeans  # noqa: E402
 from repro_torch.core.expr import AggSpec, col, const  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.relational import tpch  # noqa: E402
@@ -111,3 +116,91 @@ def test_tpch_on_card_matches_reference(card):
             else:
                 np.testing.assert_allclose(g.astype(np.float64), w, rtol=2e-4,
                                            err_msg=f"{q}.{k}")
+
+
+def test_tpch_parallel_on_card_matches_reference(card):
+    tables = tpch.generate(sf=0.05, seed=1)
+    ctx = tpch.make_context(tables)
+    for q, f in tpch.QUERIES.items():
+        got = f(ctx).collect(device=card, parallel=4)
+        want = tpch.REFERENCES[q](tables)
+        for k in want:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            assert g.shape == w.shape, (q, k)
+            if np.issubdtype(w.dtype, np.integer):
+                np.testing.assert_array_equal(g.astype(np.int64), w, err_msg=f"{q}.{k}")
+            else:
+                np.testing.assert_allclose(g.astype(np.float64), w, rtol=2e-4,
+                                           err_msg=f"{q}.{k}")
+
+
+def _clusters(n, d, k, seed):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0, 5, (k, d))
+    x = centres[rng.integers(0, k, n)] + rng.normal(0, 1, (n, d))
+    return x.astype(np.float32), rng.normal(0, 5, (k, d)).astype(np.float32)
+
+
+def _assert_step_agrees(got, want, x, c):
+    kmeans.check_step("kmeans_step", got, want, kmeans.reference_step(x, c), 1e-4)
+
+
+@pytest.mark.parametrize("n,d,k", [
+    (1003, 8, 16), (999, 3, 7), (1000, 8, 1), (2000, 128, 8),
+    (5000, 64, 256),   # 128 KB of centroids and accumulators: dynamic shared memory
+    (3000, 64, 512),   # past the opt-in shared memory: global accumulators
+])
+def test_kmeans_step_on_card(card, n, d, k):
+    x, c = _clusters(n, d, k, seed=n + k)
+    xt, ct = tensors_from_arrays(x, c, device=card)
+    before = ops.LAUNCHES["kmeans_step"]
+    got = ops.kmeans_step(xt, ct)
+    assert ops.LAUNCHES["kmeans_step"] == before + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+    _assert_step_agrees(got, ref.kmeans_step(xt, ct), x, c)
+
+
+def test_kmeans_step_duplicate_and_far_centroids_on_card(card):
+    x, c = _clusters(4099, 8, 6, seed=5)
+    c[4] = c[2]      # exact copy: its points go to index 2, index 4 counts 0
+    c[5] = 1e4       # far from every point: an empty cluster
+    xt, ct = tensors_from_arrays(x, c, device=card)
+    sums, counts = ops.kmeans_step(xt, ct)
+    assert counts[4] == 0 and counts[2] > 0 and counts[5] == 0
+    assert bool((sums[4] == 0).all()) and bool((sums[5] == 0).all())
+    _assert_step_agrees((sums, counts), ref.kmeans_step(xt, ct), x, c)
+
+
+def test_kmeans_step_refuses_a_table_past_shared_memory_on_card(card):
+    # 1024 centroids of width 64 and their norms: 266 KB, past the 227 KB
+    # of opt-in shared memory
+    x, c = _clusters(100, 64, 1024, seed=6)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.kmeans_step(*tensors_from_arrays(x, c, device=card))
+
+
+@pytest.mark.parametrize("n,d,k", [
+    (1003, 8, 16), (777, 1, 3),
+    (5000, 64, 256),   # 64 KB of accumulators: dynamic shared memory
+    (3000, 64, 1024),  # 256 KB: global atomics
+])
+def test_segsum_on_card(card, n, d, k):
+    rng = np.random.default_rng(n)
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(-2, k + 2, n).astype(np.int32)  # some out of range
+    ids[:5] = k - 1
+    ids[ids == 1] = 0  # segment 1 stays empty
+    dt, it = tensors_from_arrays(data, ids, device=card)
+    got, want = ops.segsum(dt, it, k), ref.segsum(dt, it, k)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+    assert bool((got[1] == 0).all())
+
+
+def test_kmeans_program_on_card_matches_cpu(card):
+    n, d, k = 1 << 16, 8, 16
+    x, c = _clusters(n, d, k, seed=9)
+    before = ops.LAUNCHES["kmeans_step"]
+    got = LocalBackend(device=card).compile(kmeans.program(n, d, k, parallel=8))({}, x, c)
+    assert ops.LAUNCHES["kmeans_step"] == before + 8
+    _assert_step_agrees(got, LocalBackend(device="cpu").compile(kmeans.program(n, d, k))(
+        {}, x, c), x, c)
