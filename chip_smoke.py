@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the torch port: TPC-H and k-means through ``repro_torch``
-on one GPU.
+"""On-card check of the torch port: TPC-H, k-means and serving Qwen2-1.5B
+through ``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -29,12 +29,29 @@ Phases, each printing its own lines:
    four chunks, against the references; Q1 and Q6 launch their kernel
    once per chunk; each kernel call of this path (chunk views, Q1's
    recombine, Q4's split inner aggregation) against its plain version;
-7. each kernel against its plain version on the inputs the paths gave it,
-   both timed with CUDA events, with its bound and, for ``segsum``, the
-   one PyTorch call (``index_add_``) that computes the same function;
-8. per-query latency (median over ``--reps`` after a warm-up), sequential
-   and with ``parallel=4``, lineitem rows/s, and the k-means step time and
-   points/s; with ``--profile``, device time by kernel and busy share.
+7. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
+   layers at full width, bf16, parameters from ``model.init`` with seed 0)
+   with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
+   ``launch/serve.py`` makes them) in waves of 4, 32 greedy tokens each,
+   a cache of 2080, through ``launch.serve``'s ``make_run_wave`` and
+   ``serve_loop`` after one warm-up wave; ``flash_attention`` launched 28
+   times per wave; then the same parameters and prompts with the plain
+   attention (``ref``) and with ``chunked``, each path held against the
+   plain one; the kernel against its plain version on edge cases first
+   (S ∈ {1, 77, 200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 and
+   bf16, non-causal, windows 64 and 128, a non-default scale);
+8. each kernel against its plain version on the inputs the paths gave it,
+   both timed with CUDA events, with its bound (operations at the peak
+   rate of the operands' type: bf16 on the tensor cores, else f32) and,
+   for ``segsum`` and ``flash_attention``, the one PyTorch call
+   (``index_add_``, ``scaled_dot_product_attention``) that computes the
+   same function;
+9. per-query latency (median over ``--reps`` after a warm-up), sequential
+   and with ``parallel=4``, lineitem rows/s, the k-means step time and
+   points/s, and the serving numbers (prefill ms per wave, decode ms per
+   step, tokens/s, request latency p50/p99 from the port's tracer); with
+   ``--profile``, device time by kernel and busy share, one serving wave
+   included.
 
 Then the card's line, the ``kernels`` JSON line and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
@@ -56,6 +73,23 @@ by what the points within a few f32 roundings of a tie carry): steps
 against numpy f64 at rtol 2e-4, kernel against plain version at rtol 1e-4.
 Kernel calls on the ``parallel=4`` path are held against their plain
 versions too, but timed and counted only on the sequential path.
+``flash_attention`` against its plain version: bf16 outputs within two
+bf16 roundings, |got − want| ≤ 2^-7·|want| + 1e-3·max|v| (both sum in f32
+in different orders, then round); f32 outputs within rtol 1e-4, atol
+1e-5.  The serving path against the plain path: the logits of the
+prefill and of every decode step both paths were fed the same tokens
+differ by at most the larger of 5 % of the prefill logits' standard
+deviation and 1.5 times the noise floor, the same largest |Δ| between the
+plain path and a run whose prefill attention is computed in f64 and
+rounded once (exactly rounded).  In bf16 a rounding flip in one attention
+output grows through 28 layers: that floor was 9.0 % of the std on the
+H100, so 5 % alone holds no bf16 path, the exact one included.  Each
+path's own distance from the exact run is printed beside it.  That logits
+check is what holds decode: a step's greedy tokens can differ only where
+the plain path's top-2 gap is under twice the logits' |Δ|, and random
+weights make gaps of that order, so the tokens are checked only to be
+their logits' argmax, and where each request's tokens first leave the
+plain path's is printed with the plain path's top-2 gap there.
 """
 
 from __future__ import annotations
@@ -74,9 +108,19 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_RTOL = 1e-4
 QUERY_RTOL = 2e-4
 STEP_RTOL = 2e-4
-#: H100 SXM data-sheet peaks: HBM bytes/s and f32 (non-tensor-core) op/s
+#: H100 SXM data-sheet peaks: HBM bytes/s, f32 (non-tensor-core) op/s and
+#: dense bf16 tensor-core op/s; a call's operations are bounded at the rate
+#: of its operands' type (``ops_peak``)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16_TC = 989e12
+#: flash_attention against its plain version (see the docstring)
+ATTN_F32_RTOL, ATTN_F32_ATOL = 1e-4, 1e-5
+ATTN_BF16_REL, ATTN_BF16_VMAX = 2.0 ** -7, 1e-3
+#: the serving path against the plain path: logits within the larger of
+#: LOGIT_STD_SHARE of their std and NOISE_FACTOR times the plain path's own
+#: distance from exactly rounded attention
+LOGIT_STD_SHARE, NOISE_FACTOR = 0.05, 1.5
 
 #: the k-means path: examples/kmeans.py's d and k at 512 times its n
 KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_SEED, KMEANS_PARALLEL = 1 << 24, 8, 16, 0, 8
@@ -84,6 +128,9 @@ KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_SEED, KMEANS_PARALLEL = 1 << 24, 8, 16, 0, 
 KMEANS_STEPS = 5
 #: chunks of the TPC-H path with parallelism
 PARALLEL = 4
+#: the serving path: Qwen2-1.5B at full width and depth, its traffic
+SERVE_ARCH = "qwen2-1.5b"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_CAP = 8, 4, 2048, 32, 2080
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -92,6 +139,7 @@ REPLACES = {
     "grouped_join_agg": "src/repro/kernels/grouped_join_agg.py:158",
     "kmeans_step": "src/repro/kernels/kmeans_step.py:59",
     "segsum": "src/repro/kernels/segsum.py:47",
+    "flash_attention": "src/repro/kernels/flash_attention.py:100",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 #: which queries' plans launch which kernel
@@ -197,6 +245,26 @@ def check_segsum(what: str, got, data, ids, k) -> float:
     return float(err.max())
 
 
+def check_attention(what: str, got, want, v) -> float:
+    """flash_attention against its plain version: bf16 within two bf16
+    roundings plus 1e-3 of max|v|; f32 within rtol 1e-4, atol 1e-5.
+    Returns the max absolute error."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        bound = ATTN_BF16_REL * w.abs() + ATTN_BF16_VMAX * float(v.float().abs().max())
+    else:
+        bound = ATTN_F32_RTOL * w.abs() + ATTN_F32_ATOL
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{what}: differs from its plain version by {float(err.max())}")
+    return float(err.max())
+
+
 @contextlib.contextmanager
 def recording(names):
     """Record each call of the ``ops`` wrappers ``names`` as (name, args,
@@ -269,6 +337,10 @@ def work(name: str, args: tuple, kw: dict):
         data, ids, k = args
         n, d = data.shape
         return (n * (d + 1) + k * d) * 4, n * d
+    if name == "flash_attention":  # q, k, v in, o out; two products per unmasked pair
+        q, k, v = args
+        b, hq, s, d = q.shape
+        return _bytes(q) * 2 + _bytes(k) + _bytes(v), 4 * b * hq * d * attention_pairs(s, kw)
     if name == "grouped_join_agg":
         table, right = args
         pred, aggs = kw["pred"], kw["aggs"]
@@ -299,6 +371,23 @@ def work(name: str, args: tuple, kw: dict):
         {f: exprcode.column_type(dtypes[f]) for f in fields}, {f: 0 for f in fields})
     ops = cap * prog.n_pred + n_pass * (len(prog.code) - prog.n_pred)
     return nbytes, ops
+
+
+def attention_pairs(s: int, kw: dict) -> int:
+    """(query, key) pairs the mask keeps, out of s²."""
+    from repro_torch.kernels import ref
+
+    return int(ref.attention_mask(s, kw.get("causal", True), kw.get("window"), "cpu").sum())
+
+
+def ops_peak(args: tuple) -> float:
+    """The card's peak op/s for the call's operands: the bf16 tensor-core
+    rate where its float tensors are all bf16, else f32 outside the tensor
+    cores (tables, f32 tensors)."""
+    import torch
+
+    dtypes = {a.dtype for a in args if isinstance(a, torch.Tensor) and a.is_floating_point()}
+    return PEAK_BF16_TC if dtypes == {torch.bfloat16} else PEAK_F32
 
 
 def result_bytes(out) -> int:
@@ -644,11 +733,274 @@ def phase_parallel(tables, frames) -> None:
         f"plain versions; max abs error {json.dumps(worst)}")
 
 
-def _library_ms(name: str, args: tuple):
-    """The one PyTorch call that computes the kernel's function, timed,
-    where there is one: ``index_add_`` for segsum (ids in range here)."""
+def phase_edges_attention() -> None:
+    """flash_attention against its plain version at the edges: S ∈ {1, 77,
+    200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 and bf16, causal or
+    not, windows 64 and 128, non-default scales."""
+    import itertools
+
+    import numpy as np
     import torch
 
+    from repro_torch.kernels import ops, ref
+
+    variants = [(True, None, None), (False, None, None), (True, 64, None),
+                (False, 128, 0.3), (True, 128, None), (True, None, 0.05)]
+    rng = np.random.default_rng(9)
+    cases = list(itertools.product((1, 77, 200, 2048), (32, 64, 128), (1, 6)))
+    for i, (s, d, group) in enumerate(cases):
+        causal, window, scale = variants[i % len(variants)]
+        dtype = (torch.float32, torch.bfloat16)[(i // len(variants)) % 2]
+        q, k, v = (torch.tensor(rng.normal(size=(2, h, s, d)), dtype=dtype, device="cuda")
+                   for h in (2 * group, 2, 2))
+        kw = dict(causal=causal, window=window, sm_scale=scale)
+        check_attention(f"flash_attention[S={s},D={d},group={group},{dtype},{kw}]",
+                        ops.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw), v)
+    torch.cuda.synchronize()
+    log(f"edge cases: {len(cases)} flash_attention calls match their plain version")
+
+
+def _watched(model):
+    """The model with its prefill and decode wrapped to keep each call's
+    logits (B, V) in ``calls``, one list per wave: the logits are made
+    anyway, so this adds no device work."""
+    from dataclasses import replace
+
+    calls = []
+
+    def prefill(p, b, cap):
+        logits, cache = model.prefill(p, b, cap)
+        calls.append([logits])
+        return logits, cache
+
+    def decode(p, cache, toks):
+        logits, cache = model.decode(p, cache, toks)
+        calls[-1].append(logits)
+        return logits, cache
+
+    return replace(model, prefill=prefill, decode=decode), calls
+
+
+def _serve_once(model, params, requests):
+    """One traced ``serve_loop`` over ``requests`` through ``make_run_wave``;
+    returns (outputs, the logits of each call per wave, tracer, wall s)."""
+    import torch
+
+    from repro_torch.launch.serve import make_run_wave, serve_loop
+    from repro_torch.obs.trace import tracing
+
+    watched, calls = _watched(model)
+    run_wave = make_run_wave(watched, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                             gen=SERVE_GEN, cache_cap=SERVE_CAP, device="cuda")
+    with tracing() as tracer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_loop(requests, run_wave, batch=SERVE_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, calls, tracer, wall
+
+
+def path_gap(glog, wlog):
+    """Two serving runs' logits (per wave, per call (B, V)): (largest |Δ| of
+    the prefill logits, largest |Δ| over every step both paths were fed
+    the same tokens — the prefill, then each decode step while their
+    greedy tokens agree —, the number of such steps, the std of the second
+    run's prefill logits)."""
+    import torch
+
+    pre = worst = 0.0
+    same = 0
+    for g, w in zip(glog, wlog):
+        gl, wl = torch.stack(g), torch.stack(w)                     # (steps, B, V)
+        pre = max(pre, float((gl[0] - wl[0]).abs().max()))
+        differ = gl.argmax(-1) != wl.argmax(-1)                     # (steps, B)
+        for j in range(gl.shape[1]):
+            bad = differ[:, j].nonzero()
+            fed = int(bad[0]) + 1 if len(bad) else gl.shape[0]      # step t saw tokens < t
+            worst = max(worst, float((gl[:fed, j] - wl[:fed, j]).abs().max()))
+            same += fed
+    std = float(torch.cat([w[0].flatten() for w in wlog]).std())
+    return pre, worst, same, std
+
+
+def exact_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
+    """Attention in f64, rounded once to q's dtype: the exactly rounded
+    answer, the yardstick of how far correct bf16 paths drift apart."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ref
+
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    logits = (q.double() * scale) @ k.double().repeat_interleave(group, 1).transpose(-1, -2)
+    mask = ref.attention_mask(q.shape[2], causal, window, q.device)
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return (p @ v.double().repeat_interleave(group, 1)).to(q.dtype)
+
+
+def compare_paths(label: str, got, want, exact, noise: float) -> dict:
+    """One serving run (outputs, per-wave logits) against the plain path's:
+    the logits of every step both were fed the same tokens within the
+    larger of LOGIT_STD_SHARE of the prefill logits' std and NOISE_FACTOR ×
+    ``noise``, and each request's tokens its logits' argmax.  Reports the
+    run's own distance from the ``exact`` run, and per request the step at
+    which its tokens first leave the plain path's with the plain path's
+    top-2 logit gap there."""
+    import torch
+
+    (gout, glog), (wout, wlog) = got, want
+    pre, worst, same, std = path_gap(glog, wlog)
+    limit = max(LOGIT_STD_SHARE * std, NOISE_FACTOR * noise)
+    if not worst <= limit:
+        raise AssertionError(f"{label}: logits differ by {worst} over {same} steps fed the same "
+                             f"tokens, over {limit} (the larger of {LOGIT_STD_SHARE} of their "
+                             f"std {std} and {NOISE_FACTOR} × the noise floor {noise})")
+    _, to_exact, exact_steps, _ = path_gap(glog, exact)
+    diverged = []
+    for wave, (g, w) in enumerate(zip(glog, wlog)):
+        gl, wl = torch.stack(g), torch.stack(w)                     # (steps, B, V)
+        top2 = wl.topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1]).cpu()                  # (steps, B)
+        gseq, wseq = gl.argmax(-1).cpu(), wl.argmax(-1).cpu()
+        for j in range(gseq.shape[1]):
+            rid = wave * SERVE_BATCH + j
+            # the decode steps' tokens are what serve_loop returned
+            if not (gseq[1:, j].numpy() == gout[rid]).all() or not (
+                    wseq[1:, j].numpy() == wout[rid]).all():
+                raise AssertionError(f"{label}: request {rid}'s tokens are not its logits' argmax")
+            bad = (gseq[:, j] != wseq[:, j]).nonzero()
+            if len(bad):
+                diverged.append((rid, int(bad[0]), round(float(gaps[int(bad[0]), j]), 6)))
+    steps = len(gout) * (SERVE_GEN + 1)
+    log(f"serving path {label}: logits max |Δ| {worst:.6g} over the {same} of {steps} steps fed "
+        f"the same tokens (limit {limit:.6g}; std {std:.6g}, {worst / std:.4f} of it; noise "
+        f"floor {noise:.6g}); prefill logits max |Δ| {pre:.6g}; from the exact run "
+        f"{to_exact:.6g} over {exact_steps} steps; tokens leave the plain path's in "
+        f"{len(diverged)} of {len(gout)} requests, (request, step, plain top-2 gap): {diverged}")
+    return {"prefill_max_abs": pre, "logit_std": std, "limit": limit, "max_abs": worst,
+            "same_token_steps": same, "max_abs_from_exact": to_exact,
+            "same_token_steps_exact": exact_steps, "diverged": diverged}
+
+
+def phase_serve():
+    """The serving path at full width and depth with attn_mode="pallas",
+    after a warm-up wave, with the launch counts set to 0 just before and
+    read just after; then the plain path (``ref``) and ``chunked`` on the
+    same parameters and prompts, each held against the plain one.  Returns
+    (launches, the kernel's calls, the serving report, one wave to
+    profile)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, make_run_wave
+    from repro_torch.models.api import build_model
+
+    base = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(replace(base, attn_mode="pallas"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = np.random.default_rng(0).integers(0, base.vocab, (SERVE_REQUESTS, SERVE_PROMPT))
+
+    def requests():
+        return [Request(rid=i, prompt=prompts[i]) for i in range(SERVE_REQUESTS)]
+
+    log(f"serving {base.arch}: {n_params / 1e9:.4f} B parameters ({base.dtype}, "
+        f"{sum(_bytes(t) for t in _leaves(params)) / 1e9:.3f} GB) on the card; "
+        f"{SERVE_REQUESTS} requests × {SERVE_PROMPT} prompt tokens, batch {SERVE_BATCH}, "
+        f"{SERVE_GEN} generated, cache {SERVE_CAP}; set-up {time.perf_counter() - t0:.1f} s")
+    wave = make_run_wave(model, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                         gen=SERVE_GEN, cache_cap=SERVE_CAP, device="cuda")
+    wave(requests()[:SERVE_BATCH])  # warm-up: library handles, the allocator, first launches
+    torch.cuda.reset_peak_memory_stats()
+    with recording(("flash_attention",)) as captured:
+        ops.reset_launches()
+        out, logits, tracer, wall = _serve_once(model, params, requests())
+        launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    waves = -(-SERVE_REQUESTS // SERVE_BATCH)
+    if sorted(out) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"served {sorted(out)} of {SERVE_REQUESTS} requests")
+    for rid, toks in out.items():
+        if toks.shape != (SERVE_GEN,) or not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"request {rid}: tokens {toks}")
+    if not all(bool(torch.isfinite(x).all()) for w in logits for x in w):
+        raise AssertionError("the serving path gave non-finite logits")
+    if launches["flash_attention"] != base.n_layers * waves or len(captured) != base.n_layers * waves:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times, "
+                             f"not {base.n_layers} per wave")
+    log(f"serving path (pallas): {len(out)} requests served, {waves} waves; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; peak device memory {peak / 1e9:.3f} GB")
+
+    report = {"pallas": _serve_numbers(tracer, wall, len(out))}
+    plain_model = build_model(replace(base, attn_mode="ref"))
+    plain = _serve_once(plain_model, params, requests())
+    report["ref"] = _serve_numbers(plain[2], plain[3], len(plain[0]))
+    # the noise floor: the plain path against exactly rounded prefill attention
+    exact = _serve_once(build_model(replace(base, attn_mode=exact_attention)), params,
+                        requests())
+    _, noise, same, std = path_gap(plain[1], exact[1])
+    report["noise_floor"] = {"max_abs": noise, "same_token_steps": same, "logit_std": std}
+    log(f"serving path noise floor: the plain path's logits differ from those with exactly "
+        f"rounded (f64) prefill attention by up to {noise:.6g} ({noise / std:.4f} of their std "
+        f"{std:.6g}) over the {same} steps fed the same tokens")
+    report["pallas_vs_ref"] = compare_paths("pallas vs ref", (out, logits), plain[:2],
+                                            exact[1], noise)
+    chunked = _serve_once(build_model(replace(base, attn_mode="chunked")), params, requests())
+    report["chunked"] = _serve_numbers(chunked[2], chunked[3], len(chunked[0]))
+    report["chunked_vs_ref"] = compare_paths("chunked vs ref", chunked[:2], plain[:2],
+                                             exact[1], noise)
+    return launches, list(captured), report, lambda: wave(requests()[:SERVE_BATCH])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _serve_numbers(tracer, wall: float, served: int) -> dict:
+    """The serving numbers of one run from the port's tracer: medians over
+    the waves (prefill) and the steps (decode), latency percentiles."""
+    prefill = tracer.histograms["serve.prefill_s"]
+    decode = tracer.histograms["serve.decode_step_s"]
+    lat = tracer.histogram_summary("serve.request_latency_s")
+    return {"prefill_ms_per_wave": statistics.median(prefill) * 1e3,
+            "prefill_ms_all": [x * 1e3 for x in prefill],
+            "decode_ms_per_step": statistics.median(decode) * 1e3,
+            "decode_ms_min": min(decode) * 1e3, "decode_ms_max": max(decode) * 1e3,
+            "tokens_per_s": served * SERVE_GEN / wall,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / statistics.median(prefill),
+            "wall_s": wall, "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"]}
+
+
+def _library_ms(name: str, args: tuple, kw: dict):
+    """The one PyTorch call that computes the kernel's function, timed,
+    where there is one: ``index_add_`` for segsum (ids in range here),
+    ``scaled_dot_product_attention`` for flash_attention (the window as a
+    boolean mask)."""
+    import torch
+
+    if name == "flash_attention":
+        from repro_torch.kernels import ref
+
+        q, k, v = args
+        causal, window = kw.get("causal", True), kw.get("window")
+        sdpa = dict(scale=kw.get("sm_scale"), enable_gqa=True)
+        if window is None:
+            sdpa["is_causal"] = causal
+        else:
+            sdpa["attn_mask"] = ref.attention_mask(q.shape[2], causal, window, q.device)
+        return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, **sdpa))
     if name != "segsum":
         return None
     data, ids, k = args
@@ -674,11 +1026,13 @@ def phase_kernels(captured, launches, pool):
                              KERNEL_RTOL)
         elif name == "segsum":
             err = check_segsum(f"segsum#{i}", got, *args)
+        elif name == "flash_attention":
+            err = check_attention(f"flash_attention#{i}", got, want, args[2])
         else:
             err = compare_outputs(f"{name}#{i}", got, want)
         ms = cuda_ms(lambda: kern(*args, **kw))
         pms = cuda_ms(lambda: plain(*args, **kw))
-        lib = _library_ms(name, args)
+        lib = _library_ms(name, args, kw)
         nbytes, nops = work(name, args, kw)
         if name in TPCH_KERNELS:
             nbytes += result_bytes(want)
@@ -687,22 +1041,27 @@ def phase_kernels(captured, launches, pool):
                                        args[-1] if name == "grouped_select_agg" else None)}
         else:
             shape = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")]}
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / ops_peak(args) * 1e3
         rows.append({"kernel": name, "call": i, **shape, "ms": ms, "plain_ms": pms,
-                     "library_ms": lib, "bytes": nbytes, "ops": nops, "max_abs_err": err})
-        a = agg.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0,
-                                  "ops": 0, "err": 0.0})
+                     "library_ms": lib, "bytes": nbytes, "ops": nops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_f32_ms": max(t_bytes, nops / PEAK_F32 * 1e3), "max_abs_err": err})
+        a = agg.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                                  "bytes_ms": 0.0, "ops_ms": 0.0, "ops_f32_ms": 0.0,
+                                  "err": 0.0})
         a["ms"] += ms
         a["plain_ms"] += pms
         if lib is not None:
             a["library_ms"] = (a["library_ms"] or 0.0) + lib
-        a["bytes"] += nbytes
-        a["ops"] += nops
+        a["bytes_ms"] += t_bytes
+        a["ops_ms"] += t_ops
+        a["ops_f32_ms"] += nops / PEAK_F32 * 1e3
         a["err"] = max(a["err"], err)
     log("kernel calls: " + json.dumps(rows))
     out = []
     for name in REPLACES:
         a = agg[name]
-        t_bytes, t_ops = a["bytes"] / PEAK_BYTES * 1e3, a["ops"] / PEAK_F32 * 1e3
+        t_bytes, t_ops = a["bytes_ms"], a["ops_ms"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -711,6 +1070,8 @@ def phase_kernels(captured, launches, pool):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": a["library_ms"],
         })
+        if a["ops_f32_ms"] != t_ops:  # bf16 operands: the f32 convention's bound beside
+            out[-1]["bound_f32_ms"] = max(t_bytes, a["ops_f32_ms"])
     log("kernels vs plain versions on the paths' inputs: all match")
     return out
 
@@ -765,9 +1126,22 @@ def report_kmeans(times) -> None:
                                  "points_per_s": KMEANS_N / (med / 1e3)}))
 
 
+def report_serve(report) -> None:
+    for mode in ("pallas", "ref", "chunked"):
+        r = report[mode]
+        log(f"serving {SERVE_ARCH} ({mode} attention): prefill {r['prefill_ms_per_wave']:.3f} ms "
+            f"per wave of {SERVE_BATCH}×{SERVE_PROMPT} (median of {len(r['prefill_ms_all'])}), "
+            f"{r['prefill_tokens_per_s']:.6g} prompt tokens/s; decode {r['decode_ms_per_step']:.3f} "
+            f"ms per step of {SERVE_BATCH} tokens (min {r['decode_ms_min']:.3f}, max "
+            f"{r['decode_ms_max']:.3f}); {r['tokens_per_s']:.6g} generated tokens/s over "
+            f"{r['wall_s']:.3f} s; request latency p50 {r['latency_p50_s']:.4f} s, p99 "
+            f"{r['latency_p99_s']:.4f} s")
+    log("serve: " + json.dumps(report))
+
+
 #: name fragments of this package's CUDA kernels in a profiler trace
 OUR_KERNELS = ("fsa_main", "fsa_finalize", "gsa_main", "gja_main", "vm_init_accumulators",
-               "kms_main", "seg_main")
+               "kms_main", "seg_main", "fa_main")
 
 
 def _device_events(prof):
@@ -813,10 +1187,16 @@ def phase_profile(workloads, captured) -> None:
             for _ in range(iters):
                 kern(*args, **kw)
             torch.cuda.synchronize()
-        own = sum(e.self_device_time_total for e in _device_events(prof)
-                  if any(k in e.key for k in OUR_KERNELS)) / 1e3 / iters
-        rows.append({"kernel": name, "call": i, "kernel_device_ms": own})
-    log("kernel device time (own launches only, mean of 10): " + json.dumps(rows))
+        # each wrapper call launches each of its kernels once: the mean per
+        # recorded launch, summed over its kernels (the trace may lose some
+        # of a window's launches, so dividing by iters would undercount)
+        ours = [e for e in _device_events(prof) if any(k in e.key for k in OUR_KERNELS)]
+        rows.append({"kernel": name, "call": i,
+                     "kernel_device_ms": sum(e.self_device_time_total / e.count
+                                             for e in ours) / 1e3,
+                     "recorded": min((e.count for e in ours), default=0)})
+    log(f"kernel device time (own launches only, mean per recorded launch of {iters}): "
+        + json.dumps(rows))
 
 
 def main() -> int:
@@ -834,20 +1214,27 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from concurrent.futures import ThreadPoolExecutor
 
+    # full-f32 products in the plain versions: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
     with ThreadPoolExecutor(8) as pool:
         phase_edges()
         phase_edges_la(pool)
+        phase_edges_attention()
         tables, ctx, frames, launches, captured = phase_main_path(a.sf)
         km_launches, km_captured, seg_inputs, km_times, km_step = phase_kmeans(pool)
         seg_launches, seg_captured = phase_segsum(seg_inputs)
         phase_parallel(tables, frames)
-        launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"])
-        captured += km_captured + seg_captured
+        fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
+        launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
+                        flash_attention=fa_launches["flash_attention"])
+        captured += km_captured + seg_captured + fa_captured
         kernels = phase_kernels(captured, launches, pool)
     phase_queries(tables, frames, a.reps)
     report_kmeans(km_times)
+    report_serve(serve_report)
     if a.profile:
         phase_profile({
             "one pass over the six queries": lambda: [f.collect(device="cuda")
@@ -855,8 +1242,10 @@ def main() -> int:
             f"one pass over the six queries with parallel={PARALLEL}":
                 lambda: [f.collect(device="cuda", parallel=PARALLEL) for f in frames.values()],
             "one k-means step": km_step,
+            f"one serving wave ({SERVE_BATCH}×{SERVE_PROMPT} prefill, {SERVE_GEN} steps)":
+                serve_wave,
         }, captured)
-    del captured, km_captured, seg_captured, seg_inputs
+    del captured, km_captured, seg_captured, seg_inputs, fa_captured
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

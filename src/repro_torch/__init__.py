@@ -17,6 +17,10 @@ Layout follows ``repro`` so each module's counterpart is easy to find:
   backend;
 * ``kernels``       — CUDA kernels (``csrc``), their wrappers and plain
   PyTorch versions;
+* ``models``, ``configs`` — the dense decoder-only LM and its configs;
+* ``launch``        — the serve CLI (prefill + batched greedy decode
+  behind admission control), on ``obs`` (tracing) and ``robust`` (fault
+  injection, retries);
 * ``convert``       — carries tables and arrays across from numpy (or a
   JAX ``VecTable``'s arrays) onto the device.
 

@@ -1,16 +1,15 @@
-"""Carry tables and arrays across onto the device.
+"""Carry tables, arrays and model weights across onto the device.
 
-The state of this system is its tables, so this is the counterpart of
-carrying weights across: numpy columns — or a JAX ``VecTable``'s
-``.cols`` / ``.valid`` as numpy arrays, holes included, so a table from
-the middle of a JAX pipeline carries over — become torch ``VecTable``\\ s,
-and the ``la`` flavor's arrays (k-means points and centroids) become
-tensors.
+Numpy columns — or a JAX ``VecTable``'s ``.cols`` / ``.valid`` as numpy
+arrays, holes included, so a table from the middle of a JAX pipeline
+carries over — become torch ``VecTable``\\ s; the ``la`` flavor's arrays
+(k-means points and centroids) become tensors; and a JAX LM parameter
+tree, as numpy arrays, becomes the port's tree of tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -47,3 +46,25 @@ def tensors_from_arrays(*arrays: np.ndarray, device: Any = None) -> List[torch.T
     dev = resolve_device(device)
     return [torch.from_numpy(np.array(_np_x32(np.asarray(a)), copy=True)).to(dev)
             for a in arrays]
+
+
+def _leaf_from_numpy(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch.from_numpy refuses
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def params_from_jax(tree: Any, device: Any = None,
+                    dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX parameter tree (nested dicts of arrays, e.g. through
+    ``jax.device_get``) as the same tree of tensors on ``device``
+    (``cuda`` unless given); floating leaves are cast to ``dtype`` where
+    one is given.  Stacked per-layer leaves keep their leading axis."""
+    dev = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: params_from_jax(v, dev, dtype) for k, v in tree.items()}
+    t = _leaf_from_numpy(tree)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(dev)

@@ -11,6 +11,7 @@
 
 Kernels: ``fused_select_agg`` (TPC-H Q6/Q14/Q19), ``grouped_select_agg``
 (Q1, Q4 inner), ``grouped_join_agg`` (Q4 outer, Q12), ``kmeans_step``
-(``la.KMeansStep``) and ``segsum`` (rows summed by segment id; no emitter
-calls it, as in the JAX package).
+(``la.KMeansStep``), ``segsum`` (rows summed by segment id; no emitter
+calls it, as in the JAX package) and ``flash_attention`` (the LM's
+prefill attention under ``attn_mode="pallas"``).
 """

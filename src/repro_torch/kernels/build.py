@@ -22,11 +22,11 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg", "kmeans_step",
-           "segsum")
+           "segsum", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C entry point and argument types of each library
 ENTRY = {
@@ -40,6 +40,7 @@ ENTRY = {
         _P, _I, _L, _P, _P, _P]),
     "kmeans_step": ("kms_launch", [_P, _P, _L, _I, _I, _P, _P, _P]),
     "segsum": ("seg_launch", [_P, _P, _L, _I, _I, _P, _P]),
+    "flash_attention": ("fa_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 #: where the CUDA toolkit installs nvcc by default

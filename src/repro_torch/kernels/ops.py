@@ -18,7 +18,8 @@ limit: the Hopper kernels accumulate with atomics instead of a one-hot.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +29,8 @@ from ..relational import runtime as rt
 from . import exprcode, ref
 
 LAUNCHES: Dict[str, int] = {"fused_select_agg": 0, "grouped_select_agg": 0,
-                            "grouped_join_agg": 0, "kmeans_step": 0, "segsum": 0}
+                            "grouped_join_agg": 0, "kmeans_step": 0, "segsum": 0,
+                            "flash_attention": 0}
 
 _FN = {"sum": 0, "min": 1, "max": 2}
 _SENTINEL = 3.0e38
@@ -366,3 +368,112 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     _raise_on(err, "kmeans_step")
     LAUNCHES["kmeans_step"] += 1
     return sums, counts.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal or sliding-window GQA attention, forward only: q (B, Hq, S,
+    D), k, v (B, Hkv, S, D), f32 or bf16 → (B, Hq, S, D) in q's dtype
+    (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ {32, 64, 128}."""
+    if not _on_card(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    from .build import constant, entry
+
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention takes f32 or bf16, not {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_matrix(t, q.dtype, 4, f"flash_attention {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention {name} is not 16-byte aligned")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    group = hq // hkv if hkv else 0
+    if hkv < 1 or hq % hkv or not 1 <= group <= constant("flash_attention", "fa_max_group"):
+        raise ValueError(f"flash_attention: {hq} query heads over {hkv} kv heads")
+    if d not in (32, 64, 128) or s < 1:
+        raise ValueError(f"flash_attention takes D in (32, 64, 128) and S ≥ 1, not D={d}, S={s}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    err = entry("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
+        int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else int(window),
+        scale, _stream(q.device))
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      sm_scale: Optional[float] = None, block_k: int = 512) -> torch.Tensor:
+    """The JAX package's default attention in plain torch, forward only:
+    an online softmax over kv blocks of ``block_k`` (the last may be
+    shorter).  Products take the inputs as they are (q scaled in its own
+    dtype) and accumulate in f32, the weights go to v's dtype before the
+    second product, and m, l and acc stay f32."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, hkv, group, s, d).float()
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, hkv, group, s), ref.NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, group, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, group, s, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, s, min(block_k, s)):
+        ks = k[:, :, k0:k0 + block_k].float()[:, :, None]          # (b, hkv, 1, bk, d)
+        vs = v[:, :, k0:k0 + block_k]
+        s_blk = torch.matmul(qf, ks.transpose(-1, -2))              # (b, hkv, g, s, bk)
+        kpos = torch.arange(k0, k0 + vs.shape[2], device=q.device)
+        mask = torch.ones((s, kpos.shape[0]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s_blk = s_blk.masked_fill(~mask, ref.NEG)
+        m_new = torch.maximum(m, s_blk.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s_blk - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(p.to(vs.dtype).float(),
+                                                    vs.float()[:, :, None])
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l[..., None]).reshape(b, hq, s, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              sm_scale: Optional[float] = None,
+              mode: Union[str, Callable] = "chunked") -> torch.Tensor:
+    """``mode="pallas"``: the kernel (contiguous copies of q, k and v where
+    they are views); ``"chunked"``: ``chunked_attention``; a function: that
+    function, called as the kernel is (a caller's own attention, such as an
+    f64 yardstick); anything else: the plain ``ref.flash_attention``."""
+    if callable(mode):
+        return mode(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    if mode == "pallas":
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                               window=window, sm_scale=sm_scale)
+    if mode == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    return ref.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: Union[int, torch.Tensor], *,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """One-token decode attention: the plain version (the JAX package has
+    no kernel for it either)."""
+    return ref.decode_attention(q, k_cache, v_cache, cache_len, sm_scale=sm_scale)

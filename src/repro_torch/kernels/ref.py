@@ -8,7 +8,8 @@ every kernel against its plain version on the card.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,3 +70,68 @@ def grouped_join_agg(left: rt.VecTable, right: rt.VecTable, *,
         join_key_domains=join_key_domains, join_num_buckets=join_num_buckets,
         keys=keys, aggs=aggs, max_groups=max_groups, key_domains=key_domains,
         num_buckets=num_buckets, pred=pred)
+
+
+#: the masked-logit sentinel of the Pallas body (``flash_attention.py:25``)
+NEG = -1.0e30
+
+
+def attention_mask(s: int, causal: bool, window: Optional[int],
+                   device: torch.device) -> torch.Tensor:
+    """(s, s) bool: query row i may attend to key j (kpos ≤ qpos under
+    ``causal``; kpos > qpos − window under ``window``)."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention as the Pallas kernel computes it: q (B, Hq, S, D),
+    k, v (B, Hkv, S, D) → (B, Hq, S, D) in q's dtype.  q, k and v go to f32
+    and q is scaled before the product; masked logits are −1e30, the
+    softmax is f32, masked weights are 0, and a row with nothing unmasked
+    gives 0."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    mask = attention_mask(s, causal, window, q.device)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)).masked_fill(~mask, NEG)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True)) * mask
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (torch.matmul(p, vf) / l).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: Union[int, torch.Tensor], *,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """One query position against a (B, Hkv, S, D) cache of which the
+    first ``cache_len`` positions are valid (an int, or one per batch row),
+    in the grouped-head form: q (B, Hq, 1, D) → (B, Hq, 1, D).  Products
+    accumulate in f32; the weights go to the cache's dtype before the
+    second product."""
+    b, hq, _, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, group, d)
+    logits = torch.matmul(qg.float(), k_cache.float().transpose(-1, -2)) * scale
+    pos = torch.arange(s, device=q.device)[None, None, None, :]
+    if isinstance(cache_len, torch.Tensor):
+        valid = pos < cache_len.to(q.device).reshape(-1, 1, 1, 1)
+    else:  # a Python int is compared as a scalar: no copy to the device, no wait
+        valid = pos < cache_len
+    logits = logits.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)

@@ -204,3 +204,80 @@ def test_kmeans_program_on_card_matches_cpu(card):
     assert ops.LAUNCHES["kmeans_step"] == before + 8
     _assert_step_agrees(got, LocalBackend(device="cpu").compile(kmeans.program(n, d, k))(
         {}, x, c), x, c)
+
+
+def _attention_inputs(card, b, hq, hkv, s, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(b, h, s, d)), dtype=dtype, device=card)
+            for h in (hq, hkv, hkv)]
+
+
+def _assert_attention_close(got, want, v):
+    """bf16: within two bf16 roundings plus 1e-3 of max|v|; f32: rtol 1e-4,
+    atol 1e-5 (the kernel adds its products in another order)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float().cpu(), want.float().cpu()
+    if want.dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * w.abs() + 1e-3 * float(v.float().abs().max())
+        assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+    else:
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,d,group,dtype,causal,window,scale", [
+    (1, 128, 6, torch.bfloat16, True, None, None),
+    (77, 32, 1, torch.float32, True, None, None),
+    (77, 64, 6, torch.bfloat16, False, None, None),
+    (200, 128, 6, torch.float32, True, 64, None),
+    (200, 64, 1, torch.bfloat16, False, 128, 0.3),
+    (2048, 128, 6, torch.bfloat16, True, None, None),
+    (2048, 32, 1, torch.float32, True, 128, 0.05),
+    (129, 128, 48, torch.bfloat16, True, None, None),   # granite's MQA group
+])
+def test_flash_attention_on_card(card, s, d, group, dtype, causal, window, scale):
+    q, k, v = _attention_inputs(card, 2, 2 * group, 2, s, d, dtype, seed=s + d + group)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, sm_scale=scale)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.flash_attention(q, k, v, causal=causal, window=window,
+                                                     sm_scale=scale), v)
+
+
+def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
+    q, k, v = _attention_inputs(card, 1, 4, 2, 64, 48, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="D in"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _attention_inputs(card, 1, 4, 2, 64, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="kv heads"):
+        ops.flash_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
+
+
+def test_serve_wave_on_card_matches_plain_attention(card):
+    """The reduced Qwen2 (f32) served on the card: the kernel's path and the
+    plain path give the same greedy tokens, and the kernel ran once per
+    layer per wave."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import Request, make_run_wave, serve_loop
+    from repro_torch.models.api import build_model
+
+    cfg = get_reduced("qwen2-1.5b")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (8, 16))
+    outs = {}
+    for mode in ("pallas", "ref"):
+        model = build_model(dataclasses.replace(cfg, attn_mode=mode))
+        params = model.init(torch.Generator(card).manual_seed(0))
+        run_wave = make_run_wave(model, params, batch=4, prompt_len=16, gen=4, cache_cap=24,
+                                 device=card)
+        before = ops.LAUNCHES["flash_attention"]
+        outs[mode] = serve_loop([Request(rid=i, prompt=prompts[i]) for i in range(8)],
+                                run_wave, batch=4)
+        launched = ops.LAUNCHES["flash_attention"] - before
+        assert launched == (2 * cfg.n_layers if mode == "pallas" else 0)
+    assert sorted(outs["pallas"]) == list(range(8))
+    for rid, toks in outs["ref"].items():
+        np.testing.assert_array_equal(outs["pallas"][rid], toks)

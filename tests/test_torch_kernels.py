@@ -233,6 +233,8 @@ def _c_params(kernel):
             kinds.append(build._P)
         elif p.startswith("long long"):
             kinds.append(build._L)
+        elif p.startswith("float "):
+            kinds.append(build._F)
         else:
             assert p.startswith("int "), p
             kinds.append(build._I)
