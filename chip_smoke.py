@@ -38,14 +38,20 @@ Phases, each printing its own lines:
    times per wave; then the same parameters and prompts with the plain
    attention (``ref``) and with ``chunked``, each path held against the
    plain one; the kernel against its plain version on edge cases first
-   (S ∈ {1, 77, 200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 and
-   bf16, non-causal, windows 64 and 128, a non-default scale);
+   (S ∈ {1, 77, 200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 on the
+   CUDA-core kernel and bf16 on the tensor-core one, non-causal, windows
+   64 and 128, a non-default scale), each with its share of the bound and,
+   in bf16, its distance from the tensor-core recipe
+   (``ref.flash_attention_tiled``);
 8. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
    (``index_add_``, ``scaled_dot_product_attention``) that computes the
-   same function;
+   same function; each served attention call's distance from the
+   tensor-core recipe beside its distance from the plain version; then one
+   served call under ``torch.profiler``, which must show the tensor-core
+   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
 9. per-query latency (median over ``--reps`` after a warm-up), sequential
    and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
@@ -245,10 +251,10 @@ def check_segsum(what: str, got, data, ids, k) -> float:
     return float(err.max())
 
 
-def check_attention(what: str, got, want, v) -> float:
+def check_attention(what: str, got, want, v):
     """flash_attention against its plain version: bf16 within two bf16
     roundings plus 1e-3 of max|v|; f32 within rtol 1e-4, atol 1e-5.
-    Returns the max absolute error."""
+    Returns (the max absolute error, the largest share of the bound)."""
     import torch
 
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -262,7 +268,15 @@ def check_attention(what: str, got, want, v) -> float:
         bound = ATTN_F32_RTOL * w.abs() + ATTN_F32_ATOL
     if not bool((err <= bound).all()):
         raise AssertionError(f"{what}: differs from its plain version by {float(err.max())}")
-    return float(err.max())
+    return float(err.max()), float((err / bound).max())
+
+
+def tiled_gap(got, args, kw) -> float:
+    """A bf16 attention output's largest distance from the tensor-core
+    kernel's recipe (``ref.flash_attention_tiled``) on the same inputs."""
+    from repro_torch.kernels import ref
+
+    return float((got.float() - ref.flash_attention_tiled(*args, **kw).float()).abs().max())
 
 
 @contextlib.contextmanager
@@ -748,16 +762,27 @@ def phase_edges_attention() -> None:
                 (False, 128, 0.3), (True, 128, None), (True, None, 0.05)]
     rng = np.random.default_rng(9)
     cases = list(itertools.product((1, 77, 200, 2048), (32, 64, 128), (1, 6)))
+    shares = []
     for i, (s, d, group) in enumerate(cases):
         causal, window, scale = variants[i % len(variants)]
         dtype = (torch.float32, torch.bfloat16)[(i // len(variants)) % 2]
         q, k, v = (torch.tensor(rng.normal(size=(2, h, s, d)), dtype=dtype, device="cuda")
                    for h in (2 * group, 2, 2))
         kw = dict(causal=causal, window=window, sm_scale=scale)
-        check_attention(f"flash_attention[S={s},D={d},group={group},{dtype},{kw}]",
-                        ops.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw), v)
+        what = f"flash_attention[S={s},D={d},group={group},{dtype},{kw}]"
+        got = ops.flash_attention(q, k, v, **kw)
+        err, share = check_attention(what, got, ref.flash_attention(q, k, v, **kw), v)
+        row = {"case": what, "max_abs_err": err, "bound_share": share}
+        if dtype == torch.bfloat16:
+            row["max_abs_from_tiled"] = tiled_gap(got, (q, k, v), kw)
+        shares.append(row)
     torch.cuda.synchronize()
-    log(f"edge cases: {len(cases)} flash_attention calls match their plain version")
+    log("edge cases, flash_attention: " + json.dumps(shares))
+    worst = {t: max(r["bound_share"] for r in shares if t in r["case"])
+             for t in ("float32", "bfloat16")}
+    log(f"edge cases: {len(cases)} flash_attention calls match their plain version; worst share "
+        f"of the bound: f32 (fa_main) {worst['float32']:.4f}, bf16 (fa_wgmma) "
+        f"{worst['bfloat16']:.4f}")
 
 
 def _watched(model):
@@ -1011,7 +1036,10 @@ def _library_ms(name: str, args: tuple, kw: dict):
 
 
 def phase_kernels(captured, launches, pool):
-    """Each kernel against its plain version on the paths' inputs."""
+    """Each kernel against its plain version on the paths' inputs; then
+    which kernel a served attention call runs (``phase_attention_route``)."""
+    import torch
+
     from repro_torch.kernels import ops, ref
     from repro_torch.kmeans import check_step, reference_step
 
@@ -1020,6 +1048,7 @@ def phase_kernels(captured, launches, pool):
     for i, (name, args, kw) in enumerate(captured):
         kern, plain = getattr(ops, name), getattr(ref, name)
         got, want = kern(*args, **kw), plain(*args, **kw)
+        extra = {}
         if name == "kmeans_step":
             x, c = (a.cpu().numpy() for a in args)
             err = check_step(f"kmeans_step#{i}", got, want, reference_step(x, c, pool.map),
@@ -1027,7 +1056,10 @@ def phase_kernels(captured, launches, pool):
         elif name == "segsum":
             err = check_segsum(f"segsum#{i}", got, *args)
         elif name == "flash_attention":
-            err = check_attention(f"flash_attention#{i}", got, want, args[2])
+            err, share = check_attention(f"flash_attention#{i}", got, want, args[2])
+            extra = {"bound_share": share}
+            if args[0].dtype == torch.bfloat16:
+                extra["max_abs_from_tiled"] = tiled_gap(got, args, kw)
         else:
             err = compare_outputs(f"{name}#{i}", got, want)
         ms = cuda_ms(lambda: kern(*args, **kw))
@@ -1045,7 +1077,8 @@ def phase_kernels(captured, launches, pool):
         rows.append({"kernel": name, "call": i, **shape, "ms": ms, "plain_ms": pms,
                      "library_ms": lib, "bytes": nbytes, "ops": nops,
                      "bound_ms": max(t_bytes, t_ops),
-                     "bound_f32_ms": max(t_bytes, nops / PEAK_F32 * 1e3), "max_abs_err": err})
+                     "bound_f32_ms": max(t_bytes, nops / PEAK_F32 * 1e3), "max_abs_err": err,
+                     **extra})
         a = agg.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                                   "bytes_ms": 0.0, "ops_ms": 0.0, "ops_f32_ms": 0.0,
                                   "err": 0.0})
@@ -1057,6 +1090,8 @@ def phase_kernels(captured, launches, pool):
         a["ops_ms"] += t_ops
         a["ops_f32_ms"] += nops / PEAK_F32 * 1e3
         a["err"] = max(a["err"], err)
+        for key, x in extra.items():
+            a[key] = max(a.get(key, 0.0), x)
     log("kernel calls: " + json.dumps(rows))
     out = []
     for name in REPLACES:
@@ -1072,8 +1107,32 @@ def phase_kernels(captured, launches, pool):
         })
         if a["ops_f32_ms"] != t_ops:  # bf16 operands: the f32 convention's bound beside
             out[-1]["bound_f32_ms"] = max(t_bytes, a["ops_f32_ms"])
+        out[-1].update({k: a[k] for k in ("bound_share", "max_abs_from_tiled") if k in a})
     log("kernels vs plain versions on the paths' inputs: all match")
+    phase_attention_route([c for c in captured if c[0] == "flash_attention"])
     return out
+
+
+def phase_attention_route(calls) -> None:
+    """One served flash_attention call (bf16) under torch.profiler, after a
+    warm-up window: its device kernels must be the tensor-core kernel and
+    not the CUDA-core one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    _, args, kw = calls[0]
+    for _ in range(2):  # the first window warms the profiler up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ops.flash_attention(*args, **kw)
+            torch.cuda.synchronize()
+    names = sorted({e.key for e in _device_events(prof)})
+    if not any(FA_TENSOR_CORE in n for n in names) or any(FA_CUDA_CORE in n for n in names):
+        raise AssertionError(f"a served flash_attention call ran {names}, not {FA_TENSOR_CORE}")
+    log(f"served flash_attention call (q {tuple(args[0].shape)}, {args[0].dtype}) ran on the "
+        f"card as: {names}")
 
 
 def phase_queries(tables, frames, reps: int) -> None:
@@ -1141,7 +1200,9 @@ def report_serve(report) -> None:
 
 #: name fragments of this package's CUDA kernels in a profiler trace
 OUR_KERNELS = ("fsa_main", "fsa_finalize", "gsa_main", "gja_main", "vm_init_accumulators",
-               "kms_main", "seg_main", "fa_main")
+               "kms_main", "seg_main", "fa_main", "fa_wgmma")
+#: flash_attention's kernels: bf16 on the tensor cores, f32 on the CUDA cores
+FA_TENSOR_CORE, FA_CUDA_CORE = "fa_wgmma", "fa_main"
 
 
 def _device_events(prof):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C entry
 point, built for Hopper (``sm_90a``) into ``build/repro_torch_kernels/``
 at the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it).  A
-library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.  All missing libraries
+library's file name carries a hash of its flags, its source and every
+header of ``csrc/`` that the source includes, so an edited source or header
+is rebuilt and an unchanged one is reused.  All missing libraries
 are compiled at once, one ``nvcc`` each, in parallel.  They are loaded with
 ``ctypes``: pointers and the stream go over as ``c_void_p``, and every
 entry point returns ``cudaGetLastError()``.
@@ -15,10 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg", "kmeans_step",
@@ -68,14 +70,31 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def local_headers(source: Path) -> List[Path]:
+    """The headers of ``csrc/`` that ``source`` includes with ``#include
+    "…"``, directly or through another such header, in the order met."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop().read_bytes()):
+            header = CSRC / name.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of the flags, its source and the
-    expression VM header where the source includes it."""
+    local headers it includes."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    src = (CSRC / f"{name}.cu").read_bytes()
-    if b'#include "exprvm.cuh"' in src:
-        h.update((CSRC / "exprvm.cuh").read_bytes())
-    h.update(src)
+    src = CSRC / f"{name}.cu"
+    for header in local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(src.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -380,7 +380,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Causal or sliding-window GQA attention, forward only: q (B, Hq, S,
     D), k, v (B, Hkv, S, D), f32 or bf16 → (B, Hq, S, D) in q's dtype
-    (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ {32, 64, 128}."""
+    (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ {32, 64, 128}.  On the
+    card bf16 runs on the tensor cores (its arithmetic is
+    ``ref.flash_attention_tiled``), f32 on the CUDA cores."""
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
     from .build import constant, entry

@@ -112,6 +112,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (torch.matmul(p, vf) / l).to(q.dtype)
 
 
+def flash_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: Optional[int] = None,
+                          sm_scale: Optional[float] = None, block_k: int = 128,
+                          p_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain torch: q·kᵀ of the
+    inputs as they are, summed in f32; the scale on the f32 logits; an f32
+    online softmax over kv tiles of ``block_k`` (masked weights exactly 0,
+    l summing the f32 weights); the weights rounded to ``p_dtype`` before
+    the product with v, summed in f32; a row with nothing unmasked gives 0.
+    Same shapes and result dtype as ``flash_attention``."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    mask = attention_mask(s, causal, window, q.device)
+    m = torch.full((b, hq, s, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, s, block_k):
+        keep = mask[:, k0:k0 + block_k]
+        x = (torch.matmul(qf, kf[:, :, k0:k0 + block_k].transpose(-1, -2)) * scale
+             ).masked_fill(~keep, NEG)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new) * keep
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(p_dtype).float(), vf[:, :, k0:k0 + block_k])
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: Union[int, torch.Tensor], *,
                      sm_scale: Optional[float] = None) -> torch.Tensor:

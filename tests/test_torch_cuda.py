@@ -233,6 +233,13 @@ def _assert_attention_close(got, want, v):
     (2048, 128, 6, torch.bfloat16, True, None, None),
     (2048, 32, 1, torch.float32, True, 128, 0.05),
     (129, 128, 48, torch.bfloat16, True, None, None),   # granite's MQA group
+    # the tensor-core kernel around its 128-row tiles, long, windowed, narrow
+    (127, 128, 6, torch.bfloat16, True, None, None),
+    (128, 128, 6, torch.bfloat16, True, None, None),
+    (129, 64, 1, torch.bfloat16, True, None, None),
+    (4096, 128, 6, torch.bfloat16, True, None, None),
+    (2048, 128, 6, torch.bfloat16, True, 128, None),
+    (200, 32, 6, torch.bfloat16, True, None, None),
 ])
 def test_flash_attention_on_card(card, s, d, group, dtype, causal, window, scale):
     q, k, v = _attention_inputs(card, 2, 2 * group, 2, s, d, dtype, seed=s + d + group)

@@ -11,6 +11,7 @@ orders.  The ctypes bindings are checked against the C signatures.
 """
 
 import re
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -252,6 +253,32 @@ def test_library_path_tracks_sources(tmp_path, monkeypatch):
     assert p.parent == tmp_path and p.name.startswith("fused_select_agg-")
     assert p == build.library_path("fused_select_agg")
     assert p != build.library_path("grouped_select_agg")
+
+
+def test_library_path_tracks_local_headers(tmp_path, monkeypatch):
+    """Editing a header of ``csrc/`` that a source includes, directly or
+    through another header, renames the library; a header it does not
+    include, or an include of a system header, does not."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    (csrc / "inner.cuh").write_text("#pragma once\n#define INNER 1\n")
+    (csrc / "outer.cuh").write_text('#pragma once\n#include <cuda.h>\n#include "inner.cuh"\n')
+    (csrc / "other.cuh").write_text("#define OTHER 1\n")
+    (csrc / "probe.cu").write_text('#include "outer.cuh"\nextern "C" int probe() { return 0; }\n')
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    assert [h.name for h in build.local_headers(csrc / "probe.cu")] == ["outer.cuh", "inner.cuh"]
+    before = build.library_path("probe")
+    (csrc / "other.cuh").write_text("#define OTHER 2\n")
+    assert build.library_path("probe") == before
+    (csrc / "inner.cuh").write_text("#pragma once\n#define INNER 2\n")
+    edited = build.library_path("probe")
+    assert edited != before and edited.name.startswith("probe-")
+    # the port's own sources: the attention kernel's wgmma/TMA header counts
+    assert [h.name for h in build.local_headers(csrc / "flash_attention.cu")] == ["hopper.cuh"]
+    old = build.library_path("flash_attention")
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n// edited\n")
+    assert build.library_path("flash_attention") != old
 
 
 def test_default_build_dir_is_ignored_by_git(monkeypatch):
