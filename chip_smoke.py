@@ -10,9 +10,12 @@ Phases, each printing its own lines:
 2. each CUDA kernel against its plain PyTorch version on edge cases
    (empty selection, ragged capacity, out-of-domain and duplicate join
    keys, more buckets than shared memory holds; for k-means ragged n,
-   k = 1, duplicate and far centroids, centroid tables past 48 KB and past
-   the opt-in shared memory; for segsum ids at K−1 and out of range, empty
-   segments, accumulators past 48 KB and past the opt-in shared memory);
+   n = 0, fewer points than a tile, k = 1, d = 3, the top of the
+   tensor-core route's range and just past it, chunk views that start
+   inside a 16-byte granule, duplicate and far centroids, centroid tables
+   past 48 KB and past the opt-in shared memory, each printing the route it
+   took; for segsum ids at K−1 and out of range, empty segments,
+   accumulators past 48 KB and past the opt-in shared memory);
 3. the TPC-H path: TPC-H at ``--sf`` (seed 0), the six queries through
    ``Frame.collect(device="cuda")``, each held against the numpy
    reference, with the kernels' launch counts read around that one run;
@@ -20,9 +23,11 @@ Phases, each printing its own lines:
    ``examples/kmeans.py`` makes them), the program built with ``Builder``,
    then ``FuseKMeansStep`` and ``Parallelize(8)``, run on
    ``LocalBackend(use_kernels=True)`` for a warm-up and 5 steps,
-   ``kmeans_step`` launched 8 times per step; each step held against a
+   ``kmeans_step`` launched 8 times per step, every call on the
+   tensor-core route (``kms_tc``, the route line); each step held against a
    numpy f64 step from the same centroids, and the unfused program against
-   the fused one;
+   the fused one; one path call under ``torch.profiler``, which must show
+   ``kms_tc`` and not ``kms_main``, then run twice more: the same bits;
 5. ``segsum`` on the unfused program's ``la.SegSum`` inputs (the JAX
    package's emitters never call its segsum kernel either), counted alone;
 6. the TPC-H path with ``parallel=4``: the six queries again, split into
@@ -48,7 +53,8 @@ Phases, each printing its own lines:
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
    (``index_add_``, ``scaled_dot_product_attention``) that computes the
-   same function; each served attention call's distance from the
+   same function; for ``kmeans_step`` the read floor, ``torch.sum`` over
+   each call's points (the card's achieved read rate, not a library call); each served attention call's distance from the
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
@@ -438,10 +444,12 @@ def phase_build() -> None:
         build.library(name)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
     for name, p in paths.items():
-        lines = [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for ln in lines:
-            log(f"  ptxas {name}: {ln}")
+        entry = "?"
+        for ln in p.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in ln:  # the mangled kernel the lines below describe
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif "registers" in ln or "spill" in ln:
+                log(f"  ptxas {name} {entry}: {ln.strip()}")
 
 
 def phase_edges() -> None:
@@ -533,21 +541,40 @@ def phase_edges_la(pool) -> None:
         x = centres[rng.integers(0, k, n)] + rng.normal(0, 1, (n, d))
         return x.astype(np.float32), rng.normal(0, 5, (k, d)).astype(np.float32)
 
+    # label: (points, centroids, (rows, floats) before the view's start)
     cases = {
         "ragged n": clusters(1003, 8, 16, 1),       # n not a multiple of any block
+        "n < one tile": clusters(100, 8, 16, 9),
+        "n not a multiple of 8 or 16": clusters(1001, 8, 16, 10),
         "k=1": clusters(1000, 8, 1, 2),
         "d=3": clusters(999, 3, 7, 3),
+        "k=64 d=8 (top of the tensor-core range)": clusters(6000, 8, 64, 11),
+        "k=32 d=16 (top of the tensor-core range)": clusters(6000, 16, 32, 12),
+        "k=16 d=32 (top of the tensor-core range)": clusters(6000, 32, 16, 13),
+        "k=65 d=8 (past the tensor-core range)": clusters(3000, 8, 65, 14),
         "d=128": clusters(2000, 128, 8, 4),         # the widest point the kernel takes
         "k*d past 48 KB": clusters(5000, 64, 256, 5),    # dynamic shared memory
         "k*d past opt-in": clusters(3000, 64, 512, 6),   # global accumulators
     }
+    cases = {label: (x, c, (0, 0)) for label, (x, c) in cases.items()}
+    # chunk views whose start is not 16-byte aligned, as a Split makes them
+    cases["view 4 bytes into a 16-byte granule"] = (*clusters(4099, 8, 16, 15), (0, 1))
+    cases["view of d=3 rows from row 5 (60 bytes in)"] = (*clusters(3001, 3, 7, 16), (5, 0))
     x, c = clusters(4099, 8, 6, 7)
     c[4] = c[2]   # an exact copy: its points go to index 2, index 4 counts 0
     c[5] = 1e4    # far from every point: an empty cluster, zero sums
-    cases["duplicate and far centroids"] = (x, c)
-    for label, (x, c) in cases.items():
-        xt, ct = tensors_from_arrays(x, c, device="cuda")
+    cases["duplicate and far centroids"] = (x, c, (0, 0))
+    routes = {}
+    for label, (x, c, (rows, floats)) in cases.items():
+        n, d = x.shape
+        flat = np.zeros((rows + n + 1) * d + floats, np.float32)
+        at = rows * d + floats
+        flat[at:at + n * d] = x.ravel()
+        xt = torch.from_numpy(flat).to("cuda")[at:at + n * d].view(n, d)
+        ct = torch.from_numpy(c).to("cuda")
+        before = dict(ops.KMEANS_LAUNCHES)
         got = ops.kmeans_step(xt, ct)
+        routes[label] = [r for r in before if ops.KMEANS_LAUNCHES[r] != before[r]][0]
         check_step(f"kmeans_step[{label}]", got, ref.kmeans_step(xt, ct),
                    reference_step(x, c, pool.map), KERNEL_RTOL)
         if label.startswith("duplicate"):
@@ -555,6 +582,13 @@ def phase_edges_la(pool) -> None:
             if not (counts[4] == 0 and counts[2] > 0 and counts[5] == 0
                     and bool((sums[4] == 0).all()) and bool((sums[5] == 0).all())):
                 raise AssertionError(f"kmeans_step: copies and empty clusters: {counts.tolist()}")
+    before = dict(ops.KMEANS_LAUNCHES)
+    sums, counts = ops.kmeans_step(torch.zeros((0, 8), device="cuda"),
+                                   torch.ones((16, 8), device="cuda"))
+    routes["n=0"] = [r for r in before if ops.KMEANS_LAUNCHES[r] != before[r]][0]
+    if bool(sums.any()) or bool(counts.any()):
+        raise AssertionError("kmeans_step: no points must give zero sums and counts")
+    log(f"kmeans_step edge cases' routes: {json.dumps(routes)}")
     rng = np.random.default_rng(8)
     seg_cases = {"ragged n": (1003, 8, 16), "d=1": (777, 1, 3),
                  "K*d past 48 KB": (5000, 64, 256), "K*d past opt-in": (3000, 64, 1024)}
@@ -569,7 +603,7 @@ def phase_edges_la(pool) -> None:
         if not bool((got[1] == 0).all()):
             raise AssertionError("segsum: an empty segment is not zero")
     torch.cuda.synchronize()
-    log(f"edge cases: {len(cases)} kmeans_step and {len(seg_cases)} segsum calls match "
+    log(f"edge cases: {len(cases) + 1} kmeans_step and {len(seg_cases)} segsum calls match "
         "their plain versions")
 
 
@@ -656,9 +690,15 @@ def phase_kmeans(pool):
             steps.append((C, sums, counts))
             C = sums / counts.clamp_min(1e-9)[:, None]
         launches = dict(ops.LAUNCHES)
+        routes = dict(ops.KMEANS_LAUNCHES)
     expect = KMEANS_PARALLEL * (KMEANS_STEPS + 1)
     if launches["kmeans_step"] != expect:
         raise AssertionError(f"kmeans_step launched {launches['kmeans_step']} times, not {expect}")
+    if routes != {"kms_tc": expect, "kms_main": 0}:
+        raise AssertionError(f"the k-means path's kmeans_step calls took {routes}, not all "
+                             "the tensor-core route")
+    log(f"k-means path routes: {json.dumps(routes)} (all {expect} kmeans_step calls on the "
+        "tensor cores, kms_tc)")
 
     for i, (c_in, sums, counts) in enumerate(steps):
         stats = reference_step(x, c_in.cpu().numpy(), pool.map)
@@ -688,7 +728,28 @@ def phase_kmeans(pool):
     check_step("unfused program vs fused", got, (sums, counts), stats, KERNEL_RTOL)
     log(f"k-means path: {KMEANS_STEPS} steps match numpy f64, the unfused program matches the "
         f"fused one; launches {launches}")
+    phase_kmeans_route(captured)
     return launches, list(captured), seg_inputs, times, lambda: fused({}, X, c_in)
+
+
+def phase_kmeans_route(calls) -> None:
+    """One k-means path call under torch.profiler (after a warm-up window):
+    its device kernel must be the tensor-core kms_tc and not kms_main; then
+    two more runs of it, which must give the same bits (the fixed-order
+    sum)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    _, args, kw = calls[0]
+    names = device_kernels(lambda: ops.kmeans_step(*args, **kw))
+    if not any(KMS_TENSOR_CORE in n for n in names) or any(KMS_CUDA_CORE in n for n in names):
+        raise AssertionError(f"a k-means path kmeans_step call ran {names}, not {KMS_TENSOR_CORE}")
+    log(f"k-means path kmeans_step call (x {tuple(args[0].shape)}) ran on the card as: {names}")
+    first, second = ops.kmeans_step(*args, **kw), ops.kmeans_step(*args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two runs of a k-means path kmeans_step call differ")
+    log("k-means path kmeans_step call run twice: sums and counts bit-identical")
 
 
 def phase_segsum(seg_inputs):
@@ -1053,6 +1114,8 @@ def phase_kernels(captured, launches, pool):
             x, c = (a.cpu().numpy() for a in args)
             err = check_step(f"kmeans_step#{i}", got, want, reference_step(x, c, pool.map),
                              KERNEL_RTOL)
+            # the card's read rate on the same bytes: a floor, not a library call
+            extra = {"read_floor_ms": cuda_ms(lambda: torch.sum(args[0]))}
         elif name == "segsum":
             err = check_segsum(f"segsum#{i}", got, *args)
         elif name == "flash_attention":
@@ -1091,7 +1154,7 @@ def phase_kernels(captured, launches, pool):
         a["ops_f32_ms"] += nops / PEAK_F32 * 1e3
         a["err"] = max(a["err"], err)
         for key, x in extra.items():
-            a[key] = max(a.get(key, 0.0), x)
+            a[key] = a.get(key, 0.0) + x if key == "read_floor_ms" else max(a.get(key, 0.0), x)
     log("kernel calls: " + json.dumps(rows))
     out = []
     for name in REPLACES:
@@ -1107,8 +1170,15 @@ def phase_kernels(captured, launches, pool):
         })
         if a["ops_f32_ms"] != t_ops:  # bf16 operands: the f32 convention's bound beside
             out[-1]["bound_f32_ms"] = max(t_bytes, a["ops_f32_ms"])
-        out[-1].update({k: a[k] for k in ("bound_share", "max_abs_from_tiled") if k in a})
+        out[-1].update({k: a[k] for k in ("bound_share", "max_abs_from_tiled", "read_floor_ms")
+                        if k in a})
     log("kernels vs plain versions on the paths' inputs: all match")
+    km = agg["kmeans_step"]
+    log(f"read floor: torch.sum over the points of the {launches['kmeans_step'] // (KMEANS_STEPS + 1)}"
+        f" k-means path calls of a step, {km['read_floor_ms']:.4f} ms "
+        f"({km['bytes_ms'] * PEAK_BYTES / 1e3 / km['read_floor_ms'] / 1e9:.4g} TB/s); "
+        f"kmeans_step wrapper {km['ms']:.4f} ms, {km['ms'] / km['read_floor_ms']:.3f}x the floor, "
+        f"bound {km['bytes_ms']:.4f} ms")
     phase_attention_route([c for c in captured if c[0] == "flash_attention"])
     return out
 
@@ -1117,18 +1187,10 @@ def phase_attention_route(calls) -> None:
     """One served flash_attention call (bf16) under torch.profiler, after a
     warm-up window: its device kernels must be the tensor-core kernel and
     not the CUDA-core one."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ops
 
     _, args, kw = calls[0]
-    for _ in range(2):  # the first window warms the profiler up
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ops.flash_attention(*args, **kw)
-            torch.cuda.synchronize()
-    names = sorted({e.key for e in _device_events(prof)})
+    names = device_kernels(lambda: ops.flash_attention(*args, **kw))
     if not any(FA_TENSOR_CORE in n for n in names) or any(FA_CUDA_CORE in n for n in names):
         raise AssertionError(f"a served flash_attention call ran {names}, not {FA_TENSOR_CORE}")
     log(f"served flash_attention call (q {tuple(args[0].shape)}, {args[0].dtype}) ran on the "
@@ -1200,9 +1262,25 @@ def report_serve(report) -> None:
 
 #: name fragments of this package's CUDA kernels in a profiler trace
 OUR_KERNELS = ("fsa_main", "fsa_finalize", "gsa_main", "gja_main", "vm_init_accumulators",
-               "kms_main", "seg_main", "fa_main", "fa_wgmma")
+               "kms_main", "kms_tc", "seg_main", "fa_main", "fa_wgmma")
 #: flash_attention's kernels: bf16 on the tensor cores, f32 on the CUDA cores
 FA_TENSOR_CORE, FA_CUDA_CORE = "fa_wgmma", "fa_main"
+#: kmeans_step's kernels: the path's shape on the tensor cores, others on the CUDA cores
+KMS_TENSOR_CORE, KMS_CUDA_CORE = "kms_tc", "kms_main"
+
+
+def device_kernels(fn, reps: int = 3):
+    """The names of the device kernels that ``reps`` calls of ``fn``
+    launch, from torch.profiler after a warm-up window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):  # the first window warms the profiler up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    return sorted({e.key for e in _device_events(prof)})
 
 
 def _device_events(prof):

@@ -40,9 +40,15 @@ ENTRY = {
     "grouped_join_agg": ("gja_launch", [
         _P, _I, _I, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _I,
         _P, _I, _L, _P, _P, _P]),
-    "kmeans_step": ("kms_launch", [_P, _P, _L, _I, _I, _P, _P, _P]),
+    "kmeans_step": ("kms_launch", [_P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P]),
     "segsum": ("seg_launch", [_P, _P, _L, _I, _I, _P, _P]),
     "flash_attention": ("fa_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+}
+
+#: other C functions a library exports: name → (argument types, result type)
+HELPERS = {
+    "kmeans_step": {"kms_route": ([_I, _I], _I), "kms_tc_tile_points": ([_I], _I),
+                    "kms_tc_grid": ([_L, _I, _I, _I], _I), "kms_scratch_bytes": ([_I, _I, _I], _L)},
 }
 
 #: where the CUDA toolkit installs nvcc by default
@@ -142,6 +148,9 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            for helper, (args, result) in HELPERS.get(n, {}).items():
+                getattr(lib, helper).argtypes = args
+                getattr(lib, helper).restype = result
             _LOADED[n] = lib
     return _LOADED[name]
 

@@ -1,6 +1,7 @@
 // hopper.cuh: the Hopper (sm_90a) primitives of the tensor-core kernels, as
-// inline PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma shapes the kernels use.  Layout conventions follow the PTX ISA
+// inline PTX: mbarriers, TMA tile loads and 1-D bulk copies, TF32 rounding
+// and mma.sync in TF32, wgmma shared-memory descriptors and the wgmma shapes
+// the kernels use.  Layout conventions follow the PTX ISA
 // ("Asynchronous warpgroup level matrix multiply-accumulate"): a tile that a
 // descriptor names was written by TMA with the same swizzle, from a base
 // aligned to 1024 bytes.
@@ -53,6 +54,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- grid-scope tickets ------------------------------------------------------
+
+// old = *p; *p = old >= limit ? 0 : old + 1, with acquire-release order at
+// the scope of the device: writes that this thread saw (after a barrier,
+// its block's) happen before it, and what it and, after a barrier, its
+// block read afterwards sees the writes ordered before earlier increments
+__device__ __forceinline__ unsigned atom_inc_acq_rel(unsigned* p, unsigned limit) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(limit)
+               : "memory");
+  return old;
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 // one box of a 3-d tensor map at coordinates (c0 innermost, c1, c2) into
@@ -68,6 +84,56 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory, without a
+// tensor map; completes `bar`'s transactions with them.  `dst`, `src` and
+// `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- mma.sync in TF32 ------------------------------------------------------
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as cvt.rna.tf32.f32 rounds finite values and infinities: half a TF32 unit
+// added to the magnitude bits, the 13 bits below cleared: two integer
+// instructions, where cvt.rna.tf32.f32 compiles to a longer sequence on sm_90a.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v − hi for hi = tf32_rna(v), exact in f32, passed as it is: an mma reads a
+// TF32 operand's top 19 bits, so it takes v − hi rounded toward zero to
+// TF32 (two instructions fewer than rounding it to nearest first)
+__device__ __forceinline__ uint32_t tf32_rest(float v, uint32_t hi) {
+  return __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d (m16n8, f32) += a (m16k8, row-major) · b (k8n8, column-major), TF32
+// operands.  Fragments, with g = lane / 4 and t = lane % 4: a = {A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}, d = {D[g][2t],
+// D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (m16n8, f32) = a · b + c, TF32 operands, fragments as above
+__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2], const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
 }
 
 // ---- wgmma -----------------------------------------------------------------

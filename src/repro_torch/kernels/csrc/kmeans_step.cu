@@ -2,32 +2,89 @@
 //
 // Replaces src/repro/kernels/kmeans_step.py:kmeans_step_p.  That kernel ran
 // both halves on the TPU's matrix unit: d² through an x·cᵀ product, and the
-// accumulation as one_hot(labels)ᵀ·x; its wrapper padded the rows to the
-// block size with copies of c[0] and took them off the sums afterwards.
-// Hopper needs neither the one-hot nor the padding: each point adds straight
-// into its centroid's accumulators, and the grid-stride loop stops at n.
+// accumulation as one_hot(labels)ᵀ·x, over blocks of 1024 points in order.
 //
-// Bound on the card: memory.  The points are read once (n = 2^24, d = 8:
-// 537 MB, about 0.16 ms at 3.35 TB/s); the n·k·(2d+3) f32 operations (5.1e9
-// at k = 16, about 0.08 ms at 67 TFLOP/s) stay below that.  The likely limit
-// of this first design is neither: every point of a block adds into the
-// same k·d shared addresses, and those atomics contend.
+// Bound on the card: bytes.  The points are read once (n = 2^21, d = 8 per
+// call of the k-means path: 67.1 MB, 20 µs at 3.35 TB/s); the n·k·(2d+3)
+// f32 operations (0.64e9 a call at k = 16, 10 µs at 67 TFLOP/s outside the
+// tensor cores) stay below that.
 //
-// Design: one thread per point in a grid-stride loop.  Each block copies the
-// centroids into shared memory and computes ‖c_j‖² once.  A thread loads its
-// point's d values into registers, forms ‖x‖² and each x·c_j as sums in
-// index order, d² = (‖x‖² − 2·x·c_j) + ‖c_j‖² with the _rn intrinsics (the
-// build runs --fmad=false), and keeps the first minimum (strict <, from
-// j = 0), so duplicate centroids resolve to the lowest index as jnp.argmin
-// does.  No tensor cores: labels must agree with an f32 reference.  Sums go
-// into per-block shared accumulators (k·d f32) and counts into int32 shared
-// counts, flushed once per block with global atomics.  When accumulators and
-// centroids together pass the opt-in shared memory (227 KB on sm_90), only
-// the centroids stay in shared memory and points add into the global
-// accumulators.  Counts are int32 (an f32 count is inexact past 2^24); the
-// wrapper returns them as f32.  Sums are added in an order that changes from
-// run to run.
+// Two routes, chosen by shape in kms_launch (kms_route), never on failure:
+//
+// * kms_tc, on the tensor cores, for d ≤ 32 and k ≤ 64 with KP·DP ≤ 512,
+//   where KP is k rounded up to 16, 32 or 64 and DP is d rounded up to 8,
+//   16 or 32: d ≤ 8 with k ≤ 64, d ≤ 16 with k ≤ 32, d ≤ 32 with k ≤ 16.
+//   The k-means path (d = 8, k = 16) takes it.
+// * kms_main, on the CUDA cores, for every other d ≤ 128 whose centroid
+//   table fits in the opt-in shared memory (described at kms_main).
+//
+// kms_tc's design.  A persistent grid of at most two blocks per SM (one
+// where the registers need it; the caller passes the grid, kms_tc_grid),
+// each of eight consumer warps and one producer warp.
+// The points are cut into tiles of 16 KB of rows (512 points at DP = 8);
+// block b takes tiles b, b + G, b + 2G, … in that order.  The producer's
+// lane 0 keeps six tiles in flight, each a 1-D bulk copy (cp.async.bulk)
+// into a ring of shared buffers on mbarriers.  A bulk copy wants 16-byte
+// aligned addresses and sizes, and a chunk of a Split may start anywhere (a
+// row of d = 3 is 12 bytes): each copy takes the 16-byte granules that
+// cover the tile, which never leave the allocation's pages, and the
+// consumers read the rows from the offset x mod 16.  Each consumer warp
+// takes 1/8 of a tile, 16 points at a time:
+//
+// * distances on the tensor cores, mma.sync m16n8k8 in TF32 with a
+//   three-way split: x = x_hi + x_lo and −2c = b_hi + b_lo, each hi
+//   rounded as cvt.rna does, b_lo too, x_lo passed as the f32 rest (which
+//   an mma reads as TF32 toward zero).  The score is ‖c_j‖² + x_lo·b_hi +
+//   x_hi·b_lo + x_hi·b_hi, ‖c_j‖² (f32 fmas in index order) the first
+//   product's addend; ‖x‖² is the same for every j and drops out of the
+//   argmin.  The split's error: a rest v − hi lies on v's f32 grid with at
+//   most 12 significant bits, so TF32 loses at most one f32 unit of v
+//   (2^-23·|v|) whether it rounds or truncates; with the dropped
+//   x_lo·b_lo (≤ 2^-22·|x_t·b_t|) a product x_t·b_t is off by at most
+//   2^-21·|x_t·b_t|, a score by at most 2^-20·Σ_t|x_t·c_t| ≤
+//   2^-21·(‖x‖² + ‖c_j‖²), before the f32 sums.  A label compares two
+//   scores: at most 2^-20·(‖x‖² + max ‖c‖²) apart from their exact
+//   difference by the split.  The tie margin of repro_torch/kmeans.py,
+//   TIE·d·2^-23·(‖x‖² + max ‖c‖²) with TIE = 8, is d times that: 8× at
+//   d = 8, where the f32 sums' roundings have the room the margin was
+//   sized for; at d = 1 the split's worst case alone fills it, so a
+//   label there stays within the rule only while the errors stay short of
+//   their worst case (both rests near 2^-11 of their operands, of one
+//   sign), as on every case of the tests.  One TF32 pass is off by up to
+//   2^-11 relative and fails the rule on the examples' data.  The
+//   split −2c and ‖c‖² stay in registers for the whole launch.  An exact
+//   copy of an earlier centroid, and the padding past k, score +inf, so a
+//   copy never takes a point whatever the tensor cores do with two equal
+//   columns.
+// * the argmin over each thread's columns, then over the quad by two
+//   rounds of shuffles; the lowest index wins on equal scores.
+// * sums as one_hot(labels)ᵀ·x on the tensor cores, as the TPU kernel did
+//   them: the one-hot (exact in TF32) is A, the points B, split hi + lo;
+//   counts through one more product with a B of ones.  Points past n (the
+//   ragged tail) are zero and take label −1.  A tile's products start from
+//   zero and are added into the warp's running sums in f32 (round to
+//   nearest), so the tensor cores' own accumulation spans one tile only.
+//
+// The finish has no float atomics and no memsets.  Each block adds its
+// warps' sums in warp order and writes them, with its int32 counts, to a
+// scratch buffer.  The blocks form groups of 32; the last block of a group
+// to take its group's ticket adds the group's partials in block order, and
+// the last of those finishers to take the grid's ticket adds the groups'
+// in order.  A ticket is an acquire-release atomic increment, so no fence
+// of its own, that wraps back to 0 for the next launch.  Each finisher
+// issues all its loads before its first add, so the finish costs two round
+// trips to L2, not one per block.  Every addition has a fixed place, so
+// the same inputs give bit-identical sums and counts on every run, as the
+// TPU kernel's grid in order did.  ref.kmeans_step_tiled is this
+// arithmetic in plain torch.
+//
+// Counts are exact int32 (an f32 count is inexact past 2^24), written out
+// as f32, as the JAX kernel returns them.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 #define KMS_TPB 256
 #define KMS_MAX_D 128
@@ -36,12 +93,508 @@
 // memory; below 0, so no CUDA error has this value
 #define KMS_ERR_TABLE (-1)
 
+// the tensor-core route's tickets: one for the grid, one per group of blocks
+#define KMS_TICKETS 17
+
 extern "C" {
-// the largest point width the kernel takes, and the code above (read by the
-// wrapper)
+// the largest point width the kernel takes, the code above and the tickets
+// kms_launch wants (read by the wrapper)
 int kms_max_d = KMS_MAX_D;
 int kms_err_table = KMS_ERR_TABLE;
+int kms_tickets = KMS_TICKETS;
 }
+
+// ---- kms_tc: the tensor-core route ------------------------------------------
+
+constexpr int KTC_STAGES = 6;                        // tiles in flight
+constexpr int KTC_TILE_BYTES = 16384;                // a tile of rows (16 points a warp at least)
+constexpr int KTC_WARPS = 8;                         // consumer warps
+constexpr int KTC_THREADS = (KTC_WARPS + 1) * 32;    // and one producer warp
+constexpr uint32_t KTC_ONE = 0x3f800000u;             // 1.0f, exact in TF32
+constexpr int KTC_GROUP = 32;       // blocks whose partials one group finisher adds
+constexpr int KTC_MAX_GROUPS = KMS_TICKETS - 1;  // so at most 512 blocks
+
+__host__ __device__ constexpr int ktc_dp(int d) { return d <= 8 ? 8 : d <= 16 ? 16 : 32; }
+__host__ __device__ constexpr int ktc_kp(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : 64; }
+__host__ __device__ constexpr int ktc_tile_points(int dp) {  // at least 16 a warp
+  const int fit = KTC_TILE_BYTES / (4 * dp);
+  return fit > 16 * KTC_WARPS ? fit : 16 * KTC_WARPS;
+}
+// a stage of the ring: a tile and the 16-byte granules around it
+__host__ __device__ constexpr int ktc_stage_bytes(int dp) {
+  return ktc_tile_points(dp) * dp * 4 + 32;
+}
+// two blocks an SM where their registers fit (at most 113 a thread), else one
+__host__ __device__ constexpr int ktc_blocks_per_sm(int kp, int dp) {
+  return kp * dp <= 256 ? 2 : 1;
+}
+static size_t ktc_smem_bytes(int kp, int dp) {
+  return KTC_STAGES * ktc_stage_bytes(dp) + 2 * KTC_STAGES * sizeof(uint64_t) +
+         sizeof(float) * (kp * dp + 2 * kp);
+}
+
+// 16 points: the labels of rows 0 … 15 of xm (row stride ld), then their
+// one-hot sums and counts into sacc and cacc.  PARTIAL: only the first
+// `valid` rows are points.
+template <int KP, int DP, bool EXACT, bool PARTIAL>
+__device__ __forceinline__ void ktc_rows16(const float* xm, int ld, int d, int valid,
+                                           const uint32_t (&bh)[KP / 8][DP / 8][2],
+                                           const uint32_t (&bl)[KP / 8][DP / 8][2],
+                                           const float (&c2r)[KP / 8][4],
+                                           float (&sacc)[KP / 16][DP / 8][4],
+                                           float (&cacc)[KP / 16][4], int lane) {
+  constexpr int NT = KP / 8, KS = DP / 8, MT = KP / 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  // scores ‖c_j‖² + x·(−2c_j), the product split three ways and ‖c_j‖² the
+  // first product's addend; the k index t of a fragment is dimension 2t and
+  // t + 4 is 2t + 1, so a thread's two values are adjacent
+  float acc[NT][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int dim = ks * 8 + 2 * t4;
+    float v[4];
+    if (EXACT) {
+      const float2 r0 = *reinterpret_cast<const float2*>(xm + g * DP + dim);
+      const float2 r1 = *reinterpret_cast<const float2*>(xm + (g + 8) * DP + dim);
+      v[0] = r0.x, v[1] = r1.x, v[2] = r0.y, v[3] = r1.y;
+    } else {
+      v[0] = dim < d ? xm[g * ld + dim] : 0.f;
+      v[1] = dim < d ? xm[(g + 8) * ld + dim] : 0.f;
+      v[2] = dim + 1 < d ? xm[g * ld + dim + 1] : 0.f;
+      v[3] = dim + 1 < d ? xm[(g + 8) * ld + dim + 1] : 0.f;
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = hop::tf32_rna(v[i]);
+      al[i] = hop::tf32_rest(v[i], ah[i]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (ks == 0)
+        hop::mma_tf32_m16n8k8(acc[nt], al, bh[nt][ks], c2r[nt]);
+      else
+        hop::mma_tf32_m16n8k8(acc[nt], al, bh[nt][ks]);
+      hop::mma_tf32_m16n8k8(acc[nt], ah, bl[nt][ks]);
+      hop::mma_tf32_m16n8k8(acc[nt], ah, bh[nt][ks]);
+    }
+  }
+  // argmin of rows g (r = 0) and g + 8 (r = 1) over this thread's columns
+  // 8·nt + 2·t4 + h, in increasing order
+  float best[2];
+  int at[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    best[r] = acc[0][2 * r];
+    at[r] = 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (nt == 0 && h == 0) continue;
+        const float sc = acc[nt][2 * r + h];
+        if (sc < best[r]) best[r] = sc, at[r] = nt * 8 + 2 * t4 + h;
+      }
+  }
+  // then over the quad, lowest index on equal scores: lanes t4 = 0, 1 take
+  // row g, lanes 2, 3 row g + 8, each from the lane two away, then the
+  // pairs combine; the label of row r ends in lane 4·(r mod 8) + 2·(r ≥ 8)
+  const bool upper = t4 >= 2;
+  float mine = upper ? best[1] : best[0];
+  int lab = upper ? at[1] : at[0];
+#pragma unroll
+  for (int o = 2; o >= 1; o >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, o == 2 ? (upper ? best[0] : best[1]) : mine, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, o == 2 ? (upper ? at[0] : at[1]) : lab, o);
+    if (ob < mine || (ob == mine && oa < lab)) mine = ob, lab = oa;
+  }
+  if (PARTIAL && g + (upper ? 8 : 0) >= valid) lab = -1;
+  // labels of points t4 and t4 + 4 of each 8-point k step: rows t4 and
+  // t4 + 4 (k step 0), t4 + 8 and t4 + 12 (k step 1)
+  const int la = __shfl_sync(0xffffffffu, lab, 4 * t4);
+  const int lb = __shfl_sync(0xffffffffu, lab, 4 * t4 + 16);
+  const int lc = __shfl_sync(0xffffffffu, lab, 4 * t4 + 2);
+  const int le = __shfl_sync(0xffffffffu, lab, 4 * t4 + 18);
+  const uint32_t ones[2] = {KTC_ONE, KTC_ONE};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int l0 = q ? lc : la, l1 = q ? le : lb;
+    const float* xq = xm + 8 * q * ld;
+    const bool v0 = !PARTIAL || 8 * q + t4 < valid;
+    const bool v1 = !PARTIAL || 8 * q + t4 + 4 < valid;
+    uint32_t xh[KS][2], xl[KS][2];
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) {
+      const int dim = dt * 8 + g;
+      const bool in = EXACT || dim < d;
+      const float u[2] = {in && v0 ? xq[t4 * ld + dim] : 0.f,
+                          in && v1 ? xq[(t4 + 4) * ld + dim] : 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        xh[dt][i] = hop::tf32_rna(u[i]);
+        xl[dt][i] = hop::tf32_rest(u[i], xh[dt][i]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m0 = mt * 16 + g;
+      const uint32_t a[4] = {l0 == m0 ? KTC_ONE : 0u, l0 == m0 + 8 ? KTC_ONE : 0u,
+                             l1 == m0 ? KTC_ONE : 0u, l1 == m0 + 8 ? KTC_ONE : 0u};
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {
+        hop::mma_tf32_m16n8k8(sacc[mt][dt], a, xh[dt]);
+        hop::mma_tf32_m16n8k8(sacc[mt][dt], a, xl[dt]);
+      }
+      hop::mma_tf32_m16n8k8(cacc[mt], a, ones);
+    }
+  }
+}
+
+// the first `m` of v added in order: f32 sums (FLOAT, as bits) or int32 counts
+template <bool FLOAT, int N>
+__device__ __forceinline__ unsigned ktc_add(const unsigned (&v)[N], int m) {
+  if constexpr (FLOAT) {
+    float s = __uint_as_float(v[0]);
+#pragma unroll
+    for (int i = 1; i < N; ++i)
+      if (i < m) s = __fadd_rn(s, __uint_as_float(v[i]));
+    return __float_as_uint(s);
+  } else {
+    int s = static_cast<int>(v[0]);
+#pragma unroll
+    for (int i = 1; i < N; ++i)
+      if (i < m) s += static_cast<int>(v[i]);
+    return static_cast<unsigned>(s);
+  }
+}
+
+// x (n, d), c (k, d); sums (k, d) and counts (k,) written by the last block;
+// part: the partials of gridDim.x blocks and then of their groups, KP·DP +
+// KP floats each; ticket: KMS_TICKETS zeros, before and after the launch.
+// EXACT: d == DP and x 8-byte aligned (paired loads, no width guard):
+// at the k-means path's shape it is 0.0370 ms a launch against 0.0494 for
+// the general loads on the H100 (n = 2^21, d = 8, k = 16; PERF.md).
+template <int KP, int DP, bool EXACT>
+__global__ void __launch_bounds__(KTC_THREADS, ktc_blocks_per_sm(KP, DP))
+kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, int d, int k,
+       float* __restrict__ sums, float* __restrict__ counts, float* __restrict__ part,
+       unsigned* __restrict__ ticket) {
+  constexpr int T = ktc_tile_points(DP), PW = T / KTC_WARPS;
+  constexpr int NT = KP / 8, KS = DP / 8, MT = KP / 16, PART = KP * DP + KP;
+  extern __shared__ __align__(128) unsigned char ring[];
+  constexpr int STAGE = ktc_stage_bytes(DP);
+  static_assert(KTC_STAGES * STAGE >= KTC_WARPS * PART * 4, "the warps' partials fit in the ring");
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + KTC_STAGES * STAGE);
+  uint64_t* empty = full + KTC_STAGES;
+  float* cs = reinterpret_cast<float*>(empty + KTC_STAGES);  // KP·DP centroids, zero padded
+  float* c2s = cs + KP * DP;                                  // KP norms (+inf: set aside)
+  int* copy = reinterpret_cast<int*>(c2s + KP);               // KP: 1 for a copy
+  __shared__ unsigned last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long tiles = (n + T - 1) / T;
+  const int mine = blockIdx.x < tiles
+                       ? static_cast<int>((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x)
+                       : 0;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const int ld = EXACT ? DP : d;
+
+  if (tid == 0) {
+    for (int s = 0; s < KTC_STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], KTC_WARPS);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // each consumer warp's sums and counts over its slices of the block's tiles
+  float run[MT][KS][4];
+  int cnt[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    cnt[mt][0] = cnt[mt][1] = 0;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt)
+      run[mt][dt][0] = run[mt][dt][1] = run[mt][dt][2] = run[mt][dt][3] = 0.f;
+  }
+  if (warp == KTC_WARPS) {
+    if (lane == 0) {  // the producer: the block's tiles in order, KTC_STAGES in flight
+      const uintptr_t end = xa + static_cast<uintptr_t>(n) * d * sizeof(float);
+      for (int it = 0; it < mine; ++it) {
+        const int s = it % KTC_STAGES;
+        hop::mbar_wait(&empty[s], ((it / KTC_STAGES) & 1) ^ 1);
+        const uintptr_t lo =
+            xa + static_cast<uintptr_t>(blockIdx.x + static_cast<long long>(it) * gridDim.x) * T *
+                     d * sizeof(float);
+        const uintptr_t hi = lo + T * d * sizeof(float) < end ? lo + T * d * sizeof(float) : end;
+        const uintptr_t g0 = lo & ~uintptr_t(15), g1 = (hi + 15) & ~uintptr_t(15);
+        const uint32_t bytes = static_cast<uint32_t>(g1 - g0);
+        hop::mbar_expect_tx(&full[s], bytes);
+        hop::bulk_load(ring + s * STAGE, reinterpret_cast<const void*>(g0), bytes,
+                       &full[s]);
+      }
+    }
+  } else {  // the consumers, while the producer's first copies fly
+    constexpr int CT = KTC_WARPS * 32;
+    for (int e = tid; e < KP * DP; e += CT) {
+      const int j = e / DP, t = e % DP;
+      cs[e] = j < k && t < d ? c[j * d + t] : 0.f;
+    }
+    for (int j = tid; j < KP; j += CT) copy[j] = 0;
+    hop::bar_sync(1, CT);
+    // copies of an earlier centroid, one pair (i < j) a thread at a time
+    for (int p = tid; p < KP * KP; p += CT) {
+      const int i = p / KP, j = p % KP;
+      if (i < j && j < k) {
+        bool same = true;
+        for (int t = 0; t < d && same; ++t) same = cs[i * DP + t] == cs[j * DP + t];
+        if (same) copy[j] = 1;
+      }
+    }
+    hop::bar_sync(1, CT);
+    for (int j = tid; j < KP; j += CT) {
+      float s = 0.f;
+      for (int t = 0; t < d; ++t) s = __fmaf_rn(cs[j * DP + t], cs[j * DP + t], s);
+      c2s[j] = j < k && !copy[j] ? s : __int_as_float(0x7f800000);
+    }
+    hop::bar_sync(1, CT);
+    const int g = lane >> 2, t4 = lane & 3;
+    uint32_t bh[NT][KS][2], bl[NT][KS][2];
+    float c2r[NT][4];  // the addend of a score fragment: ‖c‖² of its columns
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = __fmul_rn(-2.f, cs[(nt * 8 + g) * DP + ks * 8 + 2 * t4 + h]);
+          bh[nt][ks][h] = hop::tf32_rna(v);
+          bl[nt][ks][h] = hop::tf32_rna(__fsub_rn(v, __uint_as_float(bh[nt][ks][h])));
+        }
+      c2r[nt][0] = c2r[nt][2] = c2s[nt * 8 + 2 * t4];
+      c2r[nt][1] = c2r[nt][3] = c2s[nt * 8 + 2 * t4 + 1];
+    }
+    const int off = static_cast<int>(xa & 15);
+    for (int it = 0; it < mine; ++it) {
+      const int s = it % KTC_STAGES;
+      hop::mbar_wait(&full[s], (it / KTC_STAGES) & 1);
+      const long long tile = blockIdx.x + static_cast<long long>(it) * gridDim.x;
+      const long long left = n - tile * T - static_cast<long long>(warp) * PW;
+      const int valid = left < PW ? static_cast<int>(left) : PW;
+      const float* xs =
+          reinterpret_cast<const float*>(ring + s * STAGE + off) + warp * PW * ld;
+      // two sets of accumulators, for even and odd groups of 16 points, so
+      // that two groups' products do not wait on each other
+      float sacc[2][MT][KS][4], cacc[2][MT][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          cacc[h][mt][0] = cacc[h][mt][1] = cacc[h][mt][2] = cacc[h][mt][3] = 0.f;
+#pragma unroll
+          for (int dt = 0; dt < KS; ++dt)
+            sacc[h][mt][dt][0] = sacc[h][mt][dt][1] = sacc[h][mt][dt][2] = sacc[h][mt][dt][3] = 0.f;
+        }
+      if (valid >= PW) {
+#pragma unroll
+        for (int m = 0; m < PW / 16; ++m)
+          ktc_rows16<KP, DP, EXACT, false>(xs + m * 16 * ld, ld, d, 16, bh, bl, c2r, sacc[m & 1],
+                                           cacc[m & 1], lane);
+      } else {
+#pragma unroll
+        for (int m = 0; m < PW / 16; ++m)
+          if (m * 16 < valid)
+            ktc_rows16<KP, DP, EXACT, true>(xs + m * 16 * ld, ld, d, valid - m * 16, bh, bl, c2r,
+                                            sacc[m & 1], cacc[m & 1], lane);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int dt = 0; dt < KS; ++dt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            run[mt][dt][i] = __fadd_rn(__fadd_rn(run[mt][dt][i], sacc[0][mt][dt][i]),
+                                       sacc[1][mt][dt][i]);
+        cnt[mt][0] += __float2int_rn(cacc[0][mt][0]) + __float2int_rn(cacc[1][mt][0]);
+        cnt[mt][1] += __float2int_rn(cacc[0][mt][2]) + __float2int_rn(cacc[1][mt][2]);
+      }
+    }
+  }
+  __syncthreads();  // every tile consumed: the ring becomes the warps' partials
+  if (warp < KTC_WARPS) {
+    const int g = lane >> 2, t4 = lane & 3;
+    float* wp = reinterpret_cast<float*>(ring) + warp * KP * DP;
+    int* wc = reinterpret_cast<int*>(ring) + KTC_WARPS * KP * DP + warp * KP;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int j = mt * 16 + g;
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {
+        const int t = dt * 8 + 2 * t4;
+        wp[j * DP + t] = run[mt][dt][0];
+        wp[j * DP + t + 1] = run[mt][dt][1];
+        wp[(j + 8) * DP + t] = run[mt][dt][2];
+        wp[(j + 8) * DP + t + 1] = run[mt][dt][3];
+      }
+      if (t4 == 0) wc[j] = cnt[mt][0], wc[j + 8] = cnt[mt][1];
+    }
+  }
+  __syncthreads();
+  // this block's partials, its warps added in order
+  float* bp = part + static_cast<size_t>(blockIdx.x) * PART;
+  const float* wp = reinterpret_cast<const float*>(ring);
+  const int* wc = reinterpret_cast<const int*>(ring) + KTC_WARPS * KP * DP;
+  for (int e = tid; e < KP * DP; e += KTC_THREADS) {
+    float s = wp[e];
+    for (int w = 1; w < KTC_WARPS; ++w) s = __fadd_rn(s, wp[w * KP * DP + e]);
+    bp[e] = s;
+  }
+  for (int j = tid; j < KP; j += KTC_THREADS) {
+    int s = 0;
+    for (int w = 0; w < KTC_WARPS; ++w) s += wc[w * KP + j];
+    reinterpret_cast<int*>(bp + KP * DP)[j] = s;
+  }
+  // the finish: the last block of each group of 32 adds its group's
+  // partials in block order, and the last of those finishers adds the
+  // groups' in order.  Each ticket is an acquire-release increment by
+  // thread 0 after the block's barrier, which orders the block's writes
+  // before it and the finisher's reads after it (the increment wraps each
+  // ticket back to 0 as its group completes)
+  const int blocks = gridDim.x, groups = (blocks + KTC_GROUP - 1) / KTC_GROUP;
+  const int grp = blockIdx.x / KTC_GROUP;
+  const int members = min(KTC_GROUP, blocks - grp * KTC_GROUP);
+  __syncthreads();
+  if (tid == 0)
+    last = hop::atom_inc_acq_rel(&ticket[1 + grp], members - 1) == unsigned(members - 1);
+  __syncthreads();
+  if (!last) return;
+  const unsigned* pu = reinterpret_cast<const unsigned*>(part);
+  unsigned* gp = reinterpret_cast<unsigned*>(part) + static_cast<size_t>(blocks + grp) * PART;
+  for (int e = tid; e < PART; e += KTC_THREADS) {
+    unsigned v[KTC_GROUP];  // all the loads in flight before the first add
+#pragma unroll
+    for (int m = 0; m < KTC_GROUP; ++m)
+      v[m] = m < members ? __ldcg(pu + static_cast<size_t>(grp * KTC_GROUP + m) * PART + e) : 0u;
+    gp[e] = e < KP * DP ? ktc_add<true>(v, members) : ktc_add<false>(v, members);
+  }
+  __syncthreads();
+  if (tid == 0) last = hop::atom_inc_acq_rel(&ticket[0], groups - 1) == unsigned(groups - 1);
+  __syncthreads();
+  if (!last) return;
+  const unsigned* gu = pu + static_cast<size_t>(blocks) * PART;
+  for (int e = tid; e < k * d + k; e += KTC_THREADS) {
+    const bool count = e >= k * d;
+    const int at = count ? KP * DP + (e - k * d) : (e / d) * DP + e % d;
+    unsigned v[KTC_MAX_GROUPS];
+#pragma unroll
+    for (int m = 0; m < KTC_MAX_GROUPS; ++m)
+      v[m] = m < groups ? __ldcg(gu + static_cast<size_t>(m) * PART + at) : 0u;
+    if (count)
+      counts[e - k * d] = __int2float_rn(static_cast<int>(ktc_add<false>(v, groups)));
+    else
+      sums[e] = __uint_as_float(ktc_add<true>(v, groups));
+  }
+}
+
+template <int KP, int DP, bool EXACT>
+static cudaError_t ktc_run(const float* x, const float* c, long long n, int d, int k,
+                           float* sums, float* counts, float* part, unsigned* ticket, int grid,
+                           cudaStream_t s) {
+  const size_t bytes = ktc_smem_bytes(KP, DP);
+  static uint64_t ready = 0;  // a bit per device whose limit is set
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(ready & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(kms_tc<KP, DP, EXACT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    ready |= bit;
+  }
+  kms_tc<KP, DP, EXACT><<<grid, KTC_THREADS, bytes, s>>>(x, c, n, d, k, sums, counts, part,
+                                                          ticket);
+  return cudaGetLastError();
+}
+
+template <int KP, int DP>
+static cudaError_t ktc_pick(bool exact, const float* x, const float* c, long long n, int d, int k,
+                            float* sums, float* counts, float* part, unsigned* ticket, int grid,
+                            cudaStream_t s) {
+  return exact ? ktc_run<KP, DP, true>(x, c, n, d, k, sums, counts, part, ticket, grid, s)
+               : ktc_run<KP, DP, false>(x, c, n, d, k, sums, counts, part, ticket, grid, s);
+}
+
+extern "C" {
+// 1 where kms_launch takes the tensor-core kernel kms_tc for points of
+// width d and k centroids, 0 where it takes kms_main
+int kms_route(int d, int k) {
+  return d >= 1 && d <= 32 && k >= 1 && k <= 64 && ktc_kp(k) * ktc_dp(d) <= 512;
+}
+
+// kms_tc's tiling, which fixes the order of its sums (read by the wrapper
+// and ref.kmeans_step_tiled): points per tile at width d, the consumer
+// warps that share a tile, the blocks whose partials one finisher adds
+int kms_tc_warps = KTC_WARPS;
+int kms_tc_group = KTC_GROUP;
+int kms_tc_tile_points(int d) { return ktc_tile_points(ktc_dp(d)); }
+
+// kms_tc's blocks for n points of width d and k centroids on a card of
+// `sms` SMs: one per tile, at most ktc_blocks_per_sm on each SM
+int kms_tc_grid(long long n, int d, int k, int sms) {
+  const long long tile = ktc_tile_points(ktc_dp(d));
+  const long long tiles = (n + tile - 1) / tile;
+  long long most = static_cast<long long>(sms) * ktc_blocks_per_sm(ktc_kp(k), ktc_dp(d));
+  most = most < KTC_GROUP * KTC_MAX_GROUPS ? most : KTC_GROUP * KTC_MAX_GROUPS;
+  return static_cast<int>(tiles < 1 ? 1 : tiles < most ? tiles : most);
+}
+
+// the bytes of scratch kms_launch needs for width d, k centroids and, on
+// the kms_tc route, a grid of `grid` blocks (kms_main: k int32 counts)
+long long kms_scratch_bytes(int grid, int d, int k) {
+  if (k < 1) return 0;
+  if (!kms_route(d, k)) return static_cast<long long>(sizeof(int)) * k;
+  if (grid < 1) return 0;
+  return (grid + (grid + KTC_GROUP - 1) / KTC_GROUP) *
+         static_cast<long long>(ktc_kp(k) * ktc_dp(d) + ktc_kp(k)) *
+         static_cast<long long>(sizeof(float));
+}
+}
+
+static cudaError_t ktc_launch(const float* x, const float* c, long long n, int d, int k,
+                              float* sums, float* counts, float* part, unsigned* ticket,
+                              int grid, cudaStream_t s) {
+  const int kp = ktc_kp(k), dp = ktc_dp(d);
+  const bool exact = d == dp && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+#define KTC_CASE(KP_, DP_)                                                                  \
+  if (kp == KP_ && dp == DP_)                                                               \
+    return ktc_pick<KP_, DP_>(exact, x, c, n, d, k, sums, counts, part, ticket, grid, s);
+  KTC_CASE(16, 8)
+  KTC_CASE(16, 16)
+  KTC_CASE(16, 32)
+  KTC_CASE(32, 8)
+  KTC_CASE(32, 16)
+  KTC_CASE(64, 8)
+#undef KTC_CASE
+  return cudaErrorInvalidValue;
+}
+
+// ---- kms_main: the CUDA-core route ------------------------------------------
+//
+// One thread per point in a grid-stride loop.  Each block copies the
+// centroids into shared memory and computes ‖c_j‖² once.  A thread loads its
+// point's d values into registers, forms ‖x‖² and each x·c_j as sums in
+// index order, d² = (‖x‖² − 2·x·c_j) + ‖c_j‖² with the _rn intrinsics (the
+// build runs --fmad=false), and keeps the first minimum (strict <, from
+// j = 0), so duplicate centroids resolve to the lowest index as jnp.argmin
+// does.  Sums go into per-block shared accumulators (k·d f32) and counts
+// into int32 shared counts, flushed once per block with global atomics.
+// When accumulators and centroids together pass the opt-in shared memory
+// (227 KB on sm_90), only the centroids stay in shared memory and points add
+// into the global accumulators.  Sums are added in an order that changes
+// from run to run.
 
 // DMAX: the point width rounded up to the next instantiated size, so that a
 // point's values live in registers; SMEM: per-block shared accumulators.
@@ -109,6 +662,12 @@ kms_main(const float* __restrict__ x, const float* __restrict__ c, long long n, 
   }
 }
 
+// counts (k,) f32 from the int32 counts kms_main added up
+__global__ void kms_counts(const int* __restrict__ icounts, float* __restrict__ counts, int k) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < k; j += gridDim.x * blockDim.x)
+    counts[j] = __int2float_rn(icounts[j]);
+}
+
 template <int DMAX, bool SMEM>
 static cudaError_t kms_run(const float* x, const float* c, long long n, int d, int k,
                            float* sums, int* counts, size_t bytes, int grid, cudaStream_t s) {
@@ -128,34 +687,58 @@ static cudaError_t kms_pick(bool smem, const float* x, const float* c, long long
               : kms_run<DMAX, false>(x, c, n, d, k, sums, counts, bytes, grid, s);
 }
 
-// x (n, d) and c (k, d) f32, row-major and contiguous; sums (k, d) f32 and
-// counts (k,) int32 are written (zeroed here first).  Returns KMS_ERR_TABLE
-// when the centroids alone do not fit in the opt-in shared memory,
-// cudaErrorInvalidValue for a shape the kernel does not take, else the first
-// CUDA error it meets (memsets, shared-memory attribute, launch).
-extern "C" int kms_launch(const float* x, const float* c, long long n, int d, int k,
-                          float* sums, int* counts, void* stream) {
-  if (n < 0 || d < 1 || d > KMS_MAX_D || k < 1) return cudaErrorInvalidValue;
+static cudaError_t kms_main_launch(const float* x, const float* c, long long n, int d, int k,
+                                  float* sums, int* icounts, cudaStream_t s) {
   int dev = 0, optin = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t table = sizeof(float) * static_cast<size_t>(k) * (d + 1);
-  if (table > static_cast<size_t>(optin)) return KMS_ERR_TABLE;
+  if (table > static_cast<size_t>(optin)) return cudaError_t(KMS_ERR_TABLE);
   const bool smem = 2 * table <= static_cast<size_t>(optin);
   const size_t bytes = smem ? 2 * table : table;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(sums, 0, sizeof(float) * static_cast<size_t>(k) * d, s);
   if (e != cudaSuccess) return e;
-  e = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(k), s);
+  e = cudaMemsetAsync(icounts, 0, sizeof(int) * static_cast<size_t>(k), s);
   if (e != cudaSuccess || n == 0) return e;
   const long long need = (n + KMS_TPB - 1) / KMS_TPB;
   const long long most = static_cast<long long>(sms) * KMS_BLOCKS_PER_SM;
   const int grid = static_cast<int>(need < most ? need : most);
-  if (d <= 4) return kms_pick<4>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
-  if (d <= 8) return kms_pick<8>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
-  if (d <= 16) return kms_pick<16>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
-  if (d <= 32) return kms_pick<32>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
-  if (d <= 64) return kms_pick<64>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
-  return kms_pick<128>(smem, x, c, n, d, k, sums, counts, bytes, grid, s);
+  if (d <= 4) return kms_pick<4>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  if (d <= 8) return kms_pick<8>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  if (d <= 16) return kms_pick<16>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  if (d <= 32) return kms_pick<32>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  if (d <= 64) return kms_pick<64>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  return kms_pick<128>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+}
+
+// x (n, d) and c (k, d) f32, row-major and contiguous; sums (k, d) f32 and
+// counts (k,) f32 (exact int32 counts, converted) are written.  scratch
+// holds kms_scratch_bytes(grid, d, k) bytes of anything.  On the kms_tc
+// route (kms_route) the kernel runs `grid` blocks (kms_tc_grid for the
+// card's SMs; 1 to 512) and ticket is KMS_TICKETS unsigned zeros that each
+// launch leaves at 0 (one set per stream: launches that overlap must not
+// share it, nor scratch); kms_main takes neither, counts in the scratch,
+// zeroed first, and converts them in a second small kernel.  Returns
+// KMS_ERR_TABLE when kms_main's centroids alone do not fit in the opt-in
+// shared memory, cudaErrorInvalidValue for a shape neither route takes or
+// a grid out of range, else the first CUDA error it meets (memsets,
+// shared-memory attribute, launch).
+extern "C" int kms_launch(const float* x, const float* c, long long n, int d, int k,
+                          float* sums, float* counts, void* scratch, unsigned* ticket,
+                          int grid, void* stream) {
+  if (n < 0 || d < 1 || d > KMS_MAX_D || k < 1 || scratch == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kms_route(d, k)) {
+    if (ticket == nullptr || grid < 1 || grid > KTC_GROUP * KTC_MAX_GROUPS)
+      return cudaErrorInvalidValue;
+    return ktc_launch(x, c, n, d, k, sums, counts, static_cast<float*>(scratch), ticket, grid,
+                      s);
+  }
+  int* icounts = static_cast<int*>(scratch);
+  const cudaError_t e = kms_main_launch(x, c, n, d, k, sums, icounts, s);
+  if (e != cudaSuccess) return e;
+  kms_counts<<<(k + 255) / 256, 256, 0, s>>>(icounts, counts, k);
+  return cudaGetLastError();
 }

@@ -11,9 +11,10 @@ The epilogue keeps the JAX package's contract (``repro/kernels/ops.py``):
 the kernels' ±3e38 sentinels for empty min/max map back to ±inf, the
 count comes first, bucket ids decode back to key values, and the result
 is compacted to ``max_groups``.  There is no lane padding and no bucket
-limit: the Hopper kernels accumulate with atomics instead of a one-hot.
+limit: the relational kernels accumulate with atomics instead of a one-hot.
 
-``LAUNCHES`` counts, per kernel, the calls that launched it.
+``LAUNCHES`` counts, per kernel, the calls that launched it, and
+``KMEANS_LAUNCHES`` the ``kmeans_step`` calls per route.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ _PROGRAMS: Dict[tuple, Tuple[exprcode.ExprProgram, torch.Tensor]] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in KMEANS_LAUNCHES:
+        KMEANS_LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -342,32 +345,103 @@ def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torc
     return out
 
 
+#: the kmeans_step kernels: on the tensor cores (d ≤ 32, k ≤ 64 and
+#: roundup(k, 16)·roundup(d, 8) ≤ 512, with the roundings to 16/32/64 and
+#: 8/16/32) and on the CUDA cores (every other shape the kernel takes)
+KMEANS_ROUTES = ("kms_tc", "kms_main")
+#: kmeans_step calls that launched each route's kernel
+KMEANS_LAUNCHES: Dict[str, int] = {r: 0 for r in KMEANS_ROUTES}
+
+#: per (device, stream): kms_tc's zeroed tickets, which its finishing blocks
+#: take and set back to 0, and the kernels' scratch (launches on one stream
+#: run in turn, so they share both)
+_KMS_STREAM: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: kmeans_step's constants, its route per shape, the SMs of each card
+_KMS: Dict[Any, Any] = {}
+
+
+def _kms(key: Any, make: Callable[[], Any]) -> Any:
+    if key not in _KMS:
+        _KMS[key] = make()
+    return _KMS[key]
+
+
+def kmeans_step_route(d: int, k: int) -> str:
+    """The kernel ``kmeans_step`` launches for points of width ``d`` and
+    ``k`` centroids on the card (``kms_route`` in ``kmeans_step.cu``)."""
+    from .build import library
+
+    return _kms(("route", d, k), lambda: KMEANS_ROUTES[
+        0 if library("kmeans_step").kms_route(d, k) else 1])
+
+
+def kmeans_step_tiling(n: int, d: int, k: int, device: torch.device) -> ref.KmsTiling:
+    """How the tensor-core kernel (``kms_tc``) cuts ``n`` points of width
+    ``d`` with ``k`` centroids on the card ``device``: the order of its
+    sums, which ``ref.kmeans_step_tiled`` follows (``kms_tc_grid`` in
+    ``kmeans_step.cu``, for that card's SMs)."""
+    from .build import constant, library
+
+    lib = library("kmeans_step")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _kms(("sms", index),
+               lambda: torch.cuda.get_device_properties(index).multi_processor_count)
+    tile, warps, group = _kms(("tiling", d), lambda: (
+        lib.kms_tc_tile_points(d), constant("kmeans_step", "kms_tc_warps"),
+        constant("kmeans_step", "kms_tc_group")))
+    return ref.KmsTiling(tile, warps, lib.kms_tc_grid(n, d, k, sms), group)
+
+
+def _kms_workspace(device: torch.device, stream: int, nbytes: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tickets, scratch of at least ``nbytes``) for launches on ``stream``."""
+    from .build import constant
+
+    key = (device.index, stream)
+    tickets, scratch = _KMS_STREAM.get(key, (None, None))
+    if tickets is None:
+        tickets = torch.zeros(constant("kmeans_step", "kms_tickets"), dtype=torch.int32,
+                              device=device)
+    if scratch is None or scratch.numel() < nbytes:
+        scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=device)
+    _KMS_STREAM[key] = (tickets, scratch)
+    return tickets, scratch
+
+
 def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Points (n, d) f32 and centroids (k, d) f32 → (sums (k, d) f32,
     counts (k,) f32) over each point's nearest centroid (``la.KMeansStep``
-    under ``use_kernels``)."""
+    under ``use_kernels``).  On the card the shape picks the kernel
+    (``kmeans_step_route``); the tensor-core one's arithmetic is
+    ``ref.kmeans_step_tiled``, and its sums are the same on every run."""
     if not _on_card(x, c):
         return ref.kmeans_step(x, c)
-    from .build import constant, entry
+    from .build import constant, entry, library
 
     _check_matrix(x, torch.float32, 2, "kmeans_step points")
     _check_matrix(c, torch.float32, 2, "kmeans_step centroids")
     (n, d), k = x.shape, c.shape[0]
     if c.shape[1] != d:
         raise ValueError(f"kmeans_step: points of width {d}, centroids of width {c.shape[1]}")
-    max_d = constant("kmeans_step", "kms_max_d")
+    max_d = _kms("max_d", lambda: constant("kmeans_step", "kms_max_d"))
     if not (1 <= d <= max_d) or k < 1:
         raise ValueError(f"kmeans_step takes 1 ≤ d ≤ {max_d} and k ≥ 1, not d={d}, k={k}")
-    sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
-    counts = torch.empty(k, dtype=torch.int32, device=x.device)
-    err = entry("kmeans_step")(x.data_ptr(), c.data_ptr(), n, d, k, sums.data_ptr(),
-                               counts.data_ptr(), _stream(x.device))
-    if err == constant("kmeans_step", "kms_err_table"):
+    route = kmeans_step_route(d, k)
+    grid = kmeans_step_tiling(n, d, k, x.device).grid if route == "kms_tc" else 0
+    stream = _stream(x.device)
+    tickets, scratch = _kms_workspace(
+        x.device, stream, library("kmeans_step").kms_scratch_bytes(grid, d, k))
+    out = torch.empty(k * d + k, dtype=torch.float32, device=x.device)  # sums, then counts
+    err = entry("kmeans_step")(x.data_ptr(), c.data_ptr(), n, d, k, out.data_ptr(),
+                               out.data_ptr() + 4 * k * d, scratch.data_ptr(),
+                               tickets.data_ptr(), grid, stream)
+    if err == _kms("err_table", lambda: constant("kmeans_step", "kms_err_table")):
         raise ValueError(f"kmeans_step: {k} centroids of width {d} do not fit in the "
                          "card's opt-in shared memory per block")
     _raise_on(err, "kmeans_step")
     LAUNCHES["kmeans_step"] += 1
-    return sums, counts.to(torch.float32)
+    KMEANS_LAUNCHES[route] += 1
+    return out[:k * d].view(k, d), out[k * d:]
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ every kernel against its plain version on the card.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,6 +38,123 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     k = c.shape[0]
     labels = torch.argmin(cdist2(x, c), dim=1)
     return rt.segment_sum(x, labels, k), rt.segment_count(labels, k)
+
+
+class KmsTiling(NamedTuple):
+    """How the tensor-core kmeans_step cuts its work, which fixes the order
+    of its sums: ``tile`` points per tile, cut among ``warps`` consumer
+    warps; a grid of ``grid`` blocks, block b taking tiles b, b + grid, …;
+    the blocks' partials added in groups of ``group``.  The kernel's own
+    for a call come from ``ops.kmeans_step_tiling``."""
+
+    tile: int
+    warps: int
+    grid: int
+    group: int
+
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half a TF32 unit to the
+    magnitude bits, clear the 13 bits below; infinities and NaN stay."""
+    bits = v.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), rounded, v.float())
+
+
+def tf32_trunc(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded toward zero to TF32 (the 13 low mantissa bits
+    cleared): what an mma takes from an f32 operand it reads as TF32."""
+    return (v.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_points(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of the points as the kernel feeds them: hi = tf32(x), lo =
+    x − hi passed as it is, so taken as TF32 rounded toward zero."""
+    hi = tf32(x)
+    return hi, tf32_trunc(x.float() - hi)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both TF32: hi = tf32(v), lo = tf32(v − hi) (the
+    difference is exact in f32); hi + lo is v within one f32 unit of v
+    (2^-23·|v|): the rest lies on v's grid with at most 12 significant bits."""
+    hi = tf32(v)
+    return hi, tf32(v.float() - hi)
+
+
+def kmeans_norms(c: torch.Tensor) -> torch.Tensor:
+    """‖c_j‖² (k,) f32 as the kernel forms it, an f32 fma per dimension in
+    index order (emulated in f64), and +inf for every exact copy of an
+    earlier centroid, which so never takes a point."""
+    k, d = c.shape
+    c64 = c.double()
+    s = torch.zeros(k, dtype=torch.float64, device=c.device)
+    for t in range(d):
+        s = (c64[:, t] * c64[:, t] + s).float().double()
+    copy = torch.tril((c[:, None, :] == c[None, :, :]).all(-1), -1).any(1)
+    return torch.where(copy, torch.full_like(s, float("inf")), s).float()
+
+
+def kmeans_labels_tiled(x: torch.Tensor, c: torch.Tensor, *, split: bool = True) -> torch.Tensor:
+    """Each point's label as the tensor-core kernel picks it: the score
+    ‖c_j‖² + x·(−2c_j), ‖c_j‖² first, then the product over 8 dimensions
+    at a time in TF32, split three ways (x_lo·b_hi, x_hi·b_lo, x_hi·b_hi
+    with b = −2c; ``tf32_points``, ``tf32_split``), summed in f32; the
+    first minimum.  ``split=False`` takes one unsplit TF32 pass instead
+    (what the kernel must not do)."""
+    xs, cs = x.float(), c.float()
+    b = -2.0 * cs
+    xh, xl = tf32_points(xs)
+    bh, bl = tf32_split(b)
+    acc = kmeans_norms(cs)[None, :].expand(xs.shape[0], -1)
+    for k0 in range(0, cs.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        if split:
+            acc = acc + xl[:, s] @ bh[:, s].T
+            acc = acc + xh[:, s] @ bl[:, s].T
+        acc = acc + xh[:, s] @ bh[:, s].T
+    return torch.argmin(acc, dim=1)
+
+
+def kmeans_step_tiled(x: torch.Tensor, c: torch.Tensor, tiling: KmsTiling, *,
+                      split: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kmeans_step's arithmetic in plain torch, in the
+    order ``tiling`` gives: labels by ``kmeans_labels_tiled``; each warp's
+    slice of each tile summed as one_hot·x_hi + one_hot·x_lo; each warp's
+    slices added in tile order, a block's warps in order, the blocks in
+    groups in order, then the groups in order.  Counts exact.  Same
+    outputs as ``kmeans_step``."""
+    n, d = x.shape
+    k = c.shape[0]
+    lab = kmeans_labels_tiled(x, c, split=split)
+    warps, grid, group = tiling.warps, tiling.grid, tiling.group
+    per_warp = tiling.tile // warps
+    its = max(1, -(-n // (tiling.tile * grid)))
+    xh, xl = tf32_points(x.float())
+    slot = torch.arange(n, device=x.device) // per_warp * k + lab
+    part = torch.zeros((its * grid * warps * k, d), dtype=torch.float32, device=x.device)
+    lo = torch.zeros_like(part)
+    part.index_add_(0, slot, xh)
+    lo.index_add_(0, slot, xl)
+    part = (part + lo).view(its, grid, warps, k, d)
+    run = part[0]
+    for i in range(1, its):
+        run = run + part[i]
+    blk = run[:, 0]
+    for w in range(1, warps):
+        blk = blk + run[:, w]
+    groups = -(-grid // group)
+    padded = torch.zeros((groups * group, k, d), dtype=torch.float32, device=x.device)
+    padded[:grid] = blk
+    padded = padded.view(groups, group, k, d)
+    per_group = padded[:, 0]
+    for m in range(1, group):
+        per_group = per_group + padded[:, m]
+    sums = per_group[0]
+    for g in range(1, groups):
+        sums = sums + per_group[g]
+    return sums, rt.segment_count(lab, k)
 
 
 def fused_select_agg(table: rt.VecTable, pred: Expr,

@@ -7,7 +7,9 @@ machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Integers exact; floats within rtol 1e-4, because the kernels add float
-sums with atomics, in an order that changes from run to run.  k-means
+sums with atomics, in an order that changes from run to run (the
+tensor-core kmeans_step adds in a fixed order: two runs agree bit for
+bit).  k-means
 steps go by the tie-margin rule of ``repro_torch.kmeans`` at rtol 1e-4:
 counts add up to n and sums to Σx whatever the ties, and each count and
 sum may move by what the points within a few f32 roundings of a tie carry.
@@ -145,19 +147,106 @@ def _assert_step_agrees(got, want, x, c):
     kmeans.check_step("kmeans_step", got, want, kmeans.reference_step(x, c), 1e-4)
 
 
-@pytest.mark.parametrize("n,d,k", [
-    (1003, 8, 16), (999, 3, 7), (1000, 8, 1), (2000, 128, 8),
-    (5000, 64, 256),   # 128 KB of centroids and accumulators: dynamic shared memory
-    (3000, 64, 512),   # past the opt-in shared memory: global accumulators
+def _routed_step(xt, ct):
+    """ops.kmeans_step, and the route its one launch took."""
+    before = dict(ops.KMEANS_LAUNCHES)
+    got = ops.kmeans_step(xt, ct)
+    took = [r for r in ops.KMEANS_LAUNCHES if ops.KMEANS_LAUNCHES[r] != before[r]]
+    assert len(took) == 1 and ops.KMEANS_LAUNCHES[took[0]] == before[took[0]] + 1
+    assert took[0] == ops.kmeans_step_route(xt.shape[1], ct.shape[0])
+    return got, took[0]
+
+
+@pytest.mark.parametrize("n,d,k,route", [
+    (1003, 8, 16, "kms_tc"), (999, 3, 7, "kms_tc"), (1000, 8, 1, "kms_tc"),
+    (2000, 128, 8, "kms_main"),
+    (5000, 64, 256, "kms_main"),   # 128 KB of centroids and accumulators: dynamic shared memory
+    (3000, 64, 512, "kms_main"),   # past the opt-in shared memory: global accumulators
 ])
-def test_kmeans_step_on_card(card, n, d, k):
+def test_kmeans_step_on_card(card, n, d, k, route):
     x, c = _clusters(n, d, k, seed=n + k)
     xt, ct = tensors_from_arrays(x, c, device=card)
     before = ops.LAUNCHES["kmeans_step"]
-    got = ops.kmeans_step(xt, ct)
+    got, took = _routed_step(xt, ct)
     assert ops.LAUNCHES["kmeans_step"] == before + 1
+    assert took == route
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
     _assert_step_agrees(got, ref.kmeans_step(xt, ct), x, c)
+
+
+def _offset_view(x, card, rows_before, floats_before):
+    """x on the card as a contiguous view that starts ``rows_before`` rows
+    and ``floats_before`` floats into a larger tensor (so, for a start
+    that is not 16-byte aligned, like a chunk of a Split)."""
+    n, d = x.shape
+    flat = np.zeros((rows_before + n + 1) * d + floats_before, np.float32)
+    at = rows_before * d + floats_before
+    flat[at:at + n * d] = x.ravel()
+    return torch.from_numpy(flat).to(card)[at:at + n * d].view(n, d)
+
+
+@pytest.mark.parametrize("n,d,k,shift", [
+    (100, 8, 16, (0, 0)),        # fewer points than one tile (512)
+    (1001, 8, 16, (0, 0)),       # not a multiple of 8 or 16
+    (4099, 8, 16, (0, 1)),       # starts 4 bytes into a 16-byte granule
+    (4099, 8, 16, (0, 2)),       # 8-byte aligned, not 16
+    (3001, 3, 7, (5, 0)),        # a chunk of rows of 12 bytes: starts 60 bytes in
+    (2000, 1, 16, (0, 3)),
+    (5000, 8, 1, (0, 0)),
+    (6000, 8, 64, (0, 0)),       # the top of the range: KP·DP = 512
+    (6000, 16, 32, (0, 1)),
+    (6000, 32, 16, (0, 0)),
+    (5000, 20, 13, (0, 0)),      # d padded to 32
+    (3000, 8, 65, (0, 0)),       # past the range: the CUDA-core kernel
+    (3000, 33, 4, (0, 0)),
+    (3000, 17, 17, (0, 0)),
+])
+def test_kmeans_step_routes_at_their_borders_on_card(card, n, d, k, shift):
+    x, c = _clusters(n, d, k, seed=n + d + k)
+    xt = _offset_view(x, card, *shift)
+    ct = torch.from_numpy(c).to(card)
+    assert xt.is_contiguous() and torch.equal(xt.cpu(), torch.from_numpy(x))
+    got, took = _routed_step(xt, ct)
+    inside = d <= 32 and k <= 64 and ((k + 15) // 16 * 16 if k <= 32 else 64) * (
+        8 if d <= 8 else 16 if d <= 16 else 32) <= 512
+    assert took == ("kms_tc" if inside else "kms_main")
+    torch.cuda.synchronize()
+    _assert_step_agrees(got, ref.kmeans_step(xt, ct), x, c)
+
+
+def test_kmeans_step_with_no_points_on_card(card):
+    for d, k in ((8, 16), (3, 7), (64, 256)):
+        xt = torch.zeros((0, d), dtype=torch.float32, device=card)
+        ct = torch.ones((k, d), dtype=torch.float32, device=card)
+        sums, counts = _routed_step(xt, ct)[0]
+        assert sums.shape == (k, d) and counts.shape == (k,)
+        assert not bool(sums.any()) and not bool(counts.any())
+
+
+def test_kmeans_step_tensor_cores_are_deterministic_on_card(card):
+    x, c = kmeans.make_data(1 << 21, 8, 16, 0)
+    xt, ct = tensors_from_arrays(x, c, device=card)
+    (s1, c1), took = _routed_step(xt, ct)
+    (s2, c2), _ = _routed_step(xt, ct)
+    assert took == "kms_tc"
+    assert torch.equal(s1, s2) and torch.equal(c1, c2)
+
+
+@pytest.mark.parametrize("n,d,k,offset", [
+    (1 << 20, 8, 16, 0.0), (1 << 20, 8, 16, 1000.0), (100_003, 3, 7, 0.0),
+    (200_001, 16, 32, 0.0), (150_000, 32, 16, 0.0), (99_999, 8, 64, 0.0),
+])
+def test_kmeans_step_matches_its_recipe_on_card(card, n, d, k, offset):
+    """The tensor-core kernel against ref.kmeans_step_tiled on the same
+    inputs on the card: sums within rtol 1e-4, labels by the tie-margin
+    rule (a TF32 product may round another way than torch's)."""
+    x, c = kmeans.make_data(n, d, k, 1)
+    x, c = x + np.float32(offset), c + np.float32(offset)
+    xt, ct = tensors_from_arrays(x, c, device=card)
+    got, took = _routed_step(xt, ct)
+    assert took == "kms_tc"
+    want = ref.kmeans_step_tiled(xt, ct, ops.kmeans_step_tiling(n, d, k, xt.device))
+    kmeans.check_step("kms_tc vs recipe", got, want, kmeans.reference_step(x, c), 1e-4)
 
 
 def test_kmeans_step_duplicate_and_far_centroids_on_card(card):

@@ -223,10 +223,13 @@ def test_wrappers_reject_other_devices():
                              aggs=(), max_groups=1, key_domains=(), num_buckets=1)
 
 
-def _c_params(kernel):
+def _c_params(kernel, fn=None):
     src = (build.CSRC / f"{kernel}.cu").read_text()
-    fn = build.ENTRY[kernel][0]
-    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    if fn is None:
+        fn = build.ENTRY[kernel][0]
+        m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    else:  # a helper inside an extern "C" block
+        m = re.search(r"\n(?:int|long long) " + fn + r"\((.*?)\)\s*\{", src, re.S)
     params = [p.strip() for p in m.group(1).split(",")]
     kinds = []
     for p in params:
@@ -245,6 +248,15 @@ def _c_params(kernel):
 @pytest.mark.parametrize("kernel", build.KERNELS)
 def test_ctypes_bindings_match_c_signatures(kernel):
     assert _c_params(kernel) == build.ENTRY[kernel][1]
+
+
+@pytest.mark.parametrize("kernel,helper", [(k, h) for k, hs in build.HELPERS.items() for h in hs])
+def test_ctypes_helpers_match_c_signatures(kernel, helper):
+    args, result = build.HELPERS[kernel][helper]
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    assert re.search(r"\n" + {build._I: "int", build._L: "long long"}[result] + " " + helper
+                     + r"\(", src), f"{helper} returns another type"
+    assert _c_params(kernel, helper) == args
 
 
 def test_library_path_tracks_sources(tmp_path, monkeypatch):
