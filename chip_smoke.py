@@ -6,10 +6,18 @@ through ``repro_torch`` on one GPU.
 
 Phases, each printing its own lines:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+1. the card (``nvidia-smi`` name and power limit) and the build of the
+   kernels built once (``fused_select_agg`` and ``grouped_select_agg`` are
+   generated per query and built at their first call; their builds, reuses
+   and nvcc seconds are printed after the edge cases, the TPC-H path and at
+   the end);
 2. each CUDA kernel against its plain PyTorch version on edge cases
    (empty selection, ragged capacity, out-of-domain and duplicate join
-   keys, more buckets than shared memory holds; for k-means ragged n,
+   keys, more buckets than shared memory holds, ``grouped_select_agg`` at
+   the borders of its routes (reg, smem, global) printing the route each
+   took, a predicate deeper than the interpreter's stack through both
+   generated kernels, and the generated kernels run twice for the same
+   bits; for k-means ragged n, a d = 1 case at adversarial near-ties,
    n = 0, fewer points than a tile, k = 1, d = 3, the top of the
    tensor-core route's range and just past it, chunk views that start
    inside a 16-byte granule, duplicate and far centroids, centroid tables
@@ -18,7 +26,14 @@ Phases, each printing its own lines:
    accumulators past 48 KB and past the opt-in shared memory);
 3. the TPC-H path: TPC-H at ``--sf`` (seed 0), the six queries through
    ``Frame.collect(device="cuda")``, each held against the numpy
-   reference, with the kernels' launch counts read around that one run;
+   reference, with the kernels' launch counts and the generated kernels'
+   routes read around that one run (Q1 on ``gsa_reg``, Q4 on an atomic
+   route); the path's ``fused_select_agg`` and ``grouped_select_agg``
+   calls on the reg route run twice more, for the same bits; one pass
+   under ``torch.profiler``, which must show the generated kernels and no
+   interpreter kernel of theirs (``fsa_main``, ``fsa_finalize``,
+   ``gsa_main``); the ``grouped_select_agg`` wrapper's time of Q1 and Q4
+   split into the generated launch, ``decode_bucket_keys`` and ``compact``;
 4. the k-means path: 2^24 points, d = 8, k = 16 (seed 0, made as
    ``examples/kmeans.py`` makes them), the program built with ``Builder``,
    then ``FuseKMeansStep`` and ``Parallelize(8)``, run on
@@ -32,8 +47,9 @@ Phases, each printing its own lines:
    package's emitters never call its segsum kernel either), counted alone;
 6. the TPC-H path with ``parallel=4``: the six queries again, split into
    four chunks, against the references; Q1 and Q6 launch their kernel
-   once per chunk; each kernel call of this path (chunk views, Q1's
-   recombine, Q4's split inner aggregation) against its plain version;
+   once per chunk; the route of every ``grouped_select_agg`` call; each
+   kernel call of this path (chunk views, Q1's recombine, Q4's split inner
+   aggregation) against its plain version;
 7. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
    layers at full width, bf16, parameters from ``model.init`` with seed 0)
    with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
@@ -74,8 +90,10 @@ Tolerances.  Kernel against plain version: integers (keys, counts,
 validity) exact; floats within rtol 1e-4 of the plain value, because the
 kernels add float sums with atomics and per-block partials, in another
 order than torch's reductions (each order has error of order
-sqrt(n)·2^-24 on n ≈ 10^6 terms).  Query against the numpy reference:
-integers exact, floats rtol 2e-4 (tests/test_tpch.py's tolerance: f32
+sqrt(n)·2^-24 on n ≈ 10^6 terms); ``fused_select_agg`` and the reg route
+of ``grouped_select_agg`` add in a fixed order, so two runs give the same
+bits.  Query against the numpy reference: integers exact, floats rtol
+2e-4 (tests/test_tpch.py's tolerance: f32
 accumulation against an f64 oracle).  Segment sums: a sum may also
 differ by 1e-5 of the sum of |x| over its segment, since a sum whose terms
 cancel has a rounding error that scales with Σ|x| and not with the result.
@@ -154,6 +172,10 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:100",
 }
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+#: the kernels generated per query: their sources above are templates that
+#: follow the query's row functions, which this module writes
+GENERATED_BY = {k: "src/repro_torch/kernels/codegen.py"
+                for k in ("fused_select_agg", "grouped_select_agg")}
 #: which queries' plans launch which kernel
 EXPECTED = {
     "fused_select_agg": ("q6", "q14", "q19"),
@@ -343,8 +365,8 @@ def work(name: str, args: tuple, kw: dict):
     column the predicate reads and the validity over all rows; columns
     read only by the aggregated values or keys, over the rows that pass;
     the build side of a join once; the result once.  Operations: the
-    program's instructions per row evaluated (the cost of a VM step is not
-    counted)."""
+    program's instructions per row evaluated (the cost of a VM step, where
+    the kernel interprets it, is not counted)."""
     from repro_torch.kernels import exprcode
     from repro_torch.kernels.ops import _value_aggs
     from repro_torch.relational import runtime as rt
@@ -388,7 +410,8 @@ def work(name: str, args: tuple, kw: dict):
     fields = pred_fields | value_fields
     prog = exprcode.compile_program(
         pred, [a.expr for a in vaggs],
-        {f: exprcode.column_type(dtypes[f]) for f in fields}, {f: 0 for f in fields})
+        {f: exprcode.column_type(dtypes[f]) for f in fields}, {f: 0 for f in fields},
+        max_stack=None)
     ops = cap * prog.n_pred + n_pass * (len(prog.code) - prog.n_pred)
     return nbytes, ops
 
@@ -442,7 +465,9 @@ def phase_build() -> None:
     paths = build.build()
     for name in build.KERNELS:
         build.library(name)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source; "
+        f"{', '.join(build.KERNELS)}; fused_select_agg and grouped_select_agg are generated "
+        "per query at their first call)")
     for name, p in paths.items():
         entry = "?"
         for ln in p.with_suffix(".log").read_text().splitlines():
@@ -450,6 +475,60 @@ def phase_build() -> None:
                 entry = ln.split("'")[1] if "'" in ln else ln.strip()
             elif "registers" in ln or "spill" in ln:
                 log(f"  ptxas {name} {entry}: {ln.strip()}")
+
+
+def report_generated(when: str) -> None:
+    """The generated kernels' libraries so far: built (and nvcc's seconds),
+    reused from an earlier build, distinct queries in this process."""
+    from repro_torch.kernels import build, ops
+
+    g = build.GEN_STATS
+    kernels = sum(len(q.kernels) for q in ops._QUERIES.values())
+    per = g["nvcc_s"] / g["built"] if g["built"] else 0.0
+    log(f"generated kernels {when}: {int(g['built'])} libraries built, {int(g['reused'])} "
+        f"reused, {kernels} distinct query kernels; nvcc {g['nvcc_s']:.2f} s in all, "
+        f"{per:.2f} s per library, slowest {g['nvcc_max_s']:.2f} s")
+    log("generated: " + json.dumps({"when": when, **g, "queries": kernels}))
+
+
+def routed(fn, *args, **kw):
+    """fn(*args, **kw) and the generated kernel routes it launched."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.GEN_LAUNCHES)
+    out = fn(*args, **kw)
+    return out, [r for r in before for _ in range(ops.GEN_LAUNCHES[r] - before[r])]
+
+
+def same_bits(name: str, a, b) -> None:
+    """Two outputs of a kernel (dicts or VecTables) must be bit-identical."""
+    import torch
+
+    from repro_torch.relational.runtime import VecTable
+
+    if isinstance(a, VecTable):
+        pairs = [("valid", a.valid, b.valid)] + [(k, a.cols[k], b.cols[k]) for k in a.cols]
+    else:
+        pairs = [(k, a[k], b[k]) for k in a]
+    for k, x, y in pairs:
+        if not torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y):
+            raise AssertionError(f"{name}.{k}: two runs give different bits")
+
+
+#: grouped_select_agg's routes at their borders: with three values (1 + 3
+#: accumulators a bucket), reg ends at 16 buckets and smem at 3072 (48 KB)
+GSA_BORDERS = ((16, "gsa_reg"), (17, "gsa_smem"), (3072, "gsa_smem"), (3073, "gsa_global"))
+
+
+def deep_predicate(depth: int = 24):
+    """Or-ed comparisons nested deeper than the interpreter's stack of 16."""
+    from repro_torch.core.expr import col
+
+    e = col("x") > 1.9
+    for k in range(depth):
+        e = (col("k").eq(k % 7) & (col("a") < k - 12)) | e
+    return e
 
 
 def phase_edges() -> None:
@@ -480,6 +559,7 @@ def phase_edges() -> None:
         "empty": col("a") > 1000,
     }
     checked = 0
+    routes = {}
     for label, pred in preds.items():
         got = ops.fused_select_agg(t, pred, aggs)
         want = ref.fused_select_agg(t, pred, aggs)
@@ -495,9 +575,37 @@ def phase_edges() -> None:
             for lo, hi in doms:
                 nb *= hi - lo + 1
             args = (t, pred, nb_keys, aggs, min(nb, 64), doms, nb)
-            compare_outputs(f"grouped_select_agg[{label},nb={nb}]",
-                            ops.grouped_select_agg(*args), ref.grouped_select_agg(*args))
+            got, took = routed(ops.grouped_select_agg, *args)
+            compare_outputs(f"grouped_select_agg[{label},nb={nb}]", got,
+                            ref.grouped_select_agg(*args))
+            routes[f"{label}, nb={nb}"] = took
             checked += 1
+    # the routes at their borders, a predicate deeper than the interpreter's
+    # stack, and the fixed-order kernels run twice
+    aggs3 = (AggSpec("sum", col("x") * 2.0, "s"), AggSpec("min", col("a"), "mn"),
+             AggSpec("max", col("x"), "mx"), AggSpec("count", const(1), "c"))
+    for nb, route in GSA_BORDERS:
+        args = (t, col("a") > -20, ("fk",), aggs3, nb, ((-3, nb - 4),), nb)
+        got, took = routed(ops.grouped_select_agg, *args)
+        if took != [route]:
+            raise AssertionError(f"grouped_select_agg with {nb} buckets took {took}, not {route}")
+        compare_outputs(f"grouped_select_agg[border nb={nb}]", got, ref.grouped_select_agg(*args))
+        routes[f"border, nb={nb}"] = took
+        checked += 1
+    deep = deep_predicate()
+    compare_outputs("fused_select_agg[deep predicate]", ops.fused_select_agg(t, deep, aggs3),
+                    ref.fused_select_agg(t, deep, aggs3))
+    args = (t, deep, ("k",), aggs3, 7, ((0, 6),), 7)
+    got, took = routed(ops.grouped_select_agg, *args)
+    compare_outputs("grouped_select_agg[deep predicate]", got, ref.grouped_select_agg(*args))
+    routes["deep predicate, nb=7"] = took
+    checked += 2
+    same_bits("fused_select_agg[mixed]", ops.fused_select_agg(t, preds["mixed"], aggs),
+              ops.fused_select_agg(t, preds["mixed"], aggs))
+    args = (t, preds["mixed"], ("k",), aggs, 7, ((0, 6),), 7)
+    same_bits("grouped_select_agg[mixed, reg]", ops.grouped_select_agg(*args),
+              ops.grouped_select_agg(*args))
+    log(f"edge cases, grouped_select_agg routes: {json.dumps(routes)}")
     # build side: duplicate keys (first occurrence wins), keys outside the
     # probe's domain, a group key and a value on the build side
     m = 64
@@ -523,7 +631,9 @@ def phase_edges() -> None:
                             ops.grouped_join_agg(t, right, **kw),
                             ref.grouped_join_agg(t, right, **kw))
             checked += 1
-    log(f"edge cases: {checked} kernel calls match their plain versions")
+    log(f"edge cases: {checked} kernel calls match their plain versions; fused_select_agg "
+        "and grouped_select_agg's reg route give the same bits twice")
+    report_generated("after the edge cases")
 
 
 def phase_edges_la(pool) -> None:
@@ -533,7 +643,7 @@ def phase_edges_la(pool) -> None:
 
     from repro_torch.convert import tensors_from_arrays
     from repro_torch.kernels import ops, ref
-    from repro_torch.kmeans import check_step, reference_step
+    from repro_torch.kmeans import check_step, near_ties, reference_step
 
     def clusters(n, d, k, seed):
         rng = np.random.default_rng(seed)
@@ -556,6 +666,7 @@ def phase_edges_la(pool) -> None:
         "k*d past 48 KB": clusters(5000, 64, 256, 5),    # dynamic shared memory
         "k*d past opt-in": clusters(3000, 64, 512, 6),   # global accumulators
     }
+    cases["d=1 at adversarial near-ties"] = near_ties(16, 256, 24, 0)
     cases = {label: (x, c, (0, 0)) for label, (x, c) in cases.items()}
     # chunk views whose start is not 16-byte aligned, as a Split makes them
     cases["view 4 bytes into a 16-byte granule"] = (*clusters(4099, 8, 16, 15), (0, 1))
@@ -629,15 +740,16 @@ def phase_main_path(sf: float):
         f"set-up {time.perf_counter() - t0:.1f} s")
     frames = {q: f(ctx) for q, f in tpch.QUERIES.items()}
 
-    per_query = {}
+    per_query, routes = {}, {}
     results = {}
     with recording(TPCH_KERNELS) as captured:
         ops.reset_launches()
         for q, frame in frames.items():
             before = dict(ops.LAUNCHES)
-            results[q] = frame.collect(device="cuda")
+            results[q], routes[q] = routed(frame.collect, device="cuda")
             per_query[q] = {k: ops.LAUNCHES[k] - before[k] for k in before}
         launches = dict(ops.LAUNCHES)
+        gen_launches = dict(ops.GEN_LAUNCHES)
 
     for q, got in results.items():
         check_query(q, got, tpch.REFERENCES[q](tables))
@@ -646,7 +758,114 @@ def phase_main_path(sf: float):
         for q in queries:
             if per_query[q][kname] < 1:
                 raise AssertionError(f"{q} did not launch {kname}: {per_query[q]}")
+    check_routes("TPC-H path", launches, gen_launches, routes)
+    report_generated("after the TPC-H path")
+    same_bits_on_path(captured)
+    phase_tpch_route(frames)
+    gsa_split(captured)
     return tables, ctx, frames, launches, captured
+
+
+def check_routes(what: str, launches, gen_launches, routes) -> None:
+    """Every fused_select_agg and grouped_select_agg call of a TPC-H run
+    launched a generated kernel; Q1 took the reg route and Q4 an atomic
+    one.  Prints each query's routes."""
+    gsa = sum(gen_launches[r] for r in ("gsa_reg", "gsa_smem", "gsa_global"))
+    if gen_launches["fsa_gen"] != launches["fused_select_agg"] or gsa != launches[
+            "grouped_select_agg"]:
+        raise AssertionError(f"{what}: generated routes {gen_launches} for launches {launches}")
+    if "gsa_reg" not in routes["q1"] or any(r not in ("gsa_global", "gsa_smem")
+                                            for r in routes["q4"]):
+        raise AssertionError(f"{what}: Q1 took {routes['q1']}, Q4 {routes['q4']}")
+    log(f"{what}, generated kernel routes per query: {json.dumps(routes)}; in all "
+        f"{json.dumps(gen_launches)}")
+
+
+def same_bits_on_path(captured) -> None:
+    """The path's fused_select_agg calls and grouped_select_agg calls on the
+    reg route, run twice more: the same bits (replays, not counted)."""
+    from repro_torch.kernels import ops
+
+    n = 0
+    for name, args, kw in captured:
+        if name not in ("fused_select_agg", "grouped_select_agg"):
+            continue
+        first, took = routed(getattr(ops, name), *args, **kw)
+        if took[0] not in ("fsa_gen", "gsa_reg"):
+            continue
+        same_bits(f"{name} on the path", first, getattr(ops, name)(*args, **kw))
+        n += 1
+    log(f"TPC-H path: its {n} fused_select_agg and reg-route grouped_select_agg calls give the "
+        "same bits when run again")
+
+
+def phase_tpch_route(frames) -> None:
+    """One pass over the six queries under torch.profiler (after a warm-up
+    window): the generated kernels ran, and no kernel of the interpreter
+    that fused_select_agg and grouped_select_agg used to run."""
+    names = device_kernels(lambda: [f.collect(device="cuda") for f in frames.values()], reps=1)
+    ours = [n for n in names if any(k in n for k in OUR_KERNELS)]
+    missing = [k for k in ("fsa_gen", "gsa_gen_reg", "gsa_gen_atomic")
+               if not any(k in n for n in names)]
+    stale = [n for n in names if any(k in n for k in ("fsa_main", "fsa_finalize", "gsa_main"))]
+    if missing or stale:
+        raise AssertionError(f"profiled TPC-H pass: missing {missing}, interpreter kernels "
+                             f"{stale}; ran {ours}")
+    log(f"profiled TPC-H pass: this package's kernels {json.dumps(ours)} (no fsa_main, "
+        "fsa_finalize or gsa_main)")
+
+
+@contextlib.contextmanager
+def _epilogue_inputs():
+    """Records, during grouped_select_agg calls, the inputs of its
+    epilogue's decode_bucket_keys and compact."""
+    from repro_torch.relational import runtime as rt
+
+    seen = {}
+    orig_decode, orig_compact = rt.decode_bucket_keys, rt.compact
+
+    def decode(*a, **kw):
+        seen["decode"] = (a, kw)
+        return orig_decode(*a, **kw)
+
+    def compact(*a, **kw):
+        seen["compact"] = (a, kw)
+        return orig_compact(*a, **kw)
+
+    rt.decode_bucket_keys, rt.compact = decode, compact
+    try:
+        yield seen
+    finally:
+        rt.decode_bucket_keys, rt.compact = orig_decode, orig_compact
+
+
+def gsa_split(captured) -> None:
+    """The grouped_select_agg wrapper's time on Q1's and Q4's path calls
+    (CUDA events, mean of 10), beside its parts alone on the same inputs:
+    the launch (checks, the generated kernel's ctypes call and the kernel),
+    the epilogue's decode_bucket_keys and compact.  Measured only."""
+    from repro_torch.kernels import ops
+    from repro_torch.relational import runtime as rt
+
+    rows = []
+    for name, args, kw in captured:
+        if name != "grouped_select_agg":
+            continue
+        table, pred, keys, aggs, _, doms, nb = args
+        with _epilogue_inputs() as seen:
+            ops.grouped_select_agg(*args, **kw)
+        (da, dkw), (ca, ckw) = seen["decode"], seen["compact"]
+        row = {"buckets": nb, "rows": table.capacity,
+               "wrapper_ms": cuda_ms(lambda: ops.grouped_select_agg(*args, **kw)),
+               "launch_ms": cuda_ms(lambda: ops._grouped_select_launch(
+                   table, pred, tuple(keys), tuple(aggs),
+                   tuple((int(lo), int(hi)) for lo, hi in doms), nb)),
+               "decode_bucket_keys_ms": cuda_ms(lambda: rt.decode_bucket_keys(*da, **dkw)),
+               "compact_ms": cuda_ms(lambda: rt.compact(*ca, **ckw))}
+        row["rest_ms"] = row["wrapper_ms"] - row["launch_ms"] - row[
+            "decode_bucket_keys_ms"] - row["compact_ms"]
+        rows.append(row)
+    log("grouped_select_agg wrapper split (Q1, Q4): " + json.dumps(rows))
 
 
 def phase_kmeans(pool):
@@ -779,16 +998,18 @@ def phase_parallel(tables, frames) -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.relational import tpch
 
-    results, per_query = {}, {}
+    results, per_query, routes = {}, {}, {}
     with recording(TPCH_KERNELS) as captured:
         ops.reset_launches()
         for q, frame in frames.items():
             before = dict(ops.LAUNCHES)
-            results[q] = frame.collect(device="cuda", parallel=PARALLEL)
+            results[q], routes[q] = routed(frame.collect, device="cuda", parallel=PARALLEL)
             per_query[q] = {k: ops.LAUNCHES[k] - before[k] for k in before}
         launches = dict(ops.LAUNCHES)
+        gen_launches = dict(ops.GEN_LAUNCHES)
     for q, got in results.items():
         check_query(q, got, tpch.REFERENCES[q](tables))
+    check_routes(f"TPC-H path with parallel={PARALLEL}", launches, gen_launches, routes)
     # Q6: once per chunk; Q1: once per chunk, then once for the recombine
     for q, kname, want in (("q6", "fused_select_agg", PARALLEL),
                            ("q1", "grouped_select_agg", PARALLEL + 1)):
@@ -1108,7 +1329,7 @@ def phase_kernels(captured, launches, pool):
     agg = {}
     for i, (name, args, kw) in enumerate(captured):
         kern, plain = getattr(ops, name), getattr(ref, name)
-        got, want = kern(*args, **kw), plain(*args, **kw)
+        (got, took), want = routed(kern, *args, **kw), plain(*args, **kw)
         extra = {}
         if name == "kmeans_step":
             x, c = (a.cpu().numpy() for a in args)
@@ -1137,6 +1358,8 @@ def phase_kernels(captured, launches, pool):
         else:
             shape = {"shapes": [list(a.shape) for a in args if hasattr(a, "shape")]}
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / ops_peak(args) * 1e3
+        if took:
+            shape["route"] = took[0]
         rows.append({"kernel": name, "call": i, **shape, "ms": ms, "plain_ms": pms,
                      "library_ms": lib, "bytes": nbytes, "ops": nops,
                      "bound_ms": max(t_bytes, t_ops),
@@ -1168,6 +1391,8 @@ def phase_kernels(captured, launches, pool):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": a["library_ms"],
         })
+        if name in GENERATED_BY:
+            out[-1]["generated_by"] = GENERATED_BY[name]
         if a["ops_f32_ms"] != t_ops:  # bf16 operands: the f32 convention's bound beside
             out[-1]["bound_f32_ms"] = max(t_bytes, a["ops_f32_ms"])
         out[-1].update({k: a[k] for k in ("bound_share", "max_abs_from_tiled", "read_floor_ms")
@@ -1261,26 +1486,46 @@ def report_serve(report) -> None:
 
 
 #: name fragments of this package's CUDA kernels in a profiler trace
-OUR_KERNELS = ("fsa_main", "fsa_finalize", "gsa_main", "gja_main", "vm_init_accumulators",
-               "kms_main", "kms_tc", "seg_main", "fa_main", "fa_wgmma")
+OUR_KERNELS = ("fsa_gen", "gsa_gen_reg", "gsa_gen_atomic", "gsa_gen_init", "gja_main",
+               "vm_init_accumulators", "kms_main", "kms_tc", "seg_main", "fa_main", "fa_wgmma")
 #: flash_attention's kernels: bf16 on the tensor cores, f32 on the CUDA cores
 FA_TENSOR_CORE, FA_CUDA_CORE = "fa_wgmma", "fa_main"
 #: kmeans_step's kernels: the path's shape on the tensor cores, others on the CUDA cores
 KMS_TENSOR_CORE, KMS_CUDA_CORE = "kms_tc", "kms_main"
 
 
+#: profiler windows a measurement may take: the first warms the profiler
+#: up, and a window can come back with none of its device launches (seen
+#: on the H100's machine, now and then), so the next one is taken
+PROFILE_WINDOWS = 6
+
+
+def _profiled(fn, activities):
+    """torch.profiler over ``fn()`` (which ends in a synchronise): the
+    first window after the warm-up that recorded a device kernel (or the
+    last one)."""
+    from torch.profiler import profile
+
+    for window in range(PROFILE_WINDOWS):
+        with profile(activities=activities) as prof:
+            fn()
+        if window and _device_events(prof):
+            break
+    return prof
+
+
 def device_kernels(fn, reps: int = 3):
     """The names of the device kernels that ``reps`` calls of ``fn``
     launch, from torch.profiler after a warm-up window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    for _ in range(2):  # the first window warms the profiler up
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    return sorted({e.key for e in _device_events(prof)})
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    return sorted({e.key for e in _device_events(_profiled(run, [ProfilerActivity.CUDA]))})
 
 
 def _device_events(prof):
@@ -1296,16 +1541,13 @@ def phase_profile(workloads, captured) -> None:
     device time by kernel and the device's busy share of the traced span;
     then each path kernel call's own kernels alone."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.kernels import ops
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for label, run in workloads.items():
-        for _ in range(2):  # the first run warms the profiler up
-            with profile(activities=acts) as prof:
-                run()
-                torch.cuda.synchronize()
+        prof = _profiled(lambda: (run(), torch.cuda.synchronize()), acts)
         spans = [e.time_range for e in prof.events()]
         span_ms = (max(r.end for r in spans) - min(r.start for r in spans)) / 1e3
         events = _device_events(prof)
@@ -1322,10 +1564,13 @@ def phase_profile(workloads, captured) -> None:
     iters, rows = 10, []
     for i, (name, args, kw) in enumerate(captured):
         kern = getattr(ops, name)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def calls():
             for _ in range(iters):
                 kern(*args, **kw)
             torch.cuda.synchronize()
+
+        prof = _profiled(calls, [ProfilerActivity.CUDA])
         # each wrapper call launches each of its kernels once: the mean per
         # recorded launch, summed over its kernels (the trace may lose some
         # of a window's launches, so dividing by iters would undercount)
@@ -1385,6 +1630,7 @@ def main() -> int:
                 serve_wave,
         }, captured)
     del captured, km_captured, seg_captured, seg_inputs, fa_captured
+    report_generated("at the end")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

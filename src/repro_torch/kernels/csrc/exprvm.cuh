@@ -1,9 +1,11 @@
-// Shared pieces of the relational kernels: the expression VM, key packing
-// and float atomics.
+// The expression VM of grouped_join_agg, key packing and the grouped
+// kernels' accumulator plumbing.
 //
 // The Pallas kernels of the JAX package close over the query's Expr and
-// compile one kernel per query.  Here one nvcc build serves every query:
-// the wrapper lowers each Expr to a small typed postfix program
+// compile one kernel per query; so do fused_select_agg and
+// grouped_select_agg here (repro_torch/kernels/codegen.py).
+// grouped_join_agg is still built once for every query: the wrapper lowers
+// each Expr to a small typed postfix program
 // (repro_torch/kernels/exprcode.py) that every thread interprets.  All
 // threads read the same instruction at the same time, so the reads are
 // uniform and the dispatch does not diverge.
@@ -16,6 +18,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "relagg.cuh"
 
 #define VM_MAX_COLS 32
 #define VM_MAX_STACK 16
@@ -118,17 +122,6 @@ static inline VmAccs vm_make_accs(const int* fns, int n) {
   a.n = n;
   for (int j = 0; j < n; ++j) a.fn[j] = fns[j];
   return a;
-}
-
-// Blocks of a grid-stride pass over `rows` rows: one row per thread, at
-// most `per_sm` blocks on each SM of the current device.
-static inline int vm_grid(long long rows, int per_sm) {
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = (rows + VM_TPB - 1) / VM_TPB;
-  const long long most = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(need < 1 ? 1 : (need < most ? need : most));
 }
 
 __device__ __forceinline__ long long vm_index(const VmCols& c, int j,
@@ -244,28 +237,6 @@ __device__ __forceinline__ float vm_identity(int fn) {
   return fn == ACC_MIN ? VM_POS : (fn == ACC_MAX ? VM_NEG : 0.0f);
 }
 
-__device__ __forceinline__ float vm_combine(int fn, float a, float b) {
-  return fn == ACC_MIN ? fminf(a, b) : (fn == ACC_MAX ? fmaxf(a, b) : a + b);
-}
-
-// Float min/max by integer atomics: a non-negative float orders like its
-// int bits, a negative one in reverse order of its unsigned bits.
-__device__ __forceinline__ void vm_atomic_min(float* a, float v) {
-  if (!signbit(v)) atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
-  else atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-}
-
-__device__ __forceinline__ void vm_atomic_max(float* a, float v) {
-  if (!signbit(v)) atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
-  else atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-}
-
-__device__ __forceinline__ void vm_atomic(int fn, float* a, float v) {
-  if (fn == ACC_SUM) atomicAdd(a, v);
-  else if (fn == ACC_MIN) vm_atomic_min(a, v);
-  else vm_atomic_max(a, v);
-}
-
 // Fills the global accumulators: counts 0, each value row its identity.
 __global__ void vm_init_accumulators(int* __restrict__ cnt, float* __restrict__ acc,
                                      long long nb, VmAccs accs) {
@@ -301,7 +272,7 @@ __device__ __forceinline__ void vm_flush(const int* scnt, const float* sacc, int
     const int n = scnt[b];
     if (n == 0) continue;
     atomicAdd(cnt + b, n);
-    for (int k = 0; k < accs.n; ++k) vm_atomic(accs.fn[k], acc + k * nb + b, sacc[k * nb + b]);
+    for (int k = 0; k < accs.n; ++k) rel_atomic(accs.fn[k], acc + k * nb + b, sacc[k * nb + b]);
   }
 }
 

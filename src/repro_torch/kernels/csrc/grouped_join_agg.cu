@@ -61,7 +61,7 @@ gja_main(const int2* __restrict__ prog, int n_pred, int n_prog, VmCols cols,
     const long long b = vm_bucket(gkeys, cols, i, jb, &ok);
     atomicAdd(tcnt + b, 1);
     for (int k = 0; k < accs.n; ++k)
-      vm_atomic(accs.fn[k], tacc + k * nb + b, __uint_as_float(out[1 + k]));
+      rel_atomic(accs.fn[k], tacc + k * nb + b, __uint_as_float(out[1 + k]));
   }
   if (SMEM) {
     __syncthreads();
@@ -81,7 +81,7 @@ extern "C" int gja_launch(const int2* prog, int n_pred, int n_prog, const void* 
       n_gkeys > VM_MAX_KEYS || nb < 1)
     return cudaErrorInvalidValue;
   const long long smem = vm_smem_bytes(nb, n_acc);
-  const int grid = vm_grid(cap, smem ? VM_SMEM_BLOCKS_PER_SM : VM_GLOBAL_BLOCKS_PER_SM);
+  const int grid = rel_grid(cap, VM_TPB, smem ? VM_SMEM_BLOCKS_PER_SM : VM_GLOBAL_BLOCKS_PER_SM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const VmCols cols = vm_make_cols(col_ptrs, col_types, col_src, n_cols);
   const VmKeys jkeys = vm_make_keys(jkey_slots, jkey_lo, jkey_size, n_jkeys);

@@ -1,9 +1,11 @@
-"""Lower ``Expr`` trees to the typed postfix programs the kernels interpret.
+"""Lower ``Expr`` trees to typed postfix programs.
 
 The Pallas kernels of the JAX package close over the query's expressions
-and compile one kernel per query.  The CUDA kernels here are built once;
-each launch instead carries a small program (``csrc/exprvm.cuh`` runs it)
-that computes the predicate and the aggregated values of one row.
+and compile one kernel per query.  A program computes the predicate and
+the aggregated values of one row: ``codegen`` turns it into straight-line
+C++ for the kernels generated per query (``fused_select_agg``,
+``grouped_select_agg``), and ``grouped_join_agg``, built once, carries it
+to the card and interprets it (``csrc/exprvm.cuh``).
 
 A program is an ``(n, 2)`` int32 array of ``(opcode, argument)`` pairs.
 Its first ``n_pred`` instructions leave the predicate in output slot 0;
@@ -43,7 +45,8 @@ OPCODES: Dict[str, int] = {
 }
 _NAMES = {v: k for k, v in OPCODES.items()}
 
-#: the kernels' fixed limits (``VM_MAX_STACK`` / ``VM_MAX_ACC``)
+#: the interpreter's fixed limits (``VM_MAX_STACK`` / ``VM_MAX_ACC``); the
+#: generated kernels have no stack and take ``max_stack=None``
 MAX_STACK = 16
 MAX_VALUES = 16
 
@@ -196,11 +199,12 @@ def _depth(code: Sequence[Tuple[str, int]]) -> int:
 
 
 def compile_program(pred: Optional[Expr], values: Sequence[Expr],
-                    col_types: Mapping[str, str],
-                    slots: Mapping[str, int]) -> ExprProgram:
+                    col_types: Mapping[str, str], slots: Mapping[str, int],
+                    max_stack: Optional[int] = MAX_STACK) -> ExprProgram:
     """One program: the predicate (``None`` → always true) into slot 0,
     then each of ``values`` as f32 into slots 1, 2, ...  Raises where the
-    kernels cannot run it: too many values or too deep a stack."""
+    kernels cannot run it: too many values, or a stack deeper than
+    ``max_stack`` (``None``: no limit, for the generated kernels)."""
     if len(values) > MAX_VALUES:
         raise ValueError(f"{len(values)} aggregated values; the kernels take "
                          f"at most {MAX_VALUES}")
@@ -218,9 +222,9 @@ def compile_program(pred: Optional[Expr], values: Sequence[Expr],
         code += _as(_lower(e, col_types, slots), "f")
         code.append(("EMIT", 1 + k))
     depth = _depth(code)
-    if depth > MAX_STACK:
-        raise ValueError(f"expression needs a stack of {depth}; the kernels "
-                         f"hold {MAX_STACK}")
+    if max_stack is not None and depth > max_stack:
+        raise ValueError(f"expression needs a stack of {depth}; the interpreter "
+                         f"holds {max_stack}")
     arr = np.array([(OPCODES[op], arg) for op, arg in code], dtype=np.int32)
     return ExprProgram(arr.reshape(-1, 2), n_pred, len(values), depth)
 

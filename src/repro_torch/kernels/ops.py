@@ -7,27 +7,31 @@ the operator returns.  Inputs on the CPU go to the plain version in
 raises.  Outputs and scratch are allocated here with ``torch.empty``; the
 kernels allocate nothing and never synchronise.
 
+``fused_select_agg`` and ``grouped_select_agg`` run kernels generated per
+query (``codegen``), built at their first use (``build.build_generated``)
+and cached here per query; ``grouped_join_agg`` runs the expression VM.
 The epilogue keeps the JAX package's contract (``repro/kernels/ops.py``):
 the kernels' ±3e38 sentinels for empty min/max map back to ±inf, the
 count comes first, bucket ids decode back to key values, and the result
 is compacted to ``max_groups``.  There is no lane padding and no bucket
 limit: the relational kernels accumulate with atomics instead of a one-hot.
 
-``LAUNCHES`` counts, per kernel, the calls that launched it, and
-``KMEANS_LAUNCHES`` the ``kmeans_step`` calls per route.
+``LAUNCHES`` counts, per kernel, the calls that launched it,
+``KMEANS_LAUNCHES`` the ``kmeans_step`` calls per route and
+``GEN_LAUNCHES`` the generated kernels' calls per route.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.expr import AggSpec, Expr
 from ..relational import runtime as rt
-from . import exprcode, ref
+from . import codegen, exprcode, ref
 
 LAUNCHES: Dict[str, int] = {"fused_select_agg": 0, "grouped_select_agg": 0,
                             "grouped_join_agg": 0, "kmeans_step": 0, "segsum": 0,
@@ -39,11 +43,18 @@ _SENTINEL = 3.0e38
 _PROGRAMS: Dict[tuple, Tuple[exprcode.ExprProgram, torch.Tensor]] = {}
 
 
+#: the generated kernels' routes: fused_select_agg's one, and
+#: grouped_select_agg's by shape (``gsa_gen_route``: accumulators in
+#: registers, in shared memory, in global memory)
+GEN_ROUTES = ("fsa_gen", "gsa_reg", "gsa_smem", "gsa_global")
+#: calls that launched each route's kernel
+GEN_LAUNCHES: Dict[str, int] = {r: 0 for r in GEN_ROUTES}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in KMEANS_LAUNCHES:
-        KMEANS_LAUNCHES[k] = 0
+    for counts in (LAUNCHES, KMEANS_LAUNCHES, GEN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -144,14 +155,17 @@ def _value_aggs(aggs: Sequence[AggSpec]) -> List[AggSpec]:
 def _grouped_epilogue(cnt: torch.Tensor, acc: torch.Tensor, keys: Sequence[str],
                       key_dtypes: Sequence[torch.dtype], aggs: Sequence[AggSpec],
                       max_groups: int, key_domains: Sequence[Tuple[int, int]],
-                      num_buckets: int) -> rt.VecTable:
+                      num_buckets: int, index: Optional[Sequence[int]] = None) -> rt.VecTable:
+    """Keys decoded from the bucket ids, the count, each value aggregate's
+    row of ``acc`` (row ``index[k]`` for the k-th, where given), compacted
+    to ``max_groups``."""
     out = rt.decode_bucket_keys(keys, key_domains, key_dtypes, num_buckets, cnt.device)
     k = 0
     for a in aggs:
         if a.fn == "count":
             out[a.name] = cnt
         else:
-            out[a.name] = _from_sentinel(acc[k])
+            out[a.name] = _from_sentinel(acc[k if index is None else index[k]])
             k += 1
     return rt.compact(rt.VecTable(out, cnt > 0), max_groups)
 
@@ -167,46 +181,136 @@ def _grouped_buffers(n_acc: int, nb: int, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
+class _Generated(NamedTuple):
+    """One query's generated kernel: its entry point, its scratch size as
+    a function of the rows, its route."""
+
+    launch: Any
+    scratch_bytes: Any
+    route: str
+
+
+class _Query(NamedTuple):
+    """What a wrapper needs of one query, found once: the columns it reads
+    (sorted), its distinct (aggregate, expression) values, each value
+    aggregate's index among them, and its kernels per column types."""
+
+    names: Tuple[str, ...]
+    values: Tuple[Tuple[str, Expr], ...]
+    index: List[int]
+    kernels: Dict[Tuple[str, ...], _Generated]
+
+
+#: per (family, predicate, value aggregates, keys, key domains)
+_QUERIES: Dict[tuple, _Query] = {}
+#: per (device, stream): the generated kernels' zeroed tickets (each launch
+#: leaves them zeroed) and their scratch (launches on one stream run in
+#: turn, so they share both)
+_GEN_STREAM: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _query(family: str, pred: Optional[Expr], aggs: Tuple[AggSpec, ...],
+           keys: Tuple[str, ...] = (), domains: tuple = ()) -> _Query:
+    """The query's columns and values, looked up by the query (one hash of
+    its expressions a call)."""
+    key = (family, pred, tuple((a.fn, a.expr) for a in aggs if a.fn != "count"), keys, domains)
+    q = _QUERIES.get(key)
+    if q is None:
+        values, index = _distinct_values(_value_aggs(aggs))
+        fields = set(pred.fields()) if pred is not None else set()
+        names = tuple(sorted(fields | set(keys) | {f for _, e in values for f in e.fields()}))
+        q = _QUERIES[key] = _Query(names, values, index, {})
+    return q
+
+
+def _generated(family: str, pred: Optional[Expr], q: _Query, types: Tuple[str, ...],
+               keys: Tuple[str, ...] = (), domains: tuple = ()) -> _Generated:
+    """The kernel generated for query ``q`` over columns of the VM types
+    ``types``, built at its first use and then cached (a repeated call
+    neither regenerates nor rehashes the text)."""
+    gen = q.kernels.get(types)
+    if gen is None:
+        from .build import build_generated
+
+        names, values = q.names, q.values
+        prog = exprcode.compile_program(pred, [e for _, e in values], dict(zip(names, types)),
+                                        {n: j for j, n in enumerate(names)}, max_stack=None)
+        key_slots = None
+        if family == "grouped_select_agg":
+            key_slots = [(names.index(k), int(lo), int(hi) - int(lo) + 1)
+                         for k, (lo, hi) in zip(keys, domains)]
+        text = codegen.kernel_source(family, prog, types, [fn for fn, _ in values], key_slots)
+        lib = build_generated(family, text)
+        if family == "fused_select_agg":
+            gen = _Generated(lib.fsa_gen_launch, lib.fsa_gen_scratch_bytes, "fsa_gen")
+        else:
+            gen = _Generated(lib.gsa_gen_launch, lib.gsa_gen_scratch_bytes,
+                             GEN_ROUTES[1 + lib.gsa_gen_route()])
+        q.kernels[types] = gen
+    return gen
+
+
+def _gen_workspace(device: torch.device, stream: int, nbytes: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ticket, scratch of at least ``nbytes``) for launches on ``stream``."""
+    key = (device.index, stream)
+    ticket, scratch = _GEN_STREAM.get(key, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    if scratch is None or scratch.numel() < nbytes:
+        scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=device)
+    _GEN_STREAM[key] = (ticket, scratch)
+    return ticket, scratch
+
+
+def _distinct_values(vaggs: Sequence[AggSpec]) -> Tuple[Tuple[Tuple[str, Expr], ...], List[int]]:
+    """The distinct (aggregate, expression) pairs of the value aggregates,
+    and for each aggregate its pair's index (Q1 sums l_quantity twice)."""
+    pairs: List[Tuple[str, Expr]] = []
+    index = []
+    for a in vaggs:
+        pair = (a.fn, a.expr)
+        if pair not in pairs:
+            pairs.append(pair)
+        index.append(pairs.index(pair))
+    return tuple(pairs), index
+
+
+def _pointers(cols: Sequence[torch.Tensor]) -> np.ndarray:
+    return np.array([c.data_ptr() for c in cols] or [0], np.uint64)
+
+
 def fused_select_agg(table: rt.VecTable, pred: Expr,
                      aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
     """VecTable → Single⟨aggs⟩ ({name: 0-dim tensor}) in one pass."""
     aggs = tuple(aggs)
     if not _on_card(table):
         return ref.fused_select_agg(table, pred, aggs)
-    from .build import constant, entry
-
     dev = table.device
-    vaggs = _value_aggs(aggs)
-    names = tuple(sorted(set(pred.fields()) | {f for a in vaggs for f in a.expr.fields()}))
-    cols = _columns(table, names, "fused_select_agg")
-    c = _Cols(cols, [0] * len(cols))
-    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
-    # per-block partials for the most blocks the kernel launches
-    max_blocks = (torch.cuda.get_device_properties(dev).multi_processor_count
-                  * constant("fused_select_agg", "fsa_blocks_per_sm"))
-    n_acc = len(vaggs)
-    part_cnt = torch.empty(max_blocks, dtype=torch.int32, device=dev)
-    part_acc = torch.empty(max(max_blocks * n_acc, 1), dtype=torch.float32, device=dev)
-    out_cnt = torch.empty(1, dtype=torch.int32, device=dev)
-    out_acc = torch.empty(max(n_acc, 1), dtype=torch.float32, device=dev)
-    fns = _fns(vaggs)
-    err = entry("fused_select_agg")(
-        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
-        c.types.ctypes.data, c.src.ctypes.data, c.n, table.valid.data_ptr(),
-        table.capacity, fns.ctypes.data, n_acc, part_cnt.data_ptr(),
-        part_acc.data_ptr(), max_blocks, out_cnt.data_ptr(), out_acc.data_ptr(),
-        _stream(dev))
+    q = _query("fused_select_agg", pred, aggs)
+    cols = _columns(table, q.names, "fused_select_agg")
+    gen = _generated("fused_select_agg", pred, q,
+                     tuple(exprcode.column_type(c.dtype) for c in cols))
+    stream = _stream(dev)
+    ticket, scratch = _gen_workspace(dev, stream, gen.scratch_bytes(table.capacity))
+    # the count, then the values (the kernel maps the ±3e38 sentinels to ±inf)
+    out = torch.empty(1 + max(len(q.values), 1), dtype=torch.int32, device=dev)
+    ptrs = _pointers(cols)
+    err = gen.launch(ptrs.ctypes.data, table.valid.data_ptr(), table.capacity,
+                     scratch.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+                     out.data_ptr() + 4, stream)
     _raise_on(err, "fused_select_agg")
     LAUNCHES["fused_select_agg"] += 1
-    vals = _from_sentinel(out_acc)
-    out, k = {}, 0
+    GEN_LAUNCHES[gen.route] += 1
+    vals = out[1:].view(torch.float32)
+    res, k = {}, 0
     for a in aggs:
         if a.fn == "count":
-            out[a.name] = out_cnt[0]
+            res[a.name] = out[0]
         else:
-            out[a.name] = vals[k]
+            res[a.name] = vals[q.index[k]]
             k += 1
-    return out
+    return res
 
 
 def grouped_select_agg(table: rt.VecTable, pred: Optional[Expr], keys: Sequence[str],
@@ -216,34 +320,40 @@ def grouped_select_agg(table: rt.VecTable, pred: Optional[Expr], keys: Sequence[
     """VecTable → Vec⟨keys+aggs⟩: fused predicate + dense-bucket grouped
     aggregation (``vec.GroupAggDirect`` under ``use_kernels``)."""
     keys, aggs = tuple(keys), tuple(aggs)
-    key_domains = tuple(key_domains)
+    key_domains = tuple((int(lo), int(hi)) for lo, hi in key_domains)
     if not _on_card(table):
         return ref.grouped_select_agg(table, pred, keys, aggs, max_groups,
                                       key_domains, num_buckets)
-    from .build import entry
-
-    dev = table.device
-    vaggs = _value_aggs(aggs)
-    pred_fields = set(pred.fields()) if pred is not None else set()
-    names = tuple(sorted(pred_fields | set(keys)
-                         | {f for a in vaggs for f in a.expr.fields()}))
-    cols = _columns(table, names, "grouped_select_agg")
-    c = _Cols(cols, [0] * len(cols))
-    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
-    slots, lo, size = _keys([names.index(k) for k in keys], key_domains)
     nb = int(num_buckets)
-    cnt, acc = _grouped_buffers(len(vaggs), nb, dev)
-    fns = _fns(vaggs)
-    err = entry("grouped_select_agg")(
-        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
-        c.types.ctypes.data, c.src.ctypes.data, c.n, table.valid.data_ptr(),
-        table.capacity, slots.ctypes.data, lo.ctypes.data, size.ctypes.data,
-        len(keys), fns.ctypes.data, len(vaggs), nb, cnt.data_ptr(), acc.data_ptr(),
-        _stream(dev))
+    cnt, acc, index = _grouped_select_launch(table, pred, keys, aggs, key_domains, nb)
+    return _grouped_epilogue(cnt, acc, keys, [table.cols[k].dtype for k in keys], aggs,
+                             max_groups, key_domains, nb, index)
+
+
+def _grouped_select_launch(table: rt.VecTable, pred: Optional[Expr], keys: Tuple[str, ...],
+                           aggs: Tuple[AggSpec, ...], key_domains: tuple, nb: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """grouped_select_agg up to its epilogue: the query's generated kernel
+    launched over ``table`` → (counts (nb,), values (distinct values, nb),
+    each value aggregate's row of the values)."""
+    dev = table.device
+    q = _query("grouped_select_agg", pred, aggs, keys, key_domains)
+    cols = _columns(table, q.names, "grouped_select_agg")
+    if nb != math.prod(hi - lo + 1 for lo, hi in key_domains):
+        raise ValueError(f"grouped_select_agg: {nb} buckets for key domains {key_domains}")
+    gen = _generated("grouped_select_agg", pred, q,
+                     tuple(exprcode.column_type(c.dtype) for c in cols), keys, key_domains)
+    stream = _stream(dev)
+    ticket, scratch = _gen_workspace(dev, stream, gen.scratch_bytes(table.capacity))
+    cnt, acc = _grouped_buffers(len(q.values), nb, dev)
+    ptrs = _pointers(cols)
+    err = gen.launch(ptrs.ctypes.data, table.valid.data_ptr(), table.capacity,
+                     scratch.data_ptr(), ticket.data_ptr(), cnt.data_ptr(), acc.data_ptr(),
+                     stream)
     _raise_on(err, "grouped_select_agg")
     LAUNCHES["grouped_select_agg"] += 1
-    return _grouped_epilogue(cnt, acc, keys, [table.cols[k].dtype for k in keys], aggs,
-                             max_groups, key_domains, nb)
+    GEN_LAUNCHES[gen.route] += 1
+    return cnt, acc, q.index
 
 
 def build_tables(right: rt.VecTable, right_on: Sequence[str], names: Sequence[str],

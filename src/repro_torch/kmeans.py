@@ -43,6 +43,30 @@ def make_data(n: int, d: int, k: int, seed: int):
     return x, x[rng.choice(n, k, replace=False)]
 
 
+def near_ties(k: int, pairs: int, spread: int, seed: int):
+    """Adversarial d = 1 data for the tensor-core kernel's TF32 split:
+    ``k`` centroids in [4, 8) whose 13 low mantissa bits lie within a few
+    units of half a TF32 unit (so TF32 rounding errs by nearly its most and
+    the rest is as large as it gets), and, for ``pairs`` pairs of them that
+    share bit 13 (so their midpoint's low bits lie near half a unit too),
+    the ``2·spread + 1`` consecutive f32 values around the midpoint: points
+    whose two nearest scores differ by a few f32 units.  Returns (x
+    (pairs·(2·spread + 1), 1), c (k, 1)), f32."""
+    rng = np.random.default_rng(seed)
+    bits = rng.uniform(4.0, 8.0, k).astype(np.float32).view(np.int32)
+    bits = (bits & ~0x1FFF) | (0x1000 + rng.integers(-3, 4, k)).astype(np.int32)
+    c = bits.view(np.float32)
+    side = (bits >> 13) & 1
+    a = rng.integers(0, k, 4 * pairs)
+    b = rng.integers(0, k, 4 * pairs)
+    keep = (side[a] == side[b]) & (a != b)
+    a, b = a[keep][:pairs], b[keep][:pairs]
+    mid = ((c[a].astype(np.float64) + c[b]) / 2).astype(np.float32)
+    steps = np.arange(-spread, spread + 1, dtype=np.int32)
+    x = (mid.view(np.int32)[:, None] + steps[None, :]).view(np.float32)
+    return x.reshape(-1, 1), c.reshape(-1, 1)
+
+
 def program(n: int, d: int, k: int, parallel: int = 0):
     """The k-means step over X (n, d) and C (k, d); ``parallel`` > 0 adds
     ``FuseKMeansStep`` and ``Parallelize`` over X into that many chunks."""

@@ -8,8 +8,8 @@ machine with a card:
 
 Integers exact; floats within rtol 1e-4, because the kernels add float
 sums with atomics, in an order that changes from run to run (the
-tensor-core kmeans_step adds in a fixed order: two runs agree bit for
-bit).  k-means
+tensor-core kmeans_step, fused_select_agg and grouped_select_agg's
+register route add in a fixed order: two runs agree bit for bit).  k-means
 steps go by the tie-margin rule of ``repro_torch.kmeans`` at rtol 1e-4:
 counts add up to n and sums to Σx whatever the ties, and each count and
 sum may move by what the points within a few f32 roundings of a tie carry.
@@ -80,6 +80,62 @@ def test_grouped_select_agg_on_card(card, keys, doms):
     nb = int(np.prod([hi - lo + 1 for lo, hi in doms]))
     args = (t, col("a") > -20, keys, AGGS, min(nb, 4096), doms, nb)
     _same(ops.grouped_select_agg(*args), ref.grouped_select_agg(*args))
+
+
+def _routed(fn, *args):
+    """fn(*args) and the generated kernel route its one launch took."""
+    before = dict(ops.GEN_LAUNCHES)
+    out = fn(*args)
+    took = [r for r in ops.GEN_LAUNCHES if ops.GEN_LAUNCHES[r] != before[r]]
+    assert len(took) == 1 and ops.GEN_LAUNCHES[took[0]] == before[took[0]] + 1
+    return out, took[0]
+
+
+# AGGS has three values: 1 + 3 accumulators per bucket, so the reg route
+# (64 registers) ends at 16 buckets and the smem route (48 KB) at 3072
+@pytest.mark.parametrize("nb,route", [(16, "gsa_reg"), (17, "gsa_smem"),
+                                      (3072, "gsa_smem"), (3073, "gsa_global")])
+def test_grouped_select_agg_routes_at_their_borders_on_card(card, nb, route):
+    t = _table(card)
+    args = (t, col("a") > -20, ("fk",), AGGS, nb, ((-3, nb - 4),), nb)
+    got, took = _routed(ops.grouped_select_agg, *args)
+    assert took == route
+    torch.cuda.synchronize()
+    _same(got, ref.grouped_select_agg(*args))
+
+
+def _deep_pred(depth=24):
+    """Or-ed comparisons nested deeper than the interpreter's stack of 16."""
+    e = col("x") > 1.9
+    for k in range(depth):
+        e = (col("k").eq(k % 7) & (col("a") < k - 12)) | e
+    return e
+
+
+def test_deep_predicate_through_both_generated_kernels_on_card(card):
+    t = _table(card)
+    pred = _deep_pred()
+    _same(ops.fused_select_agg(t, pred, AGGS), ref.fused_select_agg(t, pred, AGGS))
+    args = (t, pred, ("k",), AGGS, 7, ((0, 6),), 7)
+    got, took = _routed(ops.grouped_select_agg, *args)
+    assert took == "gsa_reg"
+    _same(got, ref.grouped_select_agg(*args))
+
+
+def test_generated_kernels_give_the_same_bits_twice_on_card(card):
+    t = _table(card, n=2_000_003)
+    pred = col("a") > -30
+    first, took = _routed(ops.fused_select_agg, t, pred, AGGS)
+    second, _ = _routed(ops.fused_select_agg, t, pred, AGGS)
+    assert took == "fsa_gen"
+    assert all(torch.equal(first[k], second[k]) for k in first)
+    args = (t, pred, ("k",), AGGS, 7, ((0, 6),), 7)
+    (g1, took), (g2, _) = _routed(ops.grouped_select_agg, *args), _routed(
+        ops.grouped_select_agg, *args)
+    assert took == "gsa_reg"
+    assert torch.equal(g1.valid, g2.valid)
+    assert all(torch.equal(g1.cols[k], g2.cols[k]) for k in g1.cols)
+    _same(g1, ref.grouped_select_agg(*args))
 
 
 @pytest.mark.parametrize("keys,doms", [
@@ -235,18 +291,27 @@ def test_kmeans_step_tensor_cores_are_deterministic_on_card(card):
 @pytest.mark.parametrize("n,d,k,offset", [
     (1 << 20, 8, 16, 0.0), (1 << 20, 8, 16, 1000.0), (100_003, 3, 7, 0.0),
     (200_001, 16, 32, 0.0), (150_000, 32, 16, 0.0), (99_999, 8, 64, 0.0),
+    # d = 1, where the split's worst case fills the tie margin: centroids'
+    # and points' low bits near half a TF32 unit, points at midpoints
+    (256 * 49, 1, 16, "near ties"),
 ])
 def test_kmeans_step_matches_its_recipe_on_card(card, n, d, k, offset):
     """The tensor-core kernel against ref.kmeans_step_tiled on the same
-    inputs on the card: sums within rtol 1e-4, labels by the tie-margin
-    rule (a TF32 product may round another way than torch's)."""
-    x, c = kmeans.make_data(n, d, k, 1)
-    x, c = x + np.float32(offset), c + np.float32(offset)
+    inputs on the card, and both against the f64 step: sums within rtol
+    1e-4, labels by the tie-margin rule (a TF32 product may round another
+    way than torch's)."""
+    if offset == "near ties":
+        x, c = kmeans.near_ties(k, 256, 24, 0)
+    else:
+        x, c = kmeans.make_data(n, d, k, 1)
+        x, c = x + np.float32(offset), c + np.float32(offset)
     xt, ct = tensors_from_arrays(x, c, device=card)
     got, took = _routed_step(xt, ct)
     assert took == "kms_tc"
     want = ref.kmeans_step_tiled(xt, ct, ops.kmeans_step_tiling(n, d, k, xt.device))
-    kmeans.check_step("kms_tc vs recipe", got, want, kmeans.reference_step(x, c), 1e-4)
+    stats = kmeans.reference_step(x, c)
+    kmeans.check_step("kms_tc vs recipe", got, want, stats, 1e-4)
+    kmeans.check_step("kms_tc vs f64", got, (stats.sums, stats.counts), stats, 1e-4)
 
 
 def test_kmeans_step_duplicate_and_far_centroids_on_card(card):

@@ -147,15 +147,19 @@ def test_opcodes_match_the_cuda_header():
 
 def test_wrapper_limits_match_the_cuda_header():
     """The wrappers check the column and key limits, and encode the
-    aggregate functions, as the kernels are built with; the launch
-    geometry is the kernels' own (the fused kernel exports its blocks per
-    SM, which the wrapper reads to size the partials)."""
-    from repro_torch.kernels import ops
+    aggregate functions, as the interpreting kernel is built with; the
+    generated kernels' launch geometry is their own (each template
+    exports its scratch size, which the wrapper reads to size the
+    partials), and the generated code encodes the aggregates as the
+    interpreter does."""
+    from repro_torch.kernels import codegen, ops
 
     csrc = Path(exprcode.__file__).parent / "csrc"
     header = (csrc / "exprvm.cuh").read_text()
     assert "#define VM_MAX_COLS 32" in header and "#define VM_MAX_KEYS 8" in header
-    assert 'extern "C" const int fsa_blocks_per_sm' in (csrc / "fused_select_agg.cu").read_text()
-    assert '"fsa_blocks_per_sm"' in Path(ops.__file__).read_text()
+    for family, prefix in (("fused_select_agg", "fsa"), ("grouped_select_agg", "gsa")):
+        helper = f"{prefix}_gen_scratch_bytes"
+        assert f'extern "C" long long {helper}' in (csrc / f"{family}.cu").read_text()
+        assert f".{helper}" in Path(ops.__file__).read_text()
     fns = dict(re.findall(r"ACC_(\w+) = (\d+)", header))
-    assert {k.lower(): int(v) for k, v in fns.items()} == ops._FN
+    assert {k.lower(): int(v) for k, v in fns.items()} == ops._FN == codegen._FN

@@ -223,14 +223,21 @@ def test_wrappers_reject_other_devices():
                              aggs=(), max_groups=1, key_domains=(), num_buckets=1)
 
 
+#: every entry point: the kernels built once, and the fixed one of each
+#: family generated per query (defined by its template, csrc/<family>.cu)
+ENTRIES = {**build.ENTRY, **build.GEN_ENTRY}
+HELPERS = {**build.HELPERS, **build.GEN_HELPERS}
+
+
 def _c_params(kernel, fn=None):
     src = (build.CSRC / f"{kernel}.cu").read_text()
     if fn is None:
-        fn = build.ENTRY[kernel][0]
+        fn = ENTRIES[kernel][0]
         m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
-    else:  # a helper inside an extern "C" block
-        m = re.search(r"\n(?:int|long long) " + fn + r"\((.*?)\)\s*\{", src, re.S)
-    params = [p.strip() for p in m.group(1).split(",")]
+    else:  # a helper inside an extern "C" block, or declared extern "C" itself
+        m = re.search(r'\n(?:extern "C" )?(?:int|long long) ' + fn + r"\((.*?)\)\s*\{",
+                      src, re.S)
+    params = [p.strip() for p in m.group(1).split(",") if p.strip() not in ("", "void")]
     kinds = []
     for p in params:
         if "*" in p:
@@ -245,26 +252,26 @@ def _c_params(kernel, fn=None):
     return kinds
 
 
-@pytest.mark.parametrize("kernel", build.KERNELS)
+@pytest.mark.parametrize("kernel", build.KERNELS + tuple(build.GEN_ENTRY))
 def test_ctypes_bindings_match_c_signatures(kernel):
-    assert _c_params(kernel) == build.ENTRY[kernel][1]
+    assert _c_params(kernel) == ENTRIES[kernel][1]
 
 
-@pytest.mark.parametrize("kernel,helper", [(k, h) for k, hs in build.HELPERS.items() for h in hs])
+@pytest.mark.parametrize("kernel,helper", [(k, h) for k, hs in HELPERS.items() for h in hs])
 def test_ctypes_helpers_match_c_signatures(kernel, helper):
-    args, result = build.HELPERS[kernel][helper]
+    args, result = HELPERS[kernel][helper]
     src = (build.CSRC / f"{kernel}.cu").read_text()
-    assert re.search(r"\n" + {build._I: "int", build._L: "long long"}[result] + " " + helper
-                     + r"\(", src), f"{helper} returns another type"
+    assert re.search(r'\n(?:extern "C" )?' + {build._I: "int", build._L: "long long"}[result]
+                     + " " + helper + r"\(", src), f"{helper} returns another type"
     assert _c_params(kernel, helper) == args
 
 
 def test_library_path_tracks_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
-    p = build.library_path("fused_select_agg")
-    assert p.parent == tmp_path and p.name.startswith("fused_select_agg-")
-    assert p == build.library_path("fused_select_agg")
-    assert p != build.library_path("grouped_select_agg")
+    p = build.library_path("grouped_join_agg")
+    assert p.parent == tmp_path and p.name.startswith("grouped_join_agg-")
+    assert p == build.library_path("grouped_join_agg")
+    assert p != build.library_path("segsum")
 
 
 def test_library_path_tracks_local_headers(tmp_path, monkeypatch):

@@ -115,6 +115,22 @@ def test_recipe_on_near_ties():
     assert stats.n_amb > 0  # the case does make ambiguous points
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_recipe_on_adversarial_near_ties_at_d1(seed):
+    """d = 1, where the split's worst case fills the tie margin (the source
+    note of ``csrc/kmeans_step.cu``): centroids whose low bits sit near half
+    a TF32 unit, points within 24 f32 units of their midpoints, with low
+    bits near half a unit as well.  Every label the recipe gives stays
+    inside the rule, against the Pallas kernel and the f64 step."""
+    x, c = kmeans.near_ties(16, 256, 24, seed)
+    assert (np.abs((x.view(np.int32) & 0x1FFF) - 0x1000) <= 32).all()
+    got, stats = _check_both(f"d=1 near ties, seed {seed}", x, c)
+    assert stats.n_amb > 0.05 * len(x)  # most points near a midpoint are ambiguous
+    labels = ref.kmeans_labels_tiled(torch.from_numpy(x), torch.from_numpy(c))
+    assert not torch.equal(labels, torch.argmin(ref.cdist2(torch.from_numpy(x),
+                                                           torch.from_numpy(c)), 1))
+
+
 def test_recipe_on_duplicate_and_far_centroids():
     x, c = kmeans.make_data(4099, 8, 6, 3)
     c[4] = c[2]      # an exact copy: its points go to index 2, index 4 counts 0
