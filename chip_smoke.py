@@ -7,33 +7,38 @@ through ``repro_torch`` on one GPU.
 Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
-   kernels built once (``fused_select_agg`` and ``grouped_select_agg`` are
-   generated per query and built at their first call; their builds, reuses
-   and nvcc seconds are printed after the edge cases, the TPC-H path and at
-   the end);
+   kernels built once (``fused_select_agg``, ``grouped_select_agg`` and
+   ``grouped_join_agg`` are generated per query and built at their first
+   call; their builds, reuses and nvcc seconds are printed after the edge
+   cases, the TPC-H path and at the end);
 2. each CUDA kernel against its plain PyTorch version on edge cases
    (empty selection, ragged capacity, out-of-domain and duplicate join
    keys, more buckets than shared memory holds, ``grouped_select_agg`` at
-   the borders of its routes (reg, smem, global) printing the route each
-   took, a predicate deeper than the interpreter's stack through both
-   generated kernels, and the generated kernels run twice for the same
-   bits; for k-means ragged n, a d = 1 case at adversarial near-ties,
+   the borders of its routes (reg, smem, global) and ``grouped_join_agg``
+   on each, printing the route each took, a predicate deeper than the old
+   interpreter's stack through both select kernels, and the generated
+   kernels' fixed-order routes run twice for the same bits; for k-means
+   ragged n, a d = 1 case at adversarial near-ties,
    n = 0, fewer points than a tile, k = 1, d = 3, the top of the
    tensor-core route's range and just past it, chunk views that start
    inside a 16-byte granule, duplicate and far centroids, centroid tables
    past 48 KB and past the opt-in shared memory, each printing the route it
-   took; for segsum ids at K−1 and out of range, empty segments,
-   accumulators past 48 KB and past the opt-in shared memory);
+   took; for segsum ids at K−1 and out of range, empty segments, d = 1 and
+   d = 3 views that start mid-granule, accumulators past 48 KB and past the
+   opt-in shared memory, each printing its route);
 3. the TPC-H path: TPC-H at ``--sf`` (seed 0), the six queries through
    ``Frame.collect(device="cuda")``, each held against the numpy
    reference, with the kernels' launch counts and the generated kernels'
-   routes read around that one run (Q1 on ``gsa_reg``, Q4 on an atomic
-   route); the path's ``fused_select_agg`` and ``grouped_select_agg``
-   calls on the reg route run twice more, for the same bits; one pass
-   under ``torch.profiler``, which must show the generated kernels and no
-   interpreter kernel of theirs (``fsa_main``, ``fsa_finalize``,
-   ``gsa_main``); the ``grouped_select_agg`` wrapper's time of Q1 and Q4
-   split into the generated launch, ``decode_bucket_keys`` and ``compact``;
+   routes read around that one run (Q1 on ``gsa_reg``, Q4's inner count
+   on an atomic route, Q4's and Q12's join on ``gja_reg``); the path's
+   calls on a fixed-order route run twice more, for the same bits; one
+   pass under ``torch.profiler``, which must show the generated kernels
+   (the join's build and probe among them) and no kernel of the old
+   expression interpreter (``fsa_main``, ``fsa_finalize``, ``gsa_main``
+   and the join's: every relational kernel a generated one); the ``grouped_select_agg`` wrapper's time of Q1 and Q4
+   split into the generated launch, ``decode_bucket_keys`` and ``compact``,
+   and the ``grouped_join_agg`` wrapper's of Q4 and Q12 into the build
+   launch, the probe launch and the epilogue;
 4. the k-means path: 2^24 points, d = 8, k = 16 (seed 0, made as
    ``examples/kmeans.py`` makes them), the program built with ``Builder``,
    then ``FuseKMeansStep`` and ``Parallelize(8)``, run on
@@ -44,7 +49,9 @@ Phases, each printing its own lines:
    the fused one; one path call under ``torch.profiler``, which must show
    ``kms_tc`` and not ``kms_main``, then run twice more: the same bits;
 5. ``segsum`` on the unfused program's ``la.SegSum`` inputs (the JAX
-   package's emitters never call its segsum kernel either), counted alone;
+   package's emitters never call its segsum kernel either), counted alone,
+   printing its route (``seg_tc``, checked, and under ``torch.profiler``
+   ``seg_tc`` and not ``seg_main``), then run twice more: the same bits;
 6. the TPC-H path with ``parallel=4``: the six queries again, split into
    four chunks, against the references; Q1 and Q6 launch their kernel
    once per chunk; the route of every ``grouped_select_agg`` call; each
@@ -175,7 +182,7 @@ SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 #: the kernels generated per query: their sources above are templates that
 #: follow the query's row functions, which this module writes
 GENERATED_BY = {k: "src/repro_torch/kernels/codegen.py"
-                for k in ("fused_select_agg", "grouped_select_agg")}
+                for k in ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")}
 #: which queries' plans launch which kernel
 EXPECTED = {
     "fused_select_agg": ("q6", "q14", "q19"),
@@ -466,8 +473,8 @@ def phase_build() -> None:
     for name in build.KERNELS:
         build.library(name)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source; "
-        f"{', '.join(build.KERNELS)}; fused_select_agg and grouped_select_agg are generated "
-        "per query at their first call)")
+        f"{', '.join(build.KERNELS)}; fused_select_agg, grouped_select_agg and "
+        "grouped_join_agg are generated per query at their first call)")
     for name, p in paths.items():
         entry = "?"
         for ln in p.with_suffix(".log").read_text().splitlines():
@@ -616,8 +623,9 @@ def phase_edges() -> None:
         rng.random(m) < 0.9, "cuda")
     jaggs = (AggSpec("count", const(1), "c"), AggSpec("sum", col("w") * col("x"), "s"),
              AggSpec("max", col("w"), "mx"), AggSpec("min", col("a"), "mn"))
-    # the last grouping has 400,000 buckets, past the 48 KB of shared
-    # accumulators, so rows add into the global accumulators
+    # with three values, 7 groups take the reg route, 21 the smem one, and
+    # 400,000 (past the 48 KB of shared accumulators) the global one
+    join_routes = {}
     for label, pred in (("mixed", preds["mixed"]), ("none", None), ("empty", preds["empty"])):
         for keys, doms in ((("k",), ((0, 6),)), (("g", "k"), ((0, 2), (0, 6))),
                            (("fk", "a"), ((0, 99), (-2000, 1999)))):
@@ -627,12 +635,21 @@ def phase_edges() -> None:
             kw = dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 29),),
                       join_num_buckets=30, keys=keys, aggs=jaggs, max_groups=nb,
                       key_domains=doms, num_buckets=nb, pred=pred)
-            compare_outputs(f"grouped_join_agg[{label},{'+'.join(keys)}]",
-                            ops.grouped_join_agg(t, right, **kw),
+            got, took = routed(ops.grouped_join_agg, t, right, **kw)
+            compare_outputs(f"grouped_join_agg[{label},{'+'.join(keys)}]", got,
                             ref.grouped_join_agg(t, right, **kw))
+            join_routes[f"{label}, nb={nb}"] = took
             checked += 1
+            if label == "mixed" and took == ["gja_reg"]:
+                same_bits(f"grouped_join_agg[{label}, reg]", got,
+                          ops.grouped_join_agg(t, right, **kw))
+    want = {"gja_reg", "gja_smem", "gja_global"}
+    if {r for took in join_routes.values() for r in took} != want:
+        raise AssertionError(f"grouped_join_agg's edge cases took {join_routes}, not all of {want}")
+    log(f"edge cases, grouped_join_agg routes: {json.dumps(join_routes)}")
     log(f"edge cases: {checked} kernel calls match their plain versions; fused_select_agg "
-        "and grouped_select_agg's reg route give the same bits twice")
+        "and the reg routes of grouped_select_agg and grouped_join_agg give the same bits "
+        "twice")
     report_generated("after the edge cases")
 
 
@@ -701,19 +718,33 @@ def phase_edges_la(pool) -> None:
         raise AssertionError("kmeans_step: no points must give zero sums and counts")
     log(f"kmeans_step edge cases' routes: {json.dumps(routes)}")
     rng = np.random.default_rng(8)
-    seg_cases = {"ragged n": (1003, 8, 16), "d=1": (777, 1, 3),
-                 "K*d past 48 KB": (5000, 64, 256), "K*d past opt-in": (3000, 64, 1024)}
-    for label, (n, d, k) in seg_cases.items():
+    # label: (n, d, K, (rows, floats) before the view's start)
+    seg_cases = {"ragged n": (1003, 8, 16, (0, 0)), "d=1": (777, 1, 3, (0, 0)),
+                 "d=1 view 4 bytes into a 16-byte granule": (777, 1, 3, (0, 1)),
+                 "d=3 view from row 5 (60 bytes in)": (3001, 3, 7, (5, 0)),
+                 "K=64 d=8 (top of the tensor-core range)": (4099, 8, 64, (0, 0)),
+                 "K=65 d=8 (past the tensor-core range)": (3000, 8, 65, (0, 0)),
+                 "K*d past 48 KB": (5000, 64, 256, (0, 0)),
+                 "K*d past opt-in": (3000, 64, 1024, (0, 0))}
+    seg_routes = {}
+    for label, (n, d, k, (rows, floats)) in seg_cases.items():
         data = rng.normal(size=(n, d)).astype(np.float32)
         ids = rng.integers(-2, k + 2, n).astype(np.int32)  # some out of range
         ids[:5] = k - 1
         ids[ids == 1] = 0  # segment 1 stays empty
-        dt, it = tensors_from_arrays(data, ids, device="cuda")
+        flat = np.zeros((rows + n + 1) * d + floats, np.float32)
+        at = rows * d + floats
+        flat[at:at + n * d] = data.ravel()
+        dt = torch.from_numpy(flat).to("cuda")[at:at + n * d].view(n, d)
+        it = torch.from_numpy(ids).to("cuda")
+        before = dict(ops.SEGSUM_LAUNCHES)
         got = ops.segsum(dt, it, k)
+        seg_routes[label] = [r for r in before if ops.SEGSUM_LAUNCHES[r] != before[r]][0]
         check_segsum(f"segsum[{label}]", got, dt, it, k)
         if not bool((got[1] == 0).all()):
             raise AssertionError("segsum: an empty segment is not zero")
     torch.cuda.synchronize()
+    log(f"segsum edge cases' routes: {json.dumps(seg_routes)}")
     log(f"edge cases: {len(cases) + 1} kmeans_step and {len(seg_cases)} segsum calls match "
         "their plain versions")
 
@@ -763,56 +794,78 @@ def phase_main_path(sf: float):
     same_bits_on_path(captured)
     phase_tpch_route(frames)
     gsa_split(captured)
+    gja_split(captured)
     return tables, ctx, frames, launches, captured
 
 
 def check_routes(what: str, launches, gen_launches, routes) -> None:
-    """Every fused_select_agg and grouped_select_agg call of a TPC-H run
-    launched a generated kernel; Q1 took the reg route and Q4 an atomic
-    one.  Prints each query's routes."""
+    """Every relational kernel call of a TPC-H run launched a generated
+    kernel; Q1 took grouped_select_agg's reg route and Q4 an atomic one,
+    and Q4's and Q12's joins took grouped_join_agg's reg route.  Prints
+    each query's routes."""
     gsa = sum(gen_launches[r] for r in ("gsa_reg", "gsa_smem", "gsa_global"))
+    gja = sum(gen_launches[r] for r in ("gja_reg", "gja_smem", "gja_global"))
     if gen_launches["fsa_gen"] != launches["fused_select_agg"] or gsa != launches[
-            "grouped_select_agg"]:
+            "grouped_select_agg"] or gja != launches["grouped_join_agg"]:
         raise AssertionError(f"{what}: generated routes {gen_launches} for launches {launches}")
-    if "gsa_reg" not in routes["q1"] or any(r not in ("gsa_global", "gsa_smem")
-                                            for r in routes["q4"]):
-        raise AssertionError(f"{what}: Q1 took {routes['q1']}, Q4 {routes['q4']}")
+    joins = [r for q in ("q4", "q12") for r in routes[q] if r.startswith("gja")]
+    if "gsa_reg" not in routes["q1"] or any(
+            r not in ("gsa_global", "gsa_smem") for r in routes["q4"] if r.startswith("gsa")
+    ) or not joins or any(r != "gja_reg" for r in joins):
+        raise AssertionError(f"{what}: Q1 took {routes['q1']}, Q4 {routes['q4']}, "
+                             f"Q12 {routes['q12']}")
     log(f"{what}, generated kernel routes per query: {json.dumps(routes)}; in all "
         f"{json.dumps(gen_launches)}")
 
 
 def same_bits_on_path(captured) -> None:
-    """The path's fused_select_agg calls and grouped_select_agg calls on the
-    reg route, run twice more: the same bits (replays, not counted)."""
+    """The path's fused_select_agg calls and its grouped_select_agg and
+    grouped_join_agg calls on the reg route, run twice more: the same bits
+    (replays, not counted)."""
     from repro_torch.kernels import ops
 
     n = 0
     for name, args, kw in captured:
-        if name not in ("fused_select_agg", "grouped_select_agg"):
-            continue
         first, took = routed(getattr(ops, name), *args, **kw)
-        if took[0] not in ("fsa_gen", "gsa_reg"):
+        if took[0] not in ("fsa_gen", "gsa_reg", "gja_reg"):
             continue
         same_bits(f"{name} on the path", first, getattr(ops, name)(*args, **kw))
         n += 1
-    log(f"TPC-H path: its {n} fused_select_agg and reg-route grouped_select_agg calls give the "
-        "same bits when run again")
+    log(f"TPC-H path: its {n} fused_select_agg and reg-route grouped_select_agg and "
+        "grouped_join_agg calls give the same bits when run again")
+
+
+#: the generated kernels a TPC-H pass must run (fragments of their names:
+#: fused_select_agg; grouped_select_agg's reg and atomic routes; the join's
+#: build and its probe on the reg route)
+TPCH_GENERATED = ("fsa_gen", "grp_reg<GsaRows>", "grp_atomic<GsaRows", "gja_gen_fill",
+                  "gja_gen_build", "grp_reg<GjaRows>")
+#: the prefixes of the relational kernels' names, the old expression
+#: interpreter's among them (fsa_main, gsa_main, vm_init_accumulators, ...):
+#: a kernel of a TPC-H pass that bears one must be a generated one
+RELATIONAL_PREFIXES = ("fsa_", "gsa_", "gja_", "vm_")
+
+
+def _kernel_name(event_key: str) -> str:
+    """A profiler kernel's function name: its key without the return type
+    and the arguments (``void grp_reg<GjaRows>(...)`` → ``grp_reg<GjaRows>``)."""
+    return event_key.split("(")[0].split()[-1]
 
 
 def phase_tpch_route(frames) -> None:
     """One pass over the six queries under torch.profiler (after a warm-up
-    window): the generated kernels ran, and no kernel of the interpreter
-    that fused_select_agg and grouped_select_agg used to run."""
+    window): the generated kernels ran, and no kernel of the expression
+    interpreter that the relational kernels used to run."""
     names = device_kernels(lambda: [f.collect(device="cuda") for f in frames.values()], reps=1)
     ours = [n for n in names if any(k in n for k in OUR_KERNELS)]
-    missing = [k for k in ("fsa_gen", "gsa_gen_reg", "gsa_gen_atomic")
-               if not any(k in n for n in names)]
-    stale = [n for n in names if any(k in n for k in ("fsa_main", "fsa_finalize", "gsa_main"))]
+    missing = [k for k in TPCH_GENERATED if not any(k in n for n in names)]
+    stale = [n for n in names if _kernel_name(n).startswith(RELATIONAL_PREFIXES)
+             and not any(k in n for k in TPCH_GENERATED)]
     if missing or stale:
         raise AssertionError(f"profiled TPC-H pass: missing {missing}, interpreter kernels "
                              f"{stale}; ran {ours}")
-    log(f"profiled TPC-H pass: this package's kernels {json.dumps(ours)} (no fsa_main, "
-        "fsa_finalize or gsa_main)")
+    log(f"profiled TPC-H pass: this package's kernels {json.dumps(ours)} (every "
+        f"{', '.join(RELATIONAL_PREFIXES)} kernel a generated one: none of the interpreter's)")
 
 
 @contextlib.contextmanager
@@ -866,6 +919,43 @@ def gsa_split(captured) -> None:
             "decode_bucket_keys_ms"] - row["compact_ms"]
         rows.append(row)
     log("grouped_select_agg wrapper split (Q1, Q4): " + json.dumps(rows))
+
+
+def gja_split(captured) -> None:
+    """The grouped_join_agg wrapper's time on Q4's and Q12's path calls
+    (CUDA events, mean of 10), beside its parts alone on the same inputs:
+    the build launch and the probe launch (each a generated kernel's ctypes
+    call and its kernels), the epilogue's decode_bucket_keys and compact;
+    the rest is the checks, the query's lookup and the epilogue's sentinel
+    mapping.  Measured only."""
+    from repro_torch.kernels import ops
+    from repro_torch.relational import runtime as rt
+
+    rows = []
+    for name, args, kw in captured:
+        if name != "grouped_join_agg":
+            continue
+        left, right = args
+        with _epilogue_inputs() as seen:
+            ops.grouped_join_agg(*args, **kw)
+        (da, dkw), (ca, ckw) = seen["decode"], seen["compact"]
+        call = ops._join_call(left, right, kw["pred"], tuple(kw["left_on"]),
+                              tuple(kw["right_on"]),
+                              tuple((int(lo), int(hi)) for lo, hi in kw["join_key_domains"]),
+                              int(kw["join_num_buckets"]), tuple(kw["keys"]), tuple(kw["aggs"]),
+                              tuple((int(lo), int(hi)) for lo, hi in kw["key_domains"]),
+                              int(kw["num_buckets"]))
+        row = {"rows": left.capacity, "build_rows": right.capacity,
+               "join_buckets": kw["join_num_buckets"], "buckets": kw["num_buckets"],
+               "wrapper_ms": cuda_ms(lambda: ops.grouped_join_agg(*args, **kw)),
+               "build_ms": cuda_ms(lambda: ops._join_build(call)),
+               "probe_ms": cuda_ms(lambda: ops._join_probe(call)),
+               "decode_bucket_keys_ms": cuda_ms(lambda: rt.decode_bucket_keys(*da, **dkw)),
+               "compact_ms": cuda_ms(lambda: rt.compact(*ca, **ckw))}
+        row["rest_ms"] = row["wrapper_ms"] - row["build_ms"] - row["probe_ms"] - row[
+            "decode_bucket_keys_ms"] - row["compact_ms"]
+        rows.append(row)
+    log("grouped_join_agg wrapper split (Q4, Q12): " + json.dumps(rows))
 
 
 def phase_kmeans(pool):
@@ -972,7 +1062,10 @@ def phase_kmeans_route(calls) -> None:
 
 
 def phase_segsum(seg_inputs):
-    """segsum on the unfused program's la.SegSum inputs, counted alone."""
+    """segsum on the unfused program's la.SegSum inputs, counted alone:
+    every call on the tensor-core route (``seg_tc``); one of them under
+    torch.profiler, which must show seg_tc and not seg_main, then run twice
+    more: the same bits."""
     import torch
 
     from repro_torch.kernels import ops
@@ -980,13 +1073,22 @@ def phase_segsum(seg_inputs):
     ops.reset_launches()
     outs = [ops.segsum(*a) for a in seg_inputs]
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches, routes = dict(ops.LAUNCHES), dict(ops.SEGSUM_LAUNCHES)
     if launches["segsum"] != len(seg_inputs):
         raise AssertionError(f"segsum launched {launches['segsum']} times")
+    if routes != {"seg_tc": len(seg_inputs), "seg_main": 0}:
+        raise AssertionError(f"the SegSum calls took {routes}, not all the tensor-core route")
     for i, (out, a) in enumerate(zip(outs, seg_inputs)):
         check_segsum(f"segsum#{i}", out, *a)
     log(f"segsum on the SegSum inputs of the unfused k-means program: matches its plain "
-        f"version; launches {launches}")
+        f"version; launches {launches}; routes {json.dumps(routes)}")
+    names = device_kernels(lambda: ops.segsum(*seg_inputs[0]))
+    if not any("seg_tc" in n for n in names) or any("seg_main" in n for n in names):
+        raise AssertionError(f"a SegSum segsum call ran {names}, not seg_tc")
+    log(f"SegSum segsum call (data {tuple(seg_inputs[0][0].shape)}) ran on the card as: {names}")
+    if not torch.equal(ops.segsum(*seg_inputs[0]), ops.segsum(*seg_inputs[0])):
+        raise AssertionError("two runs of a SegSum segsum call differ")
+    log("SegSum segsum call run twice: sums bit-identical")
     return launches, [("segsum", a, {}) for a in seg_inputs]
 
 
@@ -1339,6 +1441,7 @@ def phase_kernels(captured, launches, pool):
             extra = {"read_floor_ms": cuda_ms(lambda: torch.sum(args[0]))}
         elif name == "segsum":
             err = check_segsum(f"segsum#{i}", got, *args)
+            took = [ops.segsum_route(args[0].shape[1], args[2])]
         elif name == "flash_attention":
             err, share = check_attention(f"flash_attention#{i}", got, want, args[2])
             extra = {"bound_share": share}
@@ -1486,8 +1589,8 @@ def report_serve(report) -> None:
 
 
 #: name fragments of this package's CUDA kernels in a profiler trace
-OUR_KERNELS = ("fsa_gen", "gsa_gen_reg", "gsa_gen_atomic", "gsa_gen_init", "gja_main",
-               "vm_init_accumulators", "kms_main", "kms_tc", "seg_main", "fa_main", "fa_wgmma")
+OUR_KERNELS = ("fsa_gen", "grp_reg", "grp_atomic", "grp_init", "gja_gen_fill", "gja_gen_build",
+               "kms_main", "kms_tc", "seg_main", "seg_tc", "fa_main", "fa_wgmma")
 #: flash_attention's kernels: bf16 on the tensor cores, f32 on the CUDA cores
 FA_TENSOR_CORE, FA_CUDA_CORE = "fa_wgmma", "fa_main"
 #: kmeans_step's kernels: the path's shape on the tensor cores, others on the CUDA cores

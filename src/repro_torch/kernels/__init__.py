@@ -3,8 +3,10 @@
 * ``csrc/*.cu``  — the kernels, one shared library per source;
 * ``build``      — builds them with ``nvcc`` at first use and loads them
   with ``ctypes``;
-* ``exprcode``   — lowers an ``Expr`` to the typed postfix program the
-  kernels interpret;
+* ``exprcode``   — lowers an ``Expr`` to a typed postfix program, and
+  interprets it on numpy columns (the CPU oracle);
+* ``codegen``    — writes a query's program as straight-line CUDA C++, the
+  row functions of the relational kernels generated per query;
 * ``ops``        — the wrappers: a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel; each keeps a launch count;
 * ``ref``        — the plain PyTorch version of each kernel.

@@ -10,8 +10,9 @@ are compiled at once, one ``nvcc`` each, in parallel.  They are loaded with
 ``ctypes``: pointers and the stream go over as ``c_void_p``, and every
 entry point returns ``cudaGetLastError()``.
 
-``fused_select_agg`` and ``grouped_select_agg`` are generated per query
-(``codegen``): ``build_generated`` compiles the text of one query's kernel
+``fused_select_agg``, ``grouped_select_agg`` and ``grouped_join_agg`` are
+generated per query (``codegen``): ``build_generated`` compiles the text of
+one query's kernel
 (its row functions, then the template ``csrc/<family>.cu``) at its first
 use into ``gen/<family>-<hash>.so`` under the same directory, named by a
 hash of the flags, the text and every header of ``csrc/`` it includes,
@@ -32,7 +33,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("grouped_join_agg", "kmeans_step", "segsum", "flash_attention")
+KERNELS = ("kmeans_step", "segsum", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,11 +41,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 #: C entry point and argument types of each library
 ENTRY = {
-    "grouped_join_agg": ("gja_launch", [
-        _P, _I, _I, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-        _P, _I, _L, _P, _P, _P]),
     "kmeans_step": ("kms_launch", [_P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P]),
-    "segsum": ("seg_launch", [_P, _P, _L, _I, _I, _P, _P]),
+    "segsum": ("seg_launch", [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P]),
     "flash_attention": ("fa_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
@@ -52,6 +50,7 @@ ENTRY = {
 HELPERS = {
     "kmeans_step": {"kms_route": ([_I, _I], _I), "kms_tc_tile_points": ([_I], _I),
                     "kms_tc_grid": ([_L, _I, _I, _I], _I), "kms_scratch_bytes": ([_I, _I, _I], _L)},
+    "segsum": {"seg_route": ([_I, _I], _I), "seg_scratch_bytes": ([_I, _I, _I], _L)},
 }
 
 #: the generated kernels' fixed C entry point per family (the templates
@@ -59,10 +58,13 @@ HELPERS = {
 GEN_ENTRY = {
     "fused_select_agg": ("fsa_gen_launch", [_P, _P, _L, _P, _P, _P, _P, _P]),
     "grouped_select_agg": ("gsa_gen_launch", [_P, _P, _L, _P, _P, _P, _P, _P]),
+    "grouped_join_agg": ("gja_gen_launch", [_P, _P, _L, _L, _P, _P, _P, _P, _P]),
 }
 GEN_HELPERS = {
     "fused_select_agg": {"fsa_gen_scratch_bytes": ([_L], _L)},
     "grouped_select_agg": {"gsa_gen_scratch_bytes": ([_L], _L), "gsa_gen_route": ([], _I)},
+    "grouped_join_agg": {"gja_gen_scratch_bytes": ([_L], _L), "gja_gen_route": ([], _I),
+                         "gja_gen_build": ([_P, _P, _L, _P, _P], _I)},
 }
 
 #: generated libraries compiled and reused by this process, and the

@@ -1,17 +1,16 @@
 """Generate straight-line CUDA C++ for one query's expressions.
 
 The Pallas kernels of the JAX package close over the query's ``Expr`` and
-compile one kernel per query.  ``fused_select_agg`` and
-``grouped_select_agg`` do the same here: the typed postfix program that
-``exprcode.compile_program`` builds is run symbolically on a stack of C
-variable names, each instruction becoming one typed local (``int``,
-``float`` or a 0/1 ``uint32_t``), and the result is a predicate function,
-one function per aggregated value and, for the grouped kernel, the bucket
-id.  Constants become literals (f32 ones by their bit pattern), columns
-typed ``const T* __restrict__`` pointers at fixed slots, so a query whose
-constants or column types differ is a different kernel, as under
-``jax.jit``.  There is no stack limit: the stack exists only while the
-text is generated.
+compile one kernel per query.  The three relational kernels do the same
+here: the typed postfix program that ``exprcode.compile_program`` builds is
+run symbolically on a stack of C variable names, each instruction
+becoming one typed local (``int``, ``float`` or a 0/1 ``uint32_t``), and
+the result is a predicate function, one function per aggregated value and,
+for the grouped kernels, the bucket id.  Constants become literals (f32
+ones by their bit pattern), columns typed ``const T* __restrict__``
+pointers at fixed slots, so a query whose constants or column types differ
+is a different kernel, as under ``jax.jit``.  There is no stack limit: the
+stack exists only while the text is generated.
 
 The row functions are ``__host__ __device__`` code over the macros of
 ``csrc/rowfn.cuh``, which mean the device intrinsics under nvcc and plain
@@ -29,18 +28,26 @@ What the generated text defines (the templates rely on these names):
   ``gen_values``; ``gen_ident(k)``, ``gen_comb(k, a, b)`` and ``gen_fn(k)``
   (0 sum, 1 min, 2 max), each value's aggregate (±3e38 for an empty
   min/max);
-* for ``grouped_select_agg``, ``GEN_NB`` buckets and ``gen_bucket``: the
+* for the grouped kernels, ``GEN_NB`` buckets and ``gen_bucket``: the
   lexicographic rank of the key columns in their static domains, each key
-  clipped to its domain (f32 keys by their bits, bools as 0/1).
+  clipped to its domain (f32 keys by their bits, bools as 0/1);
+* for ``grouped_join_agg`` (a ``Join`` layout: probe columns, then build
+  columns, then the build side's key columns), ``GEN_NJB`` join buckets,
+  ``gen_jbucket(r, &ok)`` and ``gen_build_jbucket(c, j, &ok)``, the checked
+  join bucket of a probe row and of build row ``j`` (ranked as
+  ``gen_bucket`` ranks, but a key outside its domain clears ``ok``: the
+  row is dropped, where grouping clips), and ``gen_load_build(r, c, j)``,
+  which loads the build columns the values and keys read at build row
+  ``j``.  ``gen_load_rest`` then loads only probe columns.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from . import exprcode
 
-FAMILIES = ("fused_select_agg", "grouped_select_agg")
+FAMILIES = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 
 _PTR = {"i": "int", "f": "float", "b": "uint8_t"}
 _VAL = {"i": "int", "f": "float", "b": "uint32_t"}
@@ -61,6 +68,20 @@ _FN = {"sum": 0, "min": 1, "max": 2}
 Key = Tuple[int, int, int]  # (slot, lo, size) of one key column
 
 
+class Join(NamedTuple):
+    """The slots of ``grouped_join_agg``'s columns: ``[0, n_probe)`` probe
+    columns, loaded at the probe row; ``[n_probe, n_probe + n_build)``
+    build columns, loaded at the build row the join bucket names; the rest
+    the build side's key columns, which only ``gen_build_jbucket`` reads.
+    ``probe_keys`` and ``build_keys``: the (slot, lo, size) of each join
+    key column on either side, in the same domains."""
+
+    n_probe: int
+    n_build: int
+    probe_keys: Sequence[Key]
+    build_keys: Sequence[Key]
+
+
 def _int_literal(v: int) -> str:
     v = (v + (1 << 31)) % (1 << 32) - (1 << 31)  # the word as int32
     return "(-2147483647 - 1)" if v == -(1 << 31) else f"({v})"
@@ -68,7 +89,8 @@ def _int_literal(v: int) -> str:
 
 def _operand(entry: Tuple[str, str], want: str) -> str:
     """``entry`` (C expression, type; type ``c`` for a constant word) as a
-    value of type ``want`` (i, f or b), as the VM reads the same word."""
+    value of type ``want`` (i, f or b), as ``exprcode.interpret`` reads the
+    same word."""
     text, kind = entry
     if kind == "c":
         bits = int(text) & 0xFFFFFFFF
@@ -135,12 +157,36 @@ def _loads(code: Sequence[Tuple[str, int]]) -> List[int]:
     return sorted({arg for op, arg in code if op in _LOAD})
 
 
+def _rank(keys: Sequence[Key], types: Sequence[str], word, checked: bool) -> List[str]:
+    """Statements that rank the key columns into ``b``: ``word(slot)`` is
+    the C expression of a key's value; each key is clipped to its domain,
+    and with ``checked`` one outside it also clears ``*ok``."""
+    out = ["  long long b = 0, v;"]
+    for slot, lo, size in keys:
+        w = f"RF_FBITS({word(slot)})" if types[slot] == "f" else word(slot)
+        out.append(f"  v = static_cast<long long>({w}) - ({int(lo)}LL);")
+        if checked:
+            out.append(f"  if (v < 0 || v >= {int(size)}LL) *ok = 0u;")
+        out += [f"  v = v < 0 ? 0 : (v >= {int(size)}LL ? {int(size) - 1}LL : v);",
+                f"  b = b * {int(size)}LL + v;"]
+    return out + ["  return b;"]
+
+
+def _buckets(keys: Sequence[Key]) -> int:
+    nb = 1
+    for _, _, size in keys:
+        nb *= int(size)
+    return nb
+
+
 def row_source(prog: exprcode.ExprProgram, col_types: Sequence[str],
-               fns: Sequence[str] = (), keys: Optional[Sequence[Key]] = None) -> str:
+               fns: Sequence[str] = (), keys: Optional[Sequence[Key]] = None,
+               join: Optional[Join] = None) -> str:
     """The row functions of one query, as C++ over ``rowfn.cuh``:
-    ``prog`` over columns of the VM types ``col_types`` (slot order),
-    ``fns`` each value's aggregate (sum, min or max), ``keys`` the
-    (slot, lo, size) of each key column for the grouped kernel."""
+    ``prog`` over columns of the types ``col_types`` (i, f or b; slot
+    order), ``fns`` each value's aggregate (sum, min or max), ``keys`` the
+    (slot, lo, size) of each key column for the grouped kernels, ``join``
+    the slots of ``grouped_join_agg``'s two sides."""
     names = {v: k for k, v in exprcode.OPCODES.items()}
     code = [(names[int(op)], int(arg)) for op, arg in prog.code.tolist()]
     if len(fns) != prog.n_values:
@@ -148,6 +194,18 @@ def row_source(prog: exprcode.ExprProgram, col_types: Sequence[str],
     pred_code, value_code = code[:prog.n_pred], code[prog.n_pred:]
     pred_cols = _loads(pred_code)
     rest = set(_loads(value_code)) | {s for s, _, _ in keys or ()}
+    build_cols: List[int] = []
+    if join is not None:
+        n_side = join.n_probe + join.n_build
+        if any(s >= join.n_probe for s in pred_cols):
+            raise ValueError("the join's predicate may read probe columns only")
+        if any(s >= join.n_probe for s, _, _ in join.probe_keys) or any(
+                s < n_side for s, _, _ in join.build_keys):
+            raise ValueError("join keys outside their side's slots")
+        if any(s >= n_side for s in rest):
+            raise ValueError("values and group keys read the build side's key columns")
+        build_cols = sorted(s for s in rest if s >= join.n_probe)
+        rest = {s for s in rest if s < join.n_probe} | {s for s, _, _ in join.probe_keys}
     rest_cols = sorted(rest - set(pred_cols))
     types = list(col_types)
     nv = prog.n_values
@@ -161,7 +219,10 @@ def row_source(prog: exprcode.ExprProgram, col_types: Sequence[str],
     out += ["};", "", "RF_FN GenCols gen_cols(const void* const* p) {", "  GenCols c;"]
     out += [f"  c.c{j} = static_cast<const {_PTR[t]}*>(p[{j}]);" for j, t in enumerate(types)]
     out += ["  return c;", "}", ""]
-    for fn, cols in (("gen_load_pred", pred_cols), ("gen_load_rest", rest_cols)):
+    loads = [("gen_load_pred", pred_cols), ("gen_load_rest", rest_cols)]
+    if join is not None:
+        loads.append(("gen_load_build", build_cols))
+    for fn, cols in loads:
         out.append(f"RF_FN void {fn}(GenRow& r, const GenCols& c, long long i) {{")
         out += [f"  r.c{j} = RF_LDG(c.c{j} + i);" for j in cols]
         out += ["}", ""]
@@ -190,27 +251,29 @@ def row_source(prog: exprcode.ExprProgram, col_types: Sequence[str],
     out += [f"    case {k}: return {_FN[f]};" for k, f in enumerate(fns)]
     out += ["    default: return 0;", "  }", "}", ""]
     if keys is not None:
-        nb = 1
-        for _, _, size in keys:
-            nb *= int(size)
-        out += [f"#define GEN_NB {nb}LL", "",
-                "RF_FN long long gen_bucket(const GenRow& r) {", "  long long b = 0, v;"]
-        for slot, lo, size in keys:
-            t = types[slot]
-            word = f"RF_FBITS(r.c{slot})" if t == "f" else f"r.c{slot}"
-            out += [f"  v = static_cast<long long>({word}) - ({int(lo)}LL);",
-                    f"  v = v < 0 ? 0 : (v >= {int(size)}LL ? {int(size) - 1}LL : v);",
-                    f"  b = b * {int(size)}LL + v;"]
-        out += ["  return b;", "}", ""]
+        out += [f"#define GEN_NB {_buckets(keys)}LL", "",
+                "RF_FN long long gen_bucket(const GenRow& r) {",
+                *_rank(keys, types, lambda j: f"r.c{j}", False), "}", ""]
+    if join is not None:
+        if [k[1:] for k in join.probe_keys] != [k[1:] for k in join.build_keys]:
+            raise ValueError("the join's two sides rank their keys in other domains")
+        out += [f"#define GEN_NJB {_buckets(join.probe_keys)}LL", "",
+                "RF_FN long long gen_jbucket(const GenRow& r, uint32_t* ok) {",
+                *_rank(join.probe_keys, types, lambda j: f"r.c{j}", True), "}", "",
+                "RF_FN long long gen_build_jbucket(const GenCols& c, long long i, uint32_t* ok) {",
+                *_rank(join.build_keys, types, lambda j: f"RF_LDG(c.c{j} + i)", True), "}", ""]
     return "\n".join(out)
 
 
 def kernel_source(family: str, prog: exprcode.ExprProgram, col_types: Sequence[str],
-                  fns: Sequence[str], keys: Optional[Sequence[Key]] = None) -> str:
+                  fns: Sequence[str], keys: Optional[Sequence[Key]] = None,
+                  join: Optional[Join] = None) -> str:
     """The whole source of one generated kernel library: the row functions
     followed by the family's template, ``csrc/<family>.cu``."""
     if family not in FAMILIES:
         raise ValueError(f"no generated kernel family {family!r}")
-    if (family == "grouped_select_agg") != (keys is not None):
+    if (family != "fused_select_agg") != (keys is not None):
         raise ValueError(f"{family} takes keys only when grouped")
-    return row_source(prog, col_types, fns, keys) + f'#include "{family}.cu"\n'
+    if (family == "grouped_join_agg") != (join is not None):
+        raise ValueError(f"{family} takes a join layout only when it joins")
+    return row_source(prog, col_types, fns, keys, join) + f'#include "{family}.cu"\n'

@@ -1,6 +1,7 @@
 // genrows.cuh: how the generated kernels (fused_select_agg.cu,
-// grouped_select_agg.cu) walk a table's rows, after the query's row
-// functions (codegen.py, rowfn.cuh) and before the kernel that includes it.
+// grouped_select_agg.cu, grouped_join_agg.cu's probe) walk a table's rows,
+// after the query's row functions (codegen.py, rowfn.cuh) and before the
+// kernel that includes it.
 //
 // A persistent grid; each warp takes tiles of 32·GEN_ROWS consecutive
 // rows, lane l rows l, l + 32, ... of a tile, so every column load of a

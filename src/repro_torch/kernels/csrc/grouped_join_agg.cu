@@ -1,102 +1,140 @@
 // grouped_join_agg: fused select + direct-table join + grouped aggregation
-// (the TPC-H Q12 shape, and the outer join-count of Q4).  The join result
-// is never materialised.
+// (the TPC-H Q12 shape, and the outer join-count of Q4), generated per
+// query.  The join result is never materialised.
 //
-// Replaces src/repro/kernels/grouped_join_agg.py:grouped_join_agg_p.  On
-// the TPU both the build-side lookup and the accumulation were one-hot
-// reductions over the bucket axes, so the JAX package only runs it up to
-// 4096 join buckets.  Here the lookup is one direct gather from dense
-// per-join-bucket tables and the accumulation uses atomics, so Q4 and Q12
-// run it at 750,000 join buckets.
+// Replaces src/repro/kernels/grouped_join_agg.py:grouped_join_agg_p.  That
+// kernel closed over the query's Expr (one kernel per query); on the TPU
+// both the build-side lookup and the accumulation were one-hot reductions
+// over the bucket axes, so the JAX package only runs it up to 4096 join
+// buckets.  Here the lookup is one direct gather from a first-row table
+// over the join-bucket axis, so Q4 and Q12 run it at 750,000 join buckets.
 //
-// The build side is condensed outside the kernel, in torch, into a
-// presence table and one table per needed build column over the join-bucket
-// axis (first occurrence of a duplicate key wins).  The tables keep the
-// columns' own types, so integer values stay exact past f32's 2^24.
+// This file is a template, not a library: repro_torch/kernels/codegen.py
+// writes the query's row functions (its predicate over probe columns, its
+// checked join buckets on both sides, the build columns' loads, its values
+// and group bucket; rowfn.cuh) and appends an include of this file;
+// build_generated compiles the text once per distinct query.
 //
 // Bound on the card: memory.  The probe rows' predicate columns and
-// validity are read once; passing rows read their key, one presence byte
-// and the build values they need (random reads into tables of a few MB,
-// which stay in the 50 MB L2).  Q12 at sf=5: about 3.0 M probe rows over
-// four 4-byte predicate columns plus validity, about 51 MB, about 15 us at
-// 3.35 TB/s.
+// validity are read once, passing rows read their join key, one word of
+// the first-row table and the build values they need (random reads into
+// columns of a few MB, which stay in the 50 MB L2); the build side's
+// validity and key columns are read once.  Q12 at sf=5: about 3.0 M probe
+// rows, about 58 MB in all, about 17 us at 3.35 TB/s.
 //
-// Design: one probe row per thread in a grid-stride loop.  The predicate
-// (probe columns only) runs first; a passing row computes its checked join
-// bucket (a key outside the declared domain drops the row), reads the
-// presence table, then evaluates the aggregated expressions with build
-// columns gathered at that bucket, packs its group bucket (clipped, over
-// probe or build columns) and adds into it: shared-memory accumulators when
-// all buckets fit in 48 KB (Q12: 7 groups, Q4: 5), global atomics
-// otherwise.  Counts are int32; float sums are added in an order that
-// changes from run to run.
-#include "exprvm.cuh"
+// Two kernels, launched in turn on the caller's stream:
+//
+// * the build (gja_gen_fill, then gja_gen_build): one pass over the build
+//   rows.  Each valid row whose key lies in the join domain takes atomicMin
+//   of its row index at its join bucket in an int32 first-row table that
+//   starts at the build side's capacity (the empty bucket).  A min does not
+//   depend on the order of the atomics, so the first occurrence of a
+//   duplicate key wins on every run, as in runtime.build_first_index (the
+//   plain version), and a build side whose rows are not buckets (Q4's,
+//   a compacted inner result) needs no presence table;
+// * the probe: the probe rows walked as genrows.cuh walks them (the
+//   predicate first), then for the rows that pass their checked join bucket
+//   (a key outside the domain drops the row), the first row there (none:
+//   the row is dropped), the build columns loaded at that row in their own
+//   types (integers stay exact past f32's 2^24), then the values and the
+//   clipped group bucket, accumulated on grouped.cuh's route for the
+//   query's shape (Q12's 7 groups × 3 words and Q4's 5 × 1 take reg: one
+//   launch, a fixed-order finish, the same bits run to run).
+#ifndef GEN_NJB
+#error "grouped_join_agg.cu is a template: build it with repro_torch.kernels.build.build_generated"
+#endif
 
-template <bool SMEM>
-__global__ void __launch_bounds__(VM_TPB)
-gja_main(const int2* __restrict__ prog, int n_pred, int n_prog, VmCols cols,
-         const uint8_t* __restrict__ valid, long long cap, VmKeys jkeys,
-         const uint8_t* __restrict__ present, VmKeys gkeys, VmAccs accs, long long nb,
-         int* __restrict__ cnt, float* __restrict__ acc) {
-  extern __shared__ uint32_t smem[];
-  int* scnt = reinterpret_cast<int*>(smem);
-  float* sacc = reinterpret_cast<float*>(smem + (SMEM ? nb : 0));
-  if (SMEM) {
-    vm_init_shared(scnt, sacc, nb, accs);
-    __syncthreads();
+#include "grouped.cuh"
+
+#define GJA_BUILD_BLOCKS_PER_SM 8
+// the first-row table's bytes at the start of the scratch, 16-byte aligned
+constexpr long long GJA_FIRST_BYTES = (GEN_NJB * 4 + 15) / 16 * 16;
+
+// The probe rows that are valid, pass the predicate and find a build row.
+struct GjaRows {
+  GenCols c;
+  const uint8_t* valid;
+  const int* first;  // GEN_NJB first build rows; build_cap where a bucket is empty
+  int build_cap;
+  template <class Visit>
+  __device__ __forceinline__ void walk(long long cap, Visit&& visit) const {
+    gen_walk(c, valid, cap, [&](GenRow (&r)[GEN_ROWS], uint32_t (&ok)[GEN_ROWS]) {
+      int row[GEN_ROWS];
+#pragma unroll
+      for (int u = 0; u < GEN_ROWS; ++u) {  // the tile's lookups in flight together
+        row[u] = build_cap;
+        if (ok[u]) {
+          const long long jb = gen_jbucket(r[u], &ok[u]);
+          if (ok[u]) row[u] = __ldg(first + jb);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GEN_ROWS; ++u) {
+        ok[u] = row[u] < build_cap;
+        if (ok[u]) gen_load_build(r[u], c, row[u]);
+      }
+      visit(r, ok);
+    });
   }
-  int* tcnt = SMEM ? scnt : cnt;
-  float* tacc = SMEM ? sacc : acc;
-  uint32_t out[VM_MAX_OUT];
-  const long long stride = static_cast<long long>(gridDim.x) * VM_TPB;
-  for (long long i = blockIdx.x * static_cast<long long>(VM_TPB) + threadIdx.x; i < cap;
-       i += stride) {
-    if (!valid[i]) continue;
-    vm_run(prog, 0, n_pred, cols, i, 0, out);
-    if (!out[0]) continue;
-    bool ok = true;
-    const long long jb = vm_bucket(jkeys, cols, i, 0, &ok);
-    if (!ok || !__ldg(present + jb)) continue;
-    vm_run(prog, n_pred, n_prog, cols, i, jb, out);
-    const long long b = vm_bucket(gkeys, cols, i, jb, &ok);
-    atomicAdd(tcnt + b, 1);
-    for (int k = 0; k < accs.n; ++k)
-      rel_atomic(accs.fn[k], tacc + k * nb + b, __uint_as_float(out[1 + k]));
-  }
-  if (SMEM) {
-    __syncthreads();
-    vm_flush(scnt, sacc, cnt, acc, nb, accs);
+};
+
+__global__ void __launch_bounds__(GRP_TPB) gja_gen_fill(int* __restrict__ first, int build_cap) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long b = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; b < GEN_NJB;
+       b += stride)
+    first[b] = build_cap;
+}
+
+__global__ void __launch_bounds__(GRP_TPB)
+gja_gen_build(GenCols c, const uint8_t* __restrict__ valid, long long build_cap,
+              int* __restrict__ first) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; j < build_cap;
+       j += stride) {
+    if (!RF_LDG(valid + j)) continue;
+    uint32_t ok = 1u;
+    const long long b = gen_build_jbucket(c, j, &ok);
+    if (ok) atomicMin(first + b, static_cast<int>(j));
   }
 }
 
-extern "C" int gja_launch(const int2* prog, int n_pred, int n_prog, const void* const* col_ptrs,
-                          const int* col_types, const int* col_src, int n_cols,
-                          const uint8_t* valid, long long cap, const int* jkey_slots,
-                          const long long* jkey_lo, const long long* jkey_size, int n_jkeys,
-                          const uint8_t* present, const int* gkey_slots,
-                          const long long* gkey_lo, const long long* gkey_size, int n_gkeys,
-                          const int* fns, int n_acc, long long nb, int* cnt, float* acc,
-                          void* stream) {
-  if (n_cols > VM_MAX_COLS || n_acc > VM_MAX_ACC || n_jkeys > VM_MAX_KEYS ||
-      n_gkeys > VM_MAX_KEYS || nb < 1)
-    return cudaErrorInvalidValue;
-  const long long smem = vm_smem_bytes(nb, n_acc);
-  const int grid = rel_grid(cap, VM_TPB, smem ? VM_SMEM_BLOCKS_PER_SM : VM_GLOBAL_BLOCKS_PER_SM);
+// The route this query's shape takes: 0 reg, 1 smem, 2 global.
+extern "C" int gja_gen_route(void) { return GRP_ROUTE; }
+
+// Bytes of scratch a probe over `cap` rows needs: the first-row table, then
+// the route's partials.
+extern "C" long long gja_gen_scratch_bytes(long long cap) {
+  return GJA_FIRST_BYTES + grp_scratch_bytes(cap);
+}
+
+// The build: the first-row table of the build rows [0, build_cap) at the
+// start of `scratch` (gja_gen_scratch_bytes).  build_cap must fit in an
+// int32, the table's type.
+extern "C" int gja_gen_build(const void* const* col_ptrs, const uint8_t* build_valid,
+                             long long build_cap, void* scratch, void* stream) {
+  if (build_cap < 0 || build_cap > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const VmCols cols = vm_make_cols(col_ptrs, col_types, col_src, n_cols);
-  const VmKeys jkeys = vm_make_keys(jkey_slots, jkey_lo, jkey_size, n_jkeys);
-  const VmKeys gkeys = vm_make_keys(gkey_slots, gkey_lo, gkey_size, n_gkeys);
-  const VmAccs accs = vm_make_accs(fns, n_acc);
-  const long long init_blocks = (nb + VM_TPB - 1) / VM_TPB;
-  vm_init_accumulators<<<static_cast<int>(init_blocks < 4096 ? init_blocks : 4096), VM_TPB, 0, s>>>(
-      cnt, acc, nb, accs);
-  cudaError_t e = cudaGetLastError();
+  int* first = static_cast<int*>(scratch);
+  const long long fill = (GEN_NJB + GRP_TPB - 1) / GRP_TPB;
+  gja_gen_fill<<<static_cast<int>(fill < 4096 ? fill : 4096), GRP_TPB, 0, s>>>(
+      first, static_cast<int>(build_cap));
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (smem)
-    gja_main<true><<<grid, VM_TPB, static_cast<size_t>(smem), s>>>(
-        prog, n_pred, n_prog, cols, valid, cap, jkeys, present, gkeys, accs, nb, cnt, acc);
-  else
-    gja_main<false><<<grid, VM_TPB, 0, s>>>(prog, n_pred, n_prog, cols, valid, cap, jkeys,
-                                            present, gkeys, accs, nb, cnt, acc);
+  gja_gen_build<<<rel_grid(build_cap, GRP_TPB, GJA_BUILD_BLOCKS_PER_SM), GRP_TPB, 0, s>>>(
+      gen_cols(col_ptrs), build_valid, build_cap, first);
   return cudaGetLastError();
+}
+
+// The probe, after the build on the same stream and scratch: counts into
+// cnt[0..NB) and value k of group bucket b into acc[k·NB + b] over the probe
+// rows of [0, cap) that are valid, pass the predicate and find a build row.
+// reg: `ticket` a zeroed word that each launch leaves zeroed.
+extern "C" int gja_gen_launch(const void* const* col_ptrs, const uint8_t* valid, long long cap,
+                              long long build_cap, void* scratch, unsigned int* ticket, int* cnt,
+                              float* acc, void* stream) {
+  if (build_cap < 0 || build_cap > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const GjaRows rows{gen_cols(col_ptrs), valid, static_cast<const int*>(scratch),
+                     static_cast<int>(build_cap)};
+  return grp_launch(rows, cap, static_cast<char*>(scratch) + GJA_FIRST_BYTES, ticket, cnt, acc,
+                    static_cast<cudaStream_t>(stream));
 }

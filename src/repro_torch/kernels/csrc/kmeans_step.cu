@@ -18,18 +18,13 @@
 // * kms_main, on the CUDA cores, for every other d ≤ 128 whose centroid
 //   table fits in the opt-in shared memory (described at kms_main).
 //
-// kms_tc's design.  A persistent grid of at most two blocks per SM (one
-// where the registers need it; the caller passes the grid, kms_tc_grid),
-// each of eight consumer warps and one producer warp.
-// The points are cut into tiles of 16 KB of rows (512 points at DP = 8);
-// block b takes tiles b, b + G, b + 2G, … in that order.  The producer's
-// lane 0 keeps six tiles in flight, each a 1-D bulk copy (cp.async.bulk)
-// into a ring of shared buffers on mbarriers.  A bulk copy wants 16-byte
-// aligned addresses and sizes, and a chunk of a Split may start anywhere (a
-// row of d = 3 is 12 bytes): each copy takes the 16-byte granules that
-// cover the tile, which never leave the allocation's pages, and the
-// consumers read the rows from the offset x mod 16.  Each consumer warp
-// takes 1/8 of a tile, 16 points at a time:
+// kms_tc's design.  The tile ring, the one-hot product of the sums and
+// the fixed-order finish are onehot.cuh's (shared with segsum.cu's seg_tc):
+// a persistent grid of at most two blocks per SM (one where the registers
+// need it; the caller passes the grid, kms_tc_grid), each of eight consumer
+// warps and one producer warp that keeps six 16 KB tiles of points in
+// flight as bulk copies.  Each consumer warp takes 1/8 of a tile, 16 points
+// at a time:
 //
 // * distances on the tensor cores, mma.sync m16n8k8 in TF32 with a
 //   three-way split: x = x_hi + x_lo and −2c = b_hi + b_lo, each hi
@@ -59,24 +54,13 @@
 // * the argmin over each thread's columns, then over the quad by two
 //   rounds of shuffles; the lowest index wins on equal scores.
 // * sums as one_hot(labels)ᵀ·x on the tensor cores, as the TPU kernel did
-//   them: the one-hot (exact in TF32) is A, the points B, split hi + lo;
-//   counts through one more product with a B of ones.  Points past n (the
-//   ragged tail) are zero and take label −1.  A tile's products start from
-//   zero and are added into the warp's running sums in f32 (round to
-//   nearest), so the tensor cores' own accumulation spans one tile only.
+//   them, and counts (onehot.cuh).  Points past n (the ragged tail) are zero
+//   and take label −1.
 //
-// The finish has no float atomics and no memsets.  Each block adds its
-// warps' sums in warp order and writes them, with its int32 counts, to a
-// scratch buffer.  The blocks form groups of 32; the last block of a group
-// to take its group's ticket adds the group's partials in block order, and
-// the last of those finishers to take the grid's ticket adds the groups'
-// in order.  A ticket is an acquire-release atomic increment, so no fence
-// of its own, that wraps back to 0 for the next launch.  Each finisher
-// issues all its loads before its first add, so the finish costs two round
-// trips to L2, not one per block.  Every addition has a fixed place, so
-// the same inputs give bit-identical sums and counts on every run, as the
-// TPU kernel's grid in order did.  ref.kmeans_step_tiled is this
-// arithmetic in plain torch.
+// The finish adds every partial in a fixed place (onehot.cuh), so the same
+// inputs give bit-identical sums and counts on every run, as the TPU
+// kernel's grid in order did.  ref.kmeans_step_tiled is this arithmetic in
+// plain torch.
 //
 // Counts are exact int32 (an f32 count is inexact past 2^24), written out
 // as f32, as the JAX kernel returns them.
@@ -84,7 +68,7 @@
 
 #include <cstdint>
 
-#include "hopper.cuh"
+#include "onehot.cuh"
 
 #define KMS_TPB 256
 #define KMS_MAX_D 128
@@ -94,7 +78,7 @@
 #define KMS_ERR_TABLE (-1)
 
 // the tensor-core route's tickets: one for the grid, one per group of blocks
-#define KMS_TICKETS 17
+#define KMS_TICKETS OH_TICKETS
 
 extern "C" {
 // the largest point width the kernel takes, the code above and the tickets
@@ -106,30 +90,8 @@ int kms_tickets = KMS_TICKETS;
 
 // ---- kms_tc: the tensor-core route ------------------------------------------
 
-constexpr int KTC_STAGES = 6;                        // tiles in flight
-constexpr int KTC_TILE_BYTES = 16384;                // a tile of rows (16 points a warp at least)
-constexpr int KTC_WARPS = 8;                         // consumer warps
-constexpr int KTC_THREADS = (KTC_WARPS + 1) * 32;    // and one producer warp
-constexpr uint32_t KTC_ONE = 0x3f800000u;             // 1.0f, exact in TF32
-constexpr int KTC_GROUP = 32;       // blocks whose partials one group finisher adds
-constexpr int KTC_MAX_GROUPS = KMS_TICKETS - 1;  // so at most 512 blocks
-
-__host__ __device__ constexpr int ktc_dp(int d) { return d <= 8 ? 8 : d <= 16 ? 16 : 32; }
-__host__ __device__ constexpr int ktc_kp(int k) { return k <= 16 ? 16 : k <= 32 ? 32 : 64; }
-__host__ __device__ constexpr int ktc_tile_points(int dp) {  // at least 16 a warp
-  const int fit = KTC_TILE_BYTES / (4 * dp);
-  return fit > 16 * KTC_WARPS ? fit : 16 * KTC_WARPS;
-}
-// a stage of the ring: a tile and the 16-byte granules around it
-__host__ __device__ constexpr int ktc_stage_bytes(int dp) {
-  return ktc_tile_points(dp) * dp * 4 + 32;
-}
-// two blocks an SM where their registers fit (at most 113 a thread), else one
-__host__ __device__ constexpr int ktc_blocks_per_sm(int kp, int dp) {
-  return kp * dp <= 256 ? 2 : 1;
-}
 static size_t ktc_smem_bytes(int kp, int dp) {
-  return KTC_STAGES * ktc_stage_bytes(dp) + 2 * KTC_STAGES * sizeof(uint64_t) +
+  return OH_STAGES * oh_rows_bytes(dp) + 2 * OH_STAGES * sizeof(uint64_t) +
          sizeof(float) * (kp * dp + 2 * kp);
 }
 
@@ -143,7 +105,7 @@ __device__ __forceinline__ void ktc_rows16(const float* xm, int ld, int d, int v
                                            const float (&c2r)[KP / 8][4],
                                            float (&sacc)[KP / 16][DP / 8][4],
                                            float (&cacc)[KP / 16][4], int lane) {
-  constexpr int NT = KP / 8, KS = DP / 8, MT = KP / 16;
+  constexpr int NT = KP / 8, KS = DP / 8;
   const int g = lane >> 2, t4 = lane & 3;
   // scores ‖c_j‖² + x·(−2c_j), the product split three ways and ‖c_j‖² the
   // first product's addend; the k index t of a fragment is dimension 2t and
@@ -211,62 +173,28 @@ __device__ __forceinline__ void ktc_rows16(const float* xm, int ld, int d, int v
   if (PARTIAL && g + (upper ? 8 : 0) >= valid) lab = -1;
   // labels of points t4 and t4 + 4 of each 8-point k step: rows t4 and
   // t4 + 4 (k step 0), t4 + 8 and t4 + 12 (k step 1)
-  const int la = __shfl_sync(0xffffffffu, lab, 4 * t4);
-  const int lb = __shfl_sync(0xffffffffu, lab, 4 * t4 + 16);
-  const int lc = __shfl_sync(0xffffffffu, lab, 4 * t4 + 2);
-  const int le = __shfl_sync(0xffffffffu, lab, 4 * t4 + 18);
-  const uint32_t ones[2] = {KTC_ONE, KTC_ONE};
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int l0 = q ? lc : la, l1 = q ? le : lb;
-    const float* xq = xm + 8 * q * ld;
-    const bool v0 = !PARTIAL || 8 * q + t4 < valid;
-    const bool v1 = !PARTIAL || 8 * q + t4 + 4 < valid;
-    uint32_t xh[KS][2], xl[KS][2];
-#pragma unroll
-    for (int dt = 0; dt < KS; ++dt) {
-      const int dim = dt * 8 + g;
-      const bool in = EXACT || dim < d;
-      const float u[2] = {in && v0 ? xq[t4 * ld + dim] : 0.f,
-                          in && v1 ? xq[(t4 + 4) * ld + dim] : 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        xh[dt][i] = hop::tf32_rna(u[i]);
-        xl[dt][i] = hop::tf32_rest(u[i], xh[dt][i]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int m0 = mt * 16 + g;
-      const uint32_t a[4] = {l0 == m0 ? KTC_ONE : 0u, l0 == m0 + 8 ? KTC_ONE : 0u,
-                             l1 == m0 ? KTC_ONE : 0u, l1 == m0 + 8 ? KTC_ONE : 0u};
-#pragma unroll
-      for (int dt = 0; dt < KS; ++dt) {
-        hop::mma_tf32_m16n8k8(sacc[mt][dt], a, xh[dt]);
-        hop::mma_tf32_m16n8k8(sacc[mt][dt], a, xl[dt]);
-      }
-      hop::mma_tf32_m16n8k8(cacc[mt], a, ones);
-    }
-  }
+  const int labs[2][2] = {{__shfl_sync(0xffffffffu, lab, 4 * t4),
+                           __shfl_sync(0xffffffffu, lab, 4 * t4 + 16)},
+                          {__shfl_sync(0xffffffffu, lab, 4 * t4 + 2),
+                           __shfl_sync(0xffffffffu, lab, 4 * t4 + 18)}};
+  oh_rows16<KP, DP, EXACT, PARTIAL, true>(xm, ld, d, valid, labs, sacc, cacc, lane);
 }
 
-// the first `m` of v added in order: f32 sums (FLOAT, as bits) or int32 counts
-template <bool FLOAT, int N>
-__device__ __forceinline__ unsigned ktc_add(const unsigned (&v)[N], int m) {
-  if constexpr (FLOAT) {
-    float s = __uint_as_float(v[0]);
-#pragma unroll
-    for (int i = 1; i < N; ++i)
-      if (i < m) s = __fadd_rn(s, __uint_as_float(v[i]));
-    return __float_as_uint(s);
-  } else {
-    int s = static_cast<int>(v[0]);
-#pragma unroll
-    for (int i = 1; i < N; ++i)
-      if (i < m) s += static_cast<int>(v[i]);
-    return static_cast<unsigned>(s);
+// Where kms_tc's results lie in a partial, and how they are written: the
+// sums (k, d), then the counts (k,) as f32.
+template <int KP, int DP>
+struct KmsOut {
+  float* sums;
+  float* counts;
+  int k, d;
+  __device__ __forceinline__ int at(int e) const {
+    return e >= k * d ? KP * DP + (e - k * d) : (e / d) * DP + e % d;
   }
-}
+  __device__ __forceinline__ void put(int e, unsigned v) const {
+    if (e >= k * d) counts[e - k * d] = __int2float_rn(static_cast<int>(v));
+    else sums[e] = __uint_as_float(v);
+  }
+};
 
 // x (n, d), c (k, d); sums (k, d) and counts (k,) written by the last block;
 // part: the partials of gridDim.x blocks and then of their groups, KP·DP +
@@ -275,21 +203,20 @@ __device__ __forceinline__ unsigned ktc_add(const unsigned (&v)[N], int m) {
 // at the k-means path's shape it is 0.0370 ms a launch against 0.0494 for
 // the general loads on the H100 (n = 2^21, d = 8, k = 16; PERF.md).
 template <int KP, int DP, bool EXACT>
-__global__ void __launch_bounds__(KTC_THREADS, ktc_blocks_per_sm(KP, DP))
+__global__ void __launch_bounds__(OH_THREADS, oh_blocks_per_sm(KP, DP))
 kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, int d, int k,
        float* __restrict__ sums, float* __restrict__ counts, float* __restrict__ part,
        unsigned* __restrict__ ticket) {
-  constexpr int T = ktc_tile_points(DP), PW = T / KTC_WARPS;
-  constexpr int NT = KP / 8, KS = DP / 8, MT = KP / 16, PART = KP * DP + KP;
+  constexpr int T = oh_tile_points(DP), PW = T / OH_WARPS;
+  constexpr int NT = KP / 8, KS = DP / 8, MT = KP / 16, PART = oh_part(KP, DP, true);
   extern __shared__ __align__(128) unsigned char ring[];
-  constexpr int STAGE = ktc_stage_bytes(DP);
-  static_assert(KTC_STAGES * STAGE >= KTC_WARPS * PART * 4, "the warps' partials fit in the ring");
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + KTC_STAGES * STAGE);
-  uint64_t* empty = full + KTC_STAGES;
-  float* cs = reinterpret_cast<float*>(empty + KTC_STAGES);  // KP·DP centroids, zero padded
+  constexpr int STAGE = oh_rows_bytes(DP);
+  static_assert(OH_STAGES * STAGE >= OH_WARPS * PART * 4, "the warps' partials fit in the ring");
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + OH_STAGES * STAGE);
+  uint64_t* empty = full + OH_STAGES;
+  float* cs = reinterpret_cast<float*>(empty + OH_STAGES);  // KP·DP centroids, zero padded
   float* c2s = cs + KP * DP;                                  // KP norms (+inf: set aside)
   int* copy = reinterpret_cast<int*>(c2s + KP);               // KP: 1 for a copy
-  __shared__ unsigned last;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long tiles = (n + T - 1) / T;
   const int mine = blockIdx.x < tiles
@@ -298,13 +225,7 @@ kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, in
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int ld = EXACT ? DP : d;
 
-  if (tid == 0) {
-    for (int s = 0; s < KTC_STAGES; ++s) {
-      hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], KTC_WARPS);
-    }
-    hop::mbar_fence_init();
-  }
+  if (tid == 0) oh_ring_init(full, empty);
   __syncthreads();
 
   // each consumer warp's sums and counts over its slices of the block's tiles
@@ -317,25 +238,14 @@ kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, in
     for (int dt = 0; dt < KS; ++dt)
       run[mt][dt][0] = run[mt][dt][1] = run[mt][dt][2] = run[mt][dt][3] = 0.f;
   }
-  if (warp == KTC_WARPS) {
-    if (lane == 0) {  // the producer: the block's tiles in order, KTC_STAGES in flight
-      const uintptr_t end = xa + static_cast<uintptr_t>(n) * d * sizeof(float);
-      for (int it = 0; it < mine; ++it) {
-        const int s = it % KTC_STAGES;
-        hop::mbar_wait(&empty[s], ((it / KTC_STAGES) & 1) ^ 1);
-        const uintptr_t lo =
-            xa + static_cast<uintptr_t>(blockIdx.x + static_cast<long long>(it) * gridDim.x) * T *
-                     d * sizeof(float);
-        const uintptr_t hi = lo + T * d * sizeof(float) < end ? lo + T * d * sizeof(float) : end;
-        const uintptr_t g0 = lo & ~uintptr_t(15), g1 = (hi + 15) & ~uintptr_t(15);
-        const uint32_t bytes = static_cast<uint32_t>(g1 - g0);
-        hop::mbar_expect_tx(&full[s], bytes);
-        hop::bulk_load(ring + s * STAGE, reinterpret_cast<const void*>(g0), bytes,
-                       &full[s]);
-      }
+  if (warp == OH_WARPS) {
+    if (lane == 0) {  // the producer: the block's tiles of points in order
+      const OhArray arr[1] = {{xa, d * static_cast<int>(sizeof(float))}};
+      const int at[1] = {0};
+      oh_produce(ring, STAGE, full, empty, mine, T, n, arr, at);
     }
   } else {  // the consumers, while the producer's first copies fly
-    constexpr int CT = KTC_WARPS * 32;
+    constexpr int CT = OH_WARPS * 32;
     for (int e = tid; e < KP * DP; e += CT) {
       const int j = e / DP, t = e % DP;
       cs[e] = j < k && t < d ? c[j * d + t] : 0.f;
@@ -376,8 +286,8 @@ kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, in
     }
     const int off = static_cast<int>(xa & 15);
     for (int it = 0; it < mine; ++it) {
-      const int s = it % KTC_STAGES;
-      hop::mbar_wait(&full[s], (it / KTC_STAGES) & 1);
+      const int s = it % OH_STAGES;
+      hop::mbar_wait(&full[s], (it / OH_STAGES) & 1);
       const long long tile = blockIdx.x + static_cast<long long>(it) * gridDim.x;
       const long long left = n - tile * T - static_cast<long long>(warp) * PW;
       const int valid = left < PW ? static_cast<int>(left) : PW;
@@ -409,93 +319,10 @@ kms_tc(const float* __restrict__ x, const float* __restrict__ c, long long n, in
       }
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(&empty[s]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int dt = 0; dt < KS; ++dt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            run[mt][dt][i] = __fadd_rn(__fadd_rn(run[mt][dt][i], sacc[0][mt][dt][i]),
-                                       sacc[1][mt][dt][i]);
-        cnt[mt][0] += __float2int_rn(cacc[0][mt][0]) + __float2int_rn(cacc[1][mt][0]);
-        cnt[mt][1] += __float2int_rn(cacc[0][mt][2]) + __float2int_rn(cacc[1][mt][2]);
-      }
+      oh_tile_add<MT, KS, true>(run, cnt, sacc, cacc);
     }
   }
-  __syncthreads();  // every tile consumed: the ring becomes the warps' partials
-  if (warp < KTC_WARPS) {
-    const int g = lane >> 2, t4 = lane & 3;
-    float* wp = reinterpret_cast<float*>(ring) + warp * KP * DP;
-    int* wc = reinterpret_cast<int*>(ring) + KTC_WARPS * KP * DP + warp * KP;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int j = mt * 16 + g;
-#pragma unroll
-      for (int dt = 0; dt < KS; ++dt) {
-        const int t = dt * 8 + 2 * t4;
-        wp[j * DP + t] = run[mt][dt][0];
-        wp[j * DP + t + 1] = run[mt][dt][1];
-        wp[(j + 8) * DP + t] = run[mt][dt][2];
-        wp[(j + 8) * DP + t + 1] = run[mt][dt][3];
-      }
-      if (t4 == 0) wc[j] = cnt[mt][0], wc[j + 8] = cnt[mt][1];
-    }
-  }
-  __syncthreads();
-  // this block's partials, its warps added in order
-  float* bp = part + static_cast<size_t>(blockIdx.x) * PART;
-  const float* wp = reinterpret_cast<const float*>(ring);
-  const int* wc = reinterpret_cast<const int*>(ring) + KTC_WARPS * KP * DP;
-  for (int e = tid; e < KP * DP; e += KTC_THREADS) {
-    float s = wp[e];
-    for (int w = 1; w < KTC_WARPS; ++w) s = __fadd_rn(s, wp[w * KP * DP + e]);
-    bp[e] = s;
-  }
-  for (int j = tid; j < KP; j += KTC_THREADS) {
-    int s = 0;
-    for (int w = 0; w < KTC_WARPS; ++w) s += wc[w * KP + j];
-    reinterpret_cast<int*>(bp + KP * DP)[j] = s;
-  }
-  // the finish: the last block of each group of 32 adds its group's
-  // partials in block order, and the last of those finishers adds the
-  // groups' in order.  Each ticket is an acquire-release increment by
-  // thread 0 after the block's barrier, which orders the block's writes
-  // before it and the finisher's reads after it (the increment wraps each
-  // ticket back to 0 as its group completes)
-  const int blocks = gridDim.x, groups = (blocks + KTC_GROUP - 1) / KTC_GROUP;
-  const int grp = blockIdx.x / KTC_GROUP;
-  const int members = min(KTC_GROUP, blocks - grp * KTC_GROUP);
-  __syncthreads();
-  if (tid == 0)
-    last = hop::atom_inc_acq_rel(&ticket[1 + grp], members - 1) == unsigned(members - 1);
-  __syncthreads();
-  if (!last) return;
-  const unsigned* pu = reinterpret_cast<const unsigned*>(part);
-  unsigned* gp = reinterpret_cast<unsigned*>(part) + static_cast<size_t>(blocks + grp) * PART;
-  for (int e = tid; e < PART; e += KTC_THREADS) {
-    unsigned v[KTC_GROUP];  // all the loads in flight before the first add
-#pragma unroll
-    for (int m = 0; m < KTC_GROUP; ++m)
-      v[m] = m < members ? __ldcg(pu + static_cast<size_t>(grp * KTC_GROUP + m) * PART + e) : 0u;
-    gp[e] = e < KP * DP ? ktc_add<true>(v, members) : ktc_add<false>(v, members);
-  }
-  __syncthreads();
-  if (tid == 0) last = hop::atom_inc_acq_rel(&ticket[0], groups - 1) == unsigned(groups - 1);
-  __syncthreads();
-  if (!last) return;
-  const unsigned* gu = pu + static_cast<size_t>(blocks) * PART;
-  for (int e = tid; e < k * d + k; e += KTC_THREADS) {
-    const bool count = e >= k * d;
-    const int at = count ? KP * DP + (e - k * d) : (e / d) * DP + e % d;
-    unsigned v[KTC_MAX_GROUPS];
-#pragma unroll
-    for (int m = 0; m < KTC_MAX_GROUPS; ++m)
-      v[m] = m < groups ? __ldcg(gu + static_cast<size_t>(m) * PART + at) : 0u;
-    if (count)
-      counts[e - k * d] = __int2float_rn(static_cast<int>(ktc_add<false>(v, groups)));
-    else
-      sums[e] = __uint_as_float(ktc_add<true>(v, groups));
-  }
+  oh_finish<KP, DP, true>(ring, run, cnt, part, ticket, k * d + k, KmsOut<KP, DP>{sums, counts, k, d});
 }
 
 template <int KP, int DP, bool EXACT>
@@ -514,7 +341,7 @@ static cudaError_t ktc_run(const float* x, const float* c, long long n, int d, i
     if (e != cudaSuccess) return e;
     ready |= bit;
   }
-  kms_tc<KP, DP, EXACT><<<grid, KTC_THREADS, bytes, s>>>(x, c, n, d, k, sums, counts, part,
+  kms_tc<KP, DP, EXACT><<<grid, OH_THREADS, bytes, s>>>(x, c, n, d, k, sums, counts, part,
                                                           ticket);
   return cudaGetLastError();
 }
@@ -530,43 +357,33 @@ static cudaError_t ktc_pick(bool exact, const float* x, const float* c, long lon
 extern "C" {
 // 1 where kms_launch takes the tensor-core kernel kms_tc for points of
 // width d and k centroids, 0 where it takes kms_main
-int kms_route(int d, int k) {
-  return d >= 1 && d <= 32 && k >= 1 && k <= 64 && ktc_kp(k) * ktc_dp(d) <= 512;
-}
+int kms_route(int d, int k) { return oh_in_range(d, k); }
 
-// kms_tc's tiling, which fixes the order of its sums (read by the wrapper
-// and ref.kmeans_step_tiled): points per tile at width d, the consumer
-// warps that share a tile, the blocks whose partials one finisher adds
-int kms_tc_warps = KTC_WARPS;
-int kms_tc_group = KTC_GROUP;
-int kms_tc_tile_points(int d) { return ktc_tile_points(ktc_dp(d)); }
+// kms_tc's tiling, onehot.cuh's, which fixes the order of its sums and of
+// segsum.cu's seg_tc (read by the wrapper, ref.kmeans_step_tiled and
+// ref.segsum_tiled): points per tile at width d, the consumer warps that
+// share a tile, the blocks whose partials one finisher adds
+int kms_tc_warps = OH_WARPS;
+int kms_tc_group = OH_GROUP;
+int kms_tc_tile_points(int d) { return oh_tile_points(oh_dp(d)); }
 
 // kms_tc's blocks for n points of width d and k centroids on a card of
-// `sms` SMs: one per tile, at most ktc_blocks_per_sm on each SM
-int kms_tc_grid(long long n, int d, int k, int sms) {
-  const long long tile = ktc_tile_points(ktc_dp(d));
-  const long long tiles = (n + tile - 1) / tile;
-  long long most = static_cast<long long>(sms) * ktc_blocks_per_sm(ktc_kp(k), ktc_dp(d));
-  most = most < KTC_GROUP * KTC_MAX_GROUPS ? most : KTC_GROUP * KTC_MAX_GROUPS;
-  return static_cast<int>(tiles < 1 ? 1 : tiles < most ? tiles : most);
-}
+// `sms` SMs: one per tile, at most oh_blocks_per_sm on each SM
+int kms_tc_grid(long long n, int d, int k, int sms) { return oh_grid(n, d, k, sms); }
 
 // the bytes of scratch kms_launch needs for width d, k centroids and, on
 // the kms_tc route, a grid of `grid` blocks (kms_main: k int32 counts)
 long long kms_scratch_bytes(int grid, int d, int k) {
   if (k < 1) return 0;
   if (!kms_route(d, k)) return static_cast<long long>(sizeof(int)) * k;
-  if (grid < 1) return 0;
-  return (grid + (grid + KTC_GROUP - 1) / KTC_GROUP) *
-         static_cast<long long>(ktc_kp(k) * ktc_dp(d) + ktc_kp(k)) *
-         static_cast<long long>(sizeof(float));
+  return oh_scratch_bytes(grid, oh_kp(k), oh_dp(d), true);
 }
 }
 
 static cudaError_t ktc_launch(const float* x, const float* c, long long n, int d, int k,
                               float* sums, float* counts, float* part, unsigned* ticket,
                               int grid, cudaStream_t s) {
-  const int kp = ktc_kp(k), dp = ktc_dp(d);
+  const int kp = oh_kp(k), dp = oh_dp(d);
   const bool exact = d == dp && reinterpret_cast<uintptr_t>(x) % 8 == 0;
 #define KTC_CASE(KP_, DP_)                                                                  \
   if (kp == KP_ && dp == DP_)                                                               \
@@ -731,7 +548,7 @@ extern "C" int kms_launch(const float* x, const float* c, long long n, int d, in
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kms_route(d, k)) {
-    if (ticket == nullptr || grid < 1 || grid > KTC_GROUP * KTC_MAX_GROUPS)
+    if (ticket == nullptr || grid < 1 || grid > OH_GROUP * OH_MAX_GROUPS)
       return cudaErrorInvalidValue;
     return ktc_launch(x, c, n, d, k, sums, counts, static_cast<float*>(scratch), ticket, grid,
                       s);

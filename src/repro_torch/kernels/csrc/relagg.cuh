@@ -21,7 +21,7 @@ __device__ __forceinline__ void rel_atomic_max(float* a, float v) {
   else atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
 }
 
-// fn: 0 sum, 1 min, 2 max (the aggregate codes of exprvm.cuh's VmAccFn)
+// fn: 0 sum, 1 min, 2 max (gen_fn's codes, codegen._FN)
 __device__ __forceinline__ void rel_atomic(int fn, float* a, float v) {
   if (fn == 0) atomicAdd(a, v);
   else if (fn == 1) rel_atomic_min(a, v);

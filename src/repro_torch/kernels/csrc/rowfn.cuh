@@ -2,18 +2,17 @@
 // repro_torch/kernels/codegen.py generates for a query (its predicate, its
 // aggregated values, its bucket id), as macros with two meanings.
 //
-// In device code they are the intrinsics the expression VM used
-// (exprvm.cuh): float arithmetic by the _rn intrinsics, which nvcc never
-// contracts into an FMA, so every value rounds once per operation, as in
-// the interpreter and the plain version; column loads through the
-// read-only cache.  Under a host C++ compiler (built with
+// In device code they are device intrinsics: float arithmetic by the _rn
+// intrinsics, which nvcc never contracts into an FMA, so every value rounds
+// once per operation, as in exprcode.interpret and the plain version;
+// column loads through the read-only cache.  Under a host C++ compiler (built with
 // -ffp-contract=off) they are plain IEEE single-precision operations and
 // plain loads, which round the same way, so a CPU test can build the
 // generated functions and hold them bit for bit against
 // exprcode.interpret.
 //
-// Integer add, subtract, multiply and negate wrap, as the VM's 32-bit
-// words do; a bool is a 0/1 uint32_t.
+// Integer add, subtract, multiply and negate wrap, as exprcode.interpret's
+// 32-bit words do; a bool is a 0/1 uint32_t.
 #pragma once
 
 #include <cstdint>
@@ -69,7 +68,7 @@ static inline int rf_fbits(float x) {
 #define RF_IMAX(a, b) ((a) > (b) ? (a) : (b))
 #define RF_CMP(a, op, b) static_cast<uint32_t>((a)op(b))
 
-// Finite sentinels for empty min/max (VM_POS / VM_NEG of exprvm.cuh); the
-// wrapper maps them back to +-inf.
+// Finite sentinels for empty min/max, as the Pallas kernels use; the
+// wrappers map them back to +-inf.
 #define RF_POS 3.0e38f
 #define RF_NEG (-3.0e38f)

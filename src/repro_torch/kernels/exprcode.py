@@ -4,8 +4,7 @@ The Pallas kernels of the JAX package close over the query's expressions
 and compile one kernel per query.  A program computes the predicate and
 the aggregated values of one row: ``codegen`` turns it into straight-line
 C++ for the kernels generated per query (``fused_select_agg``,
-``grouped_select_agg``), and ``grouped_join_agg``, built once, carries it
-to the card and interprets it (``csrc/exprvm.cuh``).
+``grouped_select_agg``, ``grouped_join_agg``).
 
 A program is an ``(n, 2)`` int32 array of ``(opcode, argument)`` pairs.
 Its first ``n_pred`` instructions leave the predicate in output slot 0;
@@ -20,7 +19,7 @@ round it: Q6's ``l_discount <= 0.07`` holds for the stored f32 0.07 only
 against f32(0.07).
 
 ``interpret`` runs a program on numpy columns with the same 32-bit
-arithmetic, so the lowering is testable without a card.
+arithmetic: the CPU oracle of the lowering and of the generated code.
 """
 
 from __future__ import annotations
@@ -32,7 +31,8 @@ import numpy as np
 
 from ..core.expr import BinOp, Col, Const, Expr, UnOp
 
-#: kept in step with ``enum VmOp`` in csrc/exprvm.cuh (a test compares them)
+#: the instructions; ``codegen`` writes C for each (a test checks it has a case
+#: for every one)
 OPCODES: Dict[str, int] = {
     "LOAD_I32": 1, "LOAD_F32": 2, "LOAD_U8": 3, "CONST": 4,
     "ADD_I": 5, "SUB_I": 6, "MUL_I": 7, "MIN_I": 8, "MAX_I": 9,
@@ -45,13 +45,11 @@ OPCODES: Dict[str, int] = {
 }
 _NAMES = {v: k for k, v in OPCODES.items()}
 
-#: the interpreter's fixed limits (``VM_MAX_STACK`` / ``VM_MAX_ACC``); the
-#: generated kernels have no stack and take ``max_stack=None``
+#: a program's default limits: the stack a caller that evaluates it on a
+#: fixed stack may hold (the generated kernels have no stack and take
+#: ``max_stack=None``), and the aggregated values a kernel keeps per thread
 MAX_STACK = 16
 MAX_VALUES = 16
-
-#: column type codes (``enum VmColType``)
-COL_TYPES = {"i": 0, "f": 1, "b": 2}
 
 _LOAD = {"i": "LOAD_I32", "f": "LOAD_F32", "b": "LOAD_U8"}
 _ARITH = {"add", "sub", "mul", "min", "max"}
@@ -67,7 +65,7 @@ class ExprProgram:
 
 
 def column_type(dtype: Any) -> str:
-    """The VM type of a column dtype (torch or numpy): i, f or b."""
+    """The program type of a column dtype (torch or numpy): i, f or b."""
     name = str(dtype).replace("torch.", "")
     if name == "int32":
         return "i"
@@ -223,14 +221,13 @@ def compile_program(pred: Optional[Expr], values: Sequence[Expr],
         code.append(("EMIT", 1 + k))
     depth = _depth(code)
     if max_stack is not None and depth > max_stack:
-        raise ValueError(f"expression needs a stack of {depth}; the interpreter "
-                         f"holds {max_stack}")
+        raise ValueError(f"expression needs a stack of {depth}; the limit is {max_stack}")
     arr = np.array([(OPCODES[op], arg) for op, arg in code], dtype=np.int32)
     return ExprProgram(arr.reshape(-1, 2), n_pred, len(values), depth)
 
 
 # ---------------------------------------------------------------------------
-# reference interpreter (numpy, the VM's 32-bit arithmetic)
+# reference interpreter (numpy, the kernels' 32-bit arithmetic)
 # ---------------------------------------------------------------------------
 
 

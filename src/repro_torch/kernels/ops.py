@@ -7,18 +7,19 @@ the operator returns.  Inputs on the CPU go to the plain version in
 raises.  Outputs and scratch are allocated here with ``torch.empty``; the
 kernels allocate nothing and never synchronise.
 
-``fused_select_agg`` and ``grouped_select_agg`` run kernels generated per
-query (``codegen``), built at their first use (``build.build_generated``)
-and cached here per query; ``grouped_join_agg`` runs the expression VM.
-The epilogue keeps the JAX package's contract (``repro/kernels/ops.py``):
-the kernels' ±3e38 sentinels for empty min/max map back to ±inf, the
-count comes first, bucket ids decode back to key values, and the result
-is compacted to ``max_groups``.  There is no lane padding and no bucket
+``fused_select_agg``, ``grouped_select_agg`` and ``grouped_join_agg`` run
+kernels generated per query (``codegen``), built at their first use
+(``build.build_generated``) and cached here per query.  The epilogue
+keeps the JAX package's contract (``repro/kernels/ops.py``): the kernels'
+±3e38 sentinels for empty min/max map back to ±inf, the count comes
+first, bucket ids decode back to key values, and the result is compacted
+to ``max_groups``.  There is no lane padding and no bucket
 limit: the relational kernels accumulate with atomics instead of a one-hot.
 
 ``LAUNCHES`` counts, per kernel, the calls that launched it,
-``KMEANS_LAUNCHES`` the ``kmeans_step`` calls per route and
-``GEN_LAUNCHES`` the generated kernels' calls per route.
+``KMEANS_LAUNCHES`` and ``SEGSUM_LAUNCHES`` the ``kmeans_step`` and
+``segsum`` calls per route and ``GEN_LAUNCHES`` the generated kernels'
+calls per route.
 """
 
 from __future__ import annotations
@@ -37,22 +38,20 @@ LAUNCHES: Dict[str, int] = {"fused_select_agg": 0, "grouped_select_agg": 0,
                             "grouped_join_agg": 0, "kmeans_step": 0, "segsum": 0,
                             "flash_attention": 0}
 
-_FN = {"sum": 0, "min": 1, "max": 2}
 _SENTINEL = 3.0e38
-
-_PROGRAMS: Dict[tuple, Tuple[exprcode.ExprProgram, torch.Tensor]] = {}
 
 
 #: the generated kernels' routes: fused_select_agg's one, and
-#: grouped_select_agg's by shape (``gsa_gen_route``: accumulators in
-#: registers, in shared memory, in global memory)
-GEN_ROUTES = ("fsa_gen", "gsa_reg", "gsa_smem", "gsa_global")
+#: grouped_select_agg's and grouped_join_agg's by shape (``gsa_gen_route``,
+#: ``gja_gen_route``: accumulators in registers, in shared memory, in
+#: global memory)
+GEN_ROUTES = ("fsa_gen", "gsa_reg", "gsa_smem", "gsa_global", "gja_reg", "gja_smem", "gja_global")
 #: calls that launched each route's kernel
 GEN_LAUNCHES: Dict[str, int] = {r: 0 for r in GEN_ROUTES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, KMEANS_LAUNCHES, GEN_LAUNCHES):
+    for counts in (LAUNCHES, KMEANS_LAUNCHES, SEGSUM_LAUNCHES, GEN_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -94,44 +93,6 @@ def _columns(table: rt.VecTable, names: Sequence[str], what: str) -> List[torch.
         raise ValueError(f"{what} validity must be bool, not {table.valid.dtype}")
     _check(table.valid, table.capacity, f"{what} validity", table.device)
     return cols
-
-
-def _program(pred: Optional[Expr], values: Tuple[Expr, ...], names: Tuple[str, ...],
-             types: Tuple[str, ...], device: torch.device
-             ) -> Tuple[exprcode.ExprProgram, torch.Tensor]:
-    """The lowered program and its copy on ``device`` (cached per query)."""
-    key = (pred, values, names, types, str(device))
-    if key not in _PROGRAMS:
-        prog = exprcode.compile_program(pred, values, dict(zip(names, types)),
-                                        {n: j for j, n in enumerate(names)})
-        _PROGRAMS[key] = (prog, torch.from_numpy(prog.code.copy()).to(device))
-    return _PROGRAMS[key]
-
-
-class _Cols:
-    """Host arrays describing the kernel's column slots."""
-
-    def __init__(self, cols: Sequence[torch.Tensor], src: Sequence[int]) -> None:
-        if len(cols) > 32:
-            raise ValueError(f"{len(cols)} columns; the kernels take at most 32")
-        self.ptrs = np.array([c.data_ptr() for c in cols] or [0], np.uint64)
-        self.types = np.array([exprcode.COL_TYPES[exprcode.column_type(c.dtype)]
-                               for c in cols] or [0], np.int32)
-        self.src = np.array(list(src) or [0], np.int32)
-        self.n = len(cols)
-        self.vm_types = tuple(exprcode.column_type(c.dtype) for c in cols)
-
-
-def _keys(slots: Sequence[int], domains: Sequence[Tuple[int, int]]):
-    if len(slots) > 8:
-        raise ValueError(f"{len(slots)} key columns; the kernels take at most 8")
-    lo = np.array([int(a) for a, _ in domains] or [0], np.int64)
-    size = np.array([int(b) - int(a) + 1 for a, b in domains] or [1], np.int64)
-    return np.array(list(slots) or [0], np.int32), lo, size
-
-
-def _fns(aggs: Sequence[AggSpec]) -> np.ndarray:
-    return np.array([_FN[a.fn] for a in aggs] or [0], np.int32)
 
 
 def _stream(device: torch.device) -> int:
@@ -183,22 +144,26 @@ def _grouped_buffers(n_acc: int, nb: int, device: torch.device):
 
 class _Generated(NamedTuple):
     """One query's generated kernel: its entry point, its scratch size as
-    a function of the rows, its route."""
+    a function of the rows, its route (and grouped_join_agg's build)."""
 
     launch: Any
     scratch_bytes: Any
     route: str
+    build: Any = None
 
 
 class _Query(NamedTuple):
     """What a wrapper needs of one query, found once: the columns it reads
-    (sorted), its distinct (aggregate, expression) values, each value
-    aggregate's index among them, and its kernels per column types."""
+    (sorted; grouped_join_agg's probe columns, then its build columns and
+    the build side's key columns, as ``join`` lays them out), its distinct
+    (aggregate, expression) values, each value aggregate's index among
+    them, and its kernels per column types."""
 
     names: Tuple[str, ...]
     values: Tuple[Tuple[str, Expr], ...]
     index: List[int]
     kernels: Dict[Tuple[str, ...], _Generated]
+    join: Optional[codegen.Join] = None
 
 
 #: per (family, predicate, value aggregates, keys, key domains)
@@ -225,27 +190,34 @@ def _query(family: str, pred: Optional[Expr], aggs: Tuple[AggSpec, ...],
 
 def _generated(family: str, pred: Optional[Expr], q: _Query, types: Tuple[str, ...],
                keys: Tuple[str, ...] = (), domains: tuple = ()) -> _Generated:
-    """The kernel generated for query ``q`` over columns of the VM types
-    ``types``, built at its first use and then cached (a repeated call
-    neither regenerates nor rehashes the text)."""
+    """The kernel generated for query ``q`` over columns of the types
+    ``types`` (i, f or b), built at its first use and then cached (a
+    repeated call neither regenerates nor rehashes the text)."""
     gen = q.kernels.get(types)
     if gen is None:
         from .build import build_generated
 
-        names, values = q.names, q.values
-        prog = exprcode.compile_program(pred, [e for _, e in values], dict(zip(names, types)),
-                                        {n: j for j, n in enumerate(names)}, max_stack=None)
+        slots: Dict[str, int] = {}
+        for j, n in enumerate(q.names):  # a name on both sides of a join: the probe's
+            slots.setdefault(n, j)
+        prog = exprcode.compile_program(pred, [e for _, e in q.values],
+                                        {n: types[j] for n, j in slots.items()}, slots,
+                                        max_stack=None)
         key_slots = None
-        if family == "grouped_select_agg":
-            key_slots = [(names.index(k), int(lo), int(hi) - int(lo) + 1)
+        if family != "fused_select_agg":
+            key_slots = [(slots[k], int(lo), int(hi) - int(lo) + 1)
                          for k, (lo, hi) in zip(keys, domains)]
-        text = codegen.kernel_source(family, prog, types, [fn for fn, _ in values], key_slots)
+        text = codegen.kernel_source(family, prog, types, [fn for fn, _ in q.values], key_slots,
+                                     q.join)
         lib = build_generated(family, text)
         if family == "fused_select_agg":
             gen = _Generated(lib.fsa_gen_launch, lib.fsa_gen_scratch_bytes, "fsa_gen")
-        else:
+        elif family == "grouped_select_agg":
             gen = _Generated(lib.gsa_gen_launch, lib.gsa_gen_scratch_bytes,
                              GEN_ROUTES[1 + lib.gsa_gen_route()])
+        else:
+            gen = _Generated(lib.gja_gen_launch, lib.gja_gen_scratch_bytes,
+                             GEN_ROUTES[4 + lib.gja_gen_route()], lib.gja_gen_build)
         q.kernels[types] = gen
     return gen
 
@@ -356,19 +328,6 @@ def _grouped_select_launch(table: rt.VecTable, pred: Optional[Expr], keys: Tuple
     return cnt, acc, q.index
 
 
-def build_tables(right: rt.VecTable, right_on: Sequence[str], names: Sequence[str],
-                 join_key_domains: Sequence[Tuple[int, int]], join_num_buckets: int
-                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Dense build tables over the join-bucket axis, made in torch outside
-    the kernel: a presence table, and each of ``names`` gathered at the
-    first build row of each bucket (duplicate keys: first occurrence wins),
-    in the column's own dtype."""
-    ridx = rt.build_first_index(right, right_on, join_key_domains, join_num_buckets)
-    present = ridx < right.capacity
-    ridx_c = torch.clamp(ridx, max=right.capacity - 1)
-    return present, [right.cols[n][ridx_c] for n in names]
-
-
 def grouped_join_agg(left: rt.VecTable, right: rt.VecTable, *, left_on: Sequence[str],
                      right_on: Sequence[str],
                      join_key_domains: Sequence[Tuple[int, int]],
@@ -379,49 +338,120 @@ def grouped_join_agg(left: rt.VecTable, right: rt.VecTable, *, left_on: Sequence
     """(probe VecTable, build VecTable) → Vec⟨keys+aggs⟩ in one pass over
     the probe side (``vec.FusedJoinGroupAgg`` under ``use_kernels``)."""
     kw = dict(left_on=tuple(left_on), right_on=tuple(right_on),
-              join_key_domains=tuple(join_key_domains),
+              join_key_domains=tuple((int(lo), int(hi)) for lo, hi in join_key_domains),
               join_num_buckets=int(join_num_buckets), keys=tuple(keys),
               aggs=tuple(aggs), max_groups=int(max_groups),
-              key_domains=tuple(key_domains), num_buckets=int(num_buckets), pred=pred)
+              key_domains=tuple((int(lo), int(hi)) for lo, hi in key_domains),
+              num_buckets=int(num_buckets), pred=pred)
     if not _on_card(left, right):
         return ref.grouped_join_agg(left, right, **kw)
-    from .build import entry
+    call = _join_call(left, right, pred, kw["left_on"], kw["right_on"], kw["join_key_domains"],
+                      kw["join_num_buckets"], kw["keys"], kw["aggs"], kw["key_domains"],
+                      kw["num_buckets"])
+    _join_build(call)
+    cnt, acc = _join_probe(call)
+    key_dtypes = [left.cols[k].dtype if k in left.cols else right.cols[k].dtype
+                  for k in kw["keys"]]
+    return _grouped_epilogue(cnt, acc, kw["keys"], key_dtypes, kw["aggs"], kw["max_groups"],
+                             kw["key_domains"], kw["num_buckets"], call.index)
 
+
+class _JoinCall(NamedTuple):
+    """One grouped_join_agg call up to its launches: the query's generated
+    kernel, its column pointers (probe, build, build keys), the tables, the
+    stream's workspace (the first-row table, then the route's partials)."""
+
+    gen: _Generated
+    ptrs: np.ndarray
+    left: rt.VecTable
+    right: rt.VecTable
+    ticket: torch.Tensor
+    scratch: torch.Tensor
+    stream: int
+    n_values: int
+    num_buckets: int
+    index: List[int]
+
+
+def _join_query(left: rt.VecTable, right: rt.VecTable, pred: Optional[Expr],
+                aggs: Tuple[AggSpec, ...], left_on: Tuple[str, ...], right_on: Tuple[str, ...],
+                join_domains: tuple, keys: Tuple[str, ...], domains: tuple) -> _Query:
+    """grouped_join_agg's query, looked up by the query and the two sides'
+    column names: the probe columns it reads (the predicate's, the join
+    keys, the values' and keys' where the probe has them), the build
+    columns (the values' and keys' the probe lacks), then the build keys."""
+    key = ("grouped_join_agg", pred, tuple((a.fn, a.expr) for a in aggs if a.fn != "count"),
+           keys, domains, left_on, right_on, join_domains, tuple(left.cols), tuple(right.cols))
+    q = _QUERIES.get(key)
+    if q is None:
+        if not len(left_on) == len(right_on) == len(join_domains):
+            raise ValueError(f"grouped_join_agg: join keys {left_on} = {right_on} over "
+                             f"{len(join_domains)} domains")
+        values, index = _distinct_values(_value_aggs(aggs))
+        pred_fields = set(pred.fields()) if pred is not None else set()
+        if not pred_fields <= set(left.cols):
+            raise ValueError("grouped_join_agg: the predicate may read probe columns only")
+        need = set(keys) | {f for _, e in values for f in e.fields()}
+        lnames = tuple(sorted(pred_fields | set(left_on) | (need & set(left.cols))))
+        rnames = tuple(sorted(need - set(left.cols)))
+        missing = [f for f in rnames if f not in right.cols or f in right_on]
+        if missing:
+            raise ValueError(f"grouped_join_agg: {missing} are columns of neither side's "
+                             "joined result")
+        sizes = [(lo, hi - lo + 1) for lo, hi in join_domains]
+        join = codegen.Join(
+            len(lnames), len(rnames),
+            [(lnames.index(k), lo, size) for k, (lo, size) in zip(left_on, sizes)],
+            [(len(lnames) + len(rnames) + i, lo, size) for i, (lo, size) in enumerate(sizes)])
+        q = _QUERIES[key] = _Query(lnames + rnames + right_on, values, index, {}, join)
+    return q
+
+
+def _join_call(left: rt.VecTable, right: rt.VecTable, pred: Optional[Expr],
+               left_on: Tuple[str, ...], right_on: Tuple[str, ...], join_domains: tuple,
+               join_buckets: int, keys: Tuple[str, ...], aggs: Tuple[AggSpec, ...],
+               domains: tuple, nb: int) -> _JoinCall:
+    """The checks, the query's kernel (generated at its first use) and the
+    stream's workspace of one grouped_join_agg call."""
     dev = left.device
-    keys, aggs = kw["keys"], kw["aggs"]
-    vaggs = _value_aggs(aggs)
-    agg_fields = {f for a in vaggs for f in a.expr.fields()}
-    pred_fields = set(pred.fields()) if pred is not None else set()
-    if not pred_fields <= set(left.cols):
-        raise ValueError("grouped_join_agg: the predicate may read probe columns only")
-    rnames = tuple(sorted((set(keys) | agg_fields) & (set(right.cols) - set(right_on))))
-    lnames = tuple(sorted(pred_fields | set(left_on)
-                          | ((set(keys) | agg_fields) & set(left.cols))))
-    lcols = _columns(left, lnames, "grouped_join_agg probe")
-    _columns(right, rnames, "grouped_join_agg build")
-    nbj = kw["join_num_buckets"]
-    present, tables = build_tables(right, right_on, rnames, kw["join_key_domains"], nbj)
-    names = lnames + rnames
-    c = _Cols(lcols + tables, [0] * len(lcols) + [1] * len(tables))
-    prog, code = _program(pred, tuple(a.expr for a in vaggs), names, c.vm_types, dev)
-    jslots, jlo, jsize = _keys([names.index(k) for k in left_on], kw["join_key_domains"])
-    gslots, glo, gsize = _keys([names.index(k) for k in keys], kw["key_domains"])
-    nb = kw["num_buckets"]
-    cnt, acc = _grouped_buffers(len(vaggs), nb, dev)
-    fns = _fns(vaggs)
-    err = entry("grouped_join_agg")(
-        code.data_ptr(), prog.n_pred, len(prog.code), c.ptrs.ctypes.data,
-        c.types.ctypes.data, c.src.ctypes.data, c.n, left.valid.data_ptr(),
-        left.capacity, jslots.ctypes.data, jlo.ctypes.data, jsize.ctypes.data,
-        len(left_on), present.data_ptr(), gslots.ctypes.data, glo.ctypes.data,
-        gsize.ctypes.data, len(keys), fns.ctypes.data, len(vaggs), nb,
-        cnt.data_ptr(), acc.data_ptr(), _stream(dev))
+    q = _join_query(left, right, pred, aggs, left_on, right_on, join_domains, keys, domains)
+    n_probe, n_build = q.join.n_probe, q.join.n_build
+    cols = (_columns(left, q.names[:n_probe], "grouped_join_agg probe")
+            + _columns(right, q.names[n_probe:], "grouped_join_agg build"))
+    if join_buckets != math.prod(hi - lo + 1 for lo, hi in join_domains):
+        raise ValueError(f"grouped_join_agg: {join_buckets} join buckets for key domains "
+                         f"{join_domains}")
+    if nb != math.prod(hi - lo + 1 for lo, hi in domains):
+        raise ValueError(f"grouped_join_agg: {nb} buckets for key domains {domains}")
+    if right.capacity >= 2 ** 31:
+        raise ValueError(f"grouped_join_agg: {right.capacity} build rows; the first-row "
+                         "table holds int32")
+    gen = _generated("grouped_join_agg", pred, q,
+                     tuple(exprcode.column_type(c.dtype) for c in cols), keys, domains)
+    stream = _stream(dev)
+    ticket, scratch = _gen_workspace(dev, stream, gen.scratch_bytes(left.capacity))
+    return _JoinCall(gen, _pointers(cols), left, right, ticket, scratch, stream, len(q.values),
+                     nb, q.index)
+
+
+def _join_build(call: _JoinCall) -> None:
+    """grouped_join_agg's build: the first-row table of the build side."""
+    err = call.gen.build(call.ptrs.ctypes.data, call.right.valid.data_ptr(), call.right.capacity,
+                         call.scratch.data_ptr(), call.stream)
+    _raise_on(err, "grouped_join_agg build")
+
+
+def _join_probe(call: _JoinCall) -> Tuple[torch.Tensor, torch.Tensor]:
+    """grouped_join_agg's probe, after its build on the same stream: →
+    (counts (nb,), values (distinct values, nb))."""
+    cnt, acc = _grouped_buffers(call.n_values, call.num_buckets, call.left.device)
+    err = call.gen.launch(call.ptrs.ctypes.data, call.left.valid.data_ptr(), call.left.capacity,
+                          call.right.capacity, call.scratch.data_ptr(), call.ticket.data_ptr(),
+                          cnt.data_ptr(), acc.data_ptr(), call.stream)
     _raise_on(err, "grouped_join_agg")
     LAUNCHES["grouped_join_agg"] += 1
-    key_dtypes = [left.cols[k].dtype if k in left.cols else right.cols[k].dtype
-                  for k in keys]
-    return _grouped_epilogue(cnt, acc, keys, key_dtypes, aggs, kw["max_groups"],
-                             kw["key_domains"], nb)
+    GEN_LAUNCHES[call.gen.route] += 1
+    return cnt, acc
 
 
 def _check_matrix(t: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> None:
@@ -433,28 +463,6 @@ def _check_matrix(t: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> N
         raise ValueError(f"{what} is not contiguous")
 
 
-def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """(n, d) f32 rows summed by segment id (n,) int32 → (num_segments, d)
-    f32; ids outside [0, num_segments) are dropped."""
-    if not _on_card(data, seg_ids):
-        return ref.segsum(data, seg_ids, num_segments)
-    from .build import entry
-
-    _check_matrix(data, torch.float32, 2, "segsum data")
-    _check_matrix(seg_ids, torch.int32, 1, "segsum ids")
-    n, d = data.shape
-    if seg_ids.shape[0] != n:
-        raise ValueError(f"segsum: {seg_ids.shape[0]} ids for {n} rows")
-    if d < 1 or num_segments < 1:
-        raise ValueError(f"segsum takes d ≥ 1 and num_segments ≥ 1, not {d}, {num_segments}")
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
-    err = entry("segsum")(data.data_ptr(), seg_ids.data_ptr(), n, d, num_segments,
-                          out.data_ptr(), _stream(data.device))
-    _raise_on(err, "segsum")
-    LAUNCHES["segsum"] += 1
-    return out
-
-
 #: the kmeans_step kernels: on the tensor cores (d ≤ 32, k ≤ 64 and
 #: roundup(k, 16)·roundup(d, 8) ≤ 512, with the roundings to 16/32/64 and
 #: 8/16/32) and on the CUDA cores (every other shape the kernel takes)
@@ -462,18 +470,24 @@ KMEANS_ROUTES = ("kms_tc", "kms_main")
 #: kmeans_step calls that launched each route's kernel
 KMEANS_LAUNCHES: Dict[str, int] = {r: 0 for r in KMEANS_ROUTES}
 
-#: per (device, stream): kms_tc's zeroed tickets, which its finishing blocks
-#: take and set back to 0, and the kernels' scratch (launches on one stream
-#: run in turn, so they share both)
-_KMS_STREAM: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-#: kmeans_step's constants, its route per shape, the SMs of each card
-_KMS: Dict[Any, Any] = {}
+#: the segsum kernels: on the tensor cores (seg_tc, kms_tc's range) and on
+#: the CUDA cores (seg_main, every other shape)
+SEGSUM_ROUTES = ("seg_tc", "seg_main")
+#: segsum calls that launched each route's kernel
+SEGSUM_LAUNCHES: Dict[str, int] = {r: 0 for r in SEGSUM_ROUTES}
+
+#: per (device, stream): the tensor-core kernels' (kms_tc, seg_tc) zeroed
+#: tickets, which their finishing blocks take and set back to 0, and the
+#: kernels' scratch (launches on one stream run in turn, so they share both)
+_TC_STREAM: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: the libraries' constants, the routes per shape, the SMs of each card
+_CACHED: Dict[Any, Any] = {}
 
 
-def _kms(key: Any, make: Callable[[], Any]) -> Any:
-    if key not in _KMS:
-        _KMS[key] = make()
-    return _KMS[key]
+def _cached(key: Any, make: Callable[[], Any]) -> Any:
+    if key not in _CACHED:
+        _CACHED[key] = make()
+    return _CACHED[key]
 
 
 def kmeans_step_route(d: int, k: int) -> str:
@@ -481,41 +495,43 @@ def kmeans_step_route(d: int, k: int) -> str:
     ``k`` centroids on the card (``kms_route`` in ``kmeans_step.cu``)."""
     from .build import library
 
-    return _kms(("route", d, k), lambda: KMEANS_ROUTES[
+    return _cached(("kms_route", d, k), lambda: KMEANS_ROUTES[
         0 if library("kmeans_step").kms_route(d, k) else 1])
 
 
-def kmeans_step_tiling(n: int, d: int, k: int, device: torch.device) -> ref.KmsTiling:
-    """How the tensor-core kernel (``kms_tc``) cuts ``n`` points of width
-    ``d`` with ``k`` centroids on the card ``device``: the order of its
-    sums, which ``ref.kmeans_step_tiled`` follows (``kms_tc_grid`` in
-    ``kmeans_step.cu``, for that card's SMs)."""
+def onehot_tiling(n: int, d: int, k: int, device: torch.device) -> ref.KmsTiling:
+    """How the tensor-core kernels (``kms_tc``, ``seg_tc``; both built from
+    ``csrc/onehot.cuh``) cut ``n`` points of width ``d`` with ``k`` labels
+    on the card ``device``: the order of their sums, which
+    ``ref.kmeans_step_tiled`` and ``ref.segsum_tiled`` follow
+    (``kms_tc_grid`` in ``kmeans_step.cu``, for that card's SMs)."""
     from .build import constant, library
 
     lib = library("kmeans_step")
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    sms = _kms(("sms", index),
-               lambda: torch.cuda.get_device_properties(index).multi_processor_count)
-    tile, warps, group = _kms(("tiling", d), lambda: (
+    tile, warps, group = _cached(("onehot_tiling", d), lambda: (
         lib.kms_tc_tile_points(d), constant("kmeans_step", "kms_tc_warps"),
         constant("kmeans_step", "kms_tc_group")))
-    return ref.KmsTiling(tile, warps, lib.kms_tc_grid(n, d, k, sms), group)
+    return ref.KmsTiling(tile, warps, lib.kms_tc_grid(n, d, k, _sms(device)), group)
 
 
-def _kms_workspace(device: torch.device, stream: int, nbytes: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tickets, scratch of at least ``nbytes``) for launches on ``stream``."""
-    from .build import constant
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _cached(("sms", index),
+                   lambda: torch.cuda.get_device_properties(index).multi_processor_count)
 
+
+def _tc_workspace(device: torch.device, stream: int, tickets: int, nbytes: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(at least ``tickets`` zeroed tickets, scratch of at least ``nbytes``)
+    for launches on ``stream``."""
     key = (device.index, stream)
-    tickets, scratch = _KMS_STREAM.get(key, (None, None))
-    if tickets is None:
-        tickets = torch.zeros(constant("kmeans_step", "kms_tickets"), dtype=torch.int32,
-                              device=device)
+    held, scratch = _TC_STREAM.get(key, (None, None))
+    if held is None or held.numel() < tickets:
+        held = torch.zeros(tickets, dtype=torch.int32, device=device)
     if scratch is None or scratch.numel() < nbytes:
         scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=device)
-    _KMS_STREAM[key] = (tickets, scratch)
-    return tickets, scratch
+    _TC_STREAM[key] = (held, scratch)
+    return held, scratch
 
 
 def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -533,25 +549,66 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     (n, d), k = x.shape, c.shape[0]
     if c.shape[1] != d:
         raise ValueError(f"kmeans_step: points of width {d}, centroids of width {c.shape[1]}")
-    max_d = _kms("max_d", lambda: constant("kmeans_step", "kms_max_d"))
+    max_d = _cached("max_d", lambda: constant("kmeans_step", "kms_max_d"))
     if not (1 <= d <= max_d) or k < 1:
         raise ValueError(f"kmeans_step takes 1 ≤ d ≤ {max_d} and k ≥ 1, not d={d}, k={k}")
     route = kmeans_step_route(d, k)
-    grid = kmeans_step_tiling(n, d, k, x.device).grid if route == "kms_tc" else 0
+    grid = onehot_tiling(n, d, k, x.device).grid if route == "kms_tc" else 0
     stream = _stream(x.device)
-    tickets, scratch = _kms_workspace(
-        x.device, stream, library("kmeans_step").kms_scratch_bytes(grid, d, k))
+    tickets, scratch = _tc_workspace(
+        x.device, stream, _cached("kms_tickets", lambda: constant("kmeans_step", "kms_tickets")),
+        library("kmeans_step").kms_scratch_bytes(grid, d, k))
     out = torch.empty(k * d + k, dtype=torch.float32, device=x.device)  # sums, then counts
     err = entry("kmeans_step")(x.data_ptr(), c.data_ptr(), n, d, k, out.data_ptr(),
                                out.data_ptr() + 4 * k * d, scratch.data_ptr(),
                                tickets.data_ptr(), grid, stream)
-    if err == _kms("err_table", lambda: constant("kmeans_step", "kms_err_table")):
+    if err == _cached("err_table", lambda: constant("kmeans_step", "kms_err_table")):
         raise ValueError(f"kmeans_step: {k} centroids of width {d} do not fit in the "
                          "card's opt-in shared memory per block")
     _raise_on(err, "kmeans_step")
     LAUNCHES["kmeans_step"] += 1
     KMEANS_LAUNCHES[route] += 1
     return out[:k * d].view(k, d), out[k * d:]
+
+
+def segsum_route(d: int, k: int) -> str:
+    """The kernel ``segsum`` launches for rows of width ``d`` and ``k``
+    segments on the card (``seg_route`` in ``segsum.cu``)."""
+    from .build import library
+
+    return _cached(("seg_route", d, k), lambda: SEGSUM_ROUTES[
+        0 if library("segsum").seg_route(d, k) else 1])
+
+
+def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(n, d) f32 rows summed by segment id (n,) int32 → (num_segments, d)
+    f32; ids outside [0, num_segments) are dropped.  On the card the shape
+    picks the kernel (``segsum_route``); the tensor-core one's arithmetic
+    is ``ref.segsum_tiled``, and its sums are the same on every run."""
+    if not _on_card(data, seg_ids):
+        return ref.segsum(data, seg_ids, num_segments)
+    from .build import constant, entry, library
+
+    _check_matrix(data, torch.float32, 2, "segsum data")
+    _check_matrix(seg_ids, torch.int32, 1, "segsum ids")
+    n, d = data.shape
+    if seg_ids.shape[0] != n:
+        raise ValueError(f"segsum: {seg_ids.shape[0]} ids for {n} rows")
+    if d < 1 or num_segments < 1:
+        raise ValueError(f"segsum takes d ≥ 1 and num_segments ≥ 1, not {d}, {num_segments}")
+    route = segsum_route(d, num_segments)
+    grid = onehot_tiling(n, d, num_segments, data.device).grid if route == "seg_tc" else 0
+    stream = _stream(data.device)
+    tickets, scratch = _tc_workspace(
+        data.device, stream, _cached("seg_tickets", lambda: constant("segsum", "seg_tickets")),
+        library("segsum").seg_scratch_bytes(grid, d, num_segments))
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=data.device)
+    err = entry("segsum")(data.data_ptr(), seg_ids.data_ptr(), n, d, num_segments,
+                          out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), grid, stream)
+    _raise_on(err, "segsum")
+    LAUNCHES["segsum"] += 1
+    SEGSUM_LAUNCHES[route] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -41,11 +41,12 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
 
 class KmsTiling(NamedTuple):
-    """How the tensor-core kmeans_step cuts its work, which fixes the order
-    of its sums: ``tile`` points per tile, cut among ``warps`` consumer
+    """How the tensor-core kernels (kmeans_step's ``kms_tc``, segsum's
+    ``seg_tc``; ``csrc/onehot.cuh``) cut their work, which fixes the order
+    of their sums: ``tile`` points per tile, cut among ``warps`` consumer
     warps; a grid of ``grid`` blocks, block b taking tiles b, b + grid, …;
-    the blocks' partials added in groups of ``group``.  The kernel's own
-    for a call come from ``ops.kmeans_step_tiling``."""
+    the blocks' partials added in groups of ``group``.  A kernel's own for a
+    call come from ``ops.onehot_tiling``."""
 
     tile: int
     warps: int
@@ -120,24 +121,45 @@ def kmeans_labels_tiled(x: torch.Tensor, c: torch.Tensor, *, split: bool = True)
 def kmeans_step_tiled(x: torch.Tensor, c: torch.Tensor, tiling: KmsTiling, *,
                       split: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core kmeans_step's arithmetic in plain torch, in the
-    order ``tiling`` gives: labels by ``kmeans_labels_tiled``; each warp's
-    slice of each tile summed as one_hot·x_hi + one_hot·x_lo; each warp's
-    slices added in tile order, a block's warps in order, the blocks in
-    groups in order, then the groups in order.  Counts exact.  Same
-    outputs as ``kmeans_step``."""
-    n, d = x.shape
+    order ``tiling`` gives: labels by ``kmeans_labels_tiled``, the sums by
+    ``onehot_sums_tiled``.  Counts exact.  Same outputs as
+    ``kmeans_step``."""
     k = c.shape[0]
     lab = kmeans_labels_tiled(x, c, split=split)
+    return onehot_sums_tiled(x, lab, k, tiling), rt.segment_count(lab, k)
+
+
+def segsum_tiled(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+                 tiling: KmsTiling) -> torch.Tensor:
+    """The tensor-core segsum's (``seg_tc``) arithmetic in plain torch, in
+    the order ``tiling`` gives: ``onehot_sums_tiled`` with the ids as
+    labels, ids outside [0, num_segments) dropped.  Same output as
+    ``segsum``."""
+    ids = seg_ids.long()
+    lab = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    return onehot_sums_tiled(data, lab, num_segments, tiling)
+
+
+def onehot_sums_tiled(x: torch.Tensor, lab: torch.Tensor, k: int,
+                      tiling: KmsTiling) -> torch.Tensor:
+    """Rows of ``x`` (n, d) summed by label (n,) into (k, d) as the
+    tensor-core kernels add them (``csrc/onehot.cuh``), a label k dropped:
+    each warp's slice of each tile summed as one_hot·x_hi + one_hot·x_lo
+    (``tf32_points``); each warp's slices added in tile order, a block's
+    warps in order, the blocks in groups in order, then the groups in
+    order."""
+    n, d = x.shape
+    kk = k + 1  # the dropped rows' label
     warps, grid, group = tiling.warps, tiling.grid, tiling.group
     per_warp = tiling.tile // warps
     its = max(1, -(-n // (tiling.tile * grid)))
     xh, xl = tf32_points(x.float())
-    slot = torch.arange(n, device=x.device) // per_warp * k + lab
-    part = torch.zeros((its * grid * warps * k, d), dtype=torch.float32, device=x.device)
+    slot = torch.arange(n, device=x.device) // per_warp * kk + lab
+    part = torch.zeros((its * grid * warps * kk, d), dtype=torch.float32, device=x.device)
     lo = torch.zeros_like(part)
     part.index_add_(0, slot, xh)
     lo.index_add_(0, slot, xl)
-    part = (part + lo).view(its, grid, warps, k, d)
+    part = (part + lo).view(its, grid, warps, kk, d)
     run = part[0]
     for i in range(1, its):
         run = run + part[i]
@@ -145,16 +167,16 @@ def kmeans_step_tiled(x: torch.Tensor, c: torch.Tensor, tiling: KmsTiling, *,
     for w in range(1, warps):
         blk = blk + run[:, w]
     groups = -(-grid // group)
-    padded = torch.zeros((groups * group, k, d), dtype=torch.float32, device=x.device)
+    padded = torch.zeros((groups * group, kk, d), dtype=torch.float32, device=x.device)
     padded[:grid] = blk
-    padded = padded.view(groups, group, k, d)
+    padded = padded.view(groups, group, kk, d)
     per_group = padded[:, 0]
     for m in range(1, group):
         per_group = per_group + padded[:, m]
     sums = per_group[0]
     for g in range(1, groups):
         sums = sums + per_group[g]
-    return sums, rt.segment_count(lab, k)
+    return sums[:k]
 
 
 def fused_select_agg(table: rt.VecTable, pred: Expr,

@@ -12,8 +12,12 @@ the JAX package's ``repro.core.expr.evaluate``: predicates exactly, values
 within rtol 1e-6, since XLA may fuse a multiply and an add into one FMA
 where the program rounds twice.  The cases: those of
 ``tests/test_torch_exprcode.py``, Q6's and Q19's predicates as the TPC-H
-path hands them to ``fused_select_agg``, and a predicate deeper than the
-interpreter's stack.  The tests skip where no ``g++`` is found.
+path hands them to ``fused_select_agg``, a predicate deeper than the
+default stack limit, and ``grouped_join_agg``'s row functions (the checked
+join buckets of both sides, the build columns loaded at the first build
+row of a bucket, the values and the clipped group bucket over the joined
+columns) run as its build and probe kernels run them, row by row, against
+the same join done in numpy.  The tests skip where no ``g++`` is found.
 
 Also here: the generated text and the generated library's path follow the
 query, its constants and column types and the headers the text includes;
@@ -70,16 +74,57 @@ def gxx():
     return found
 
 
-def _host_rows(gxx, tmp, text):
-    """The generated row functions ``text`` built for the host; returns a
-    function of the columns (slot order) → (predicate, values, buckets)."""
+JOIN_HARNESS = r"""
+// grouped_join_agg's build and probe, one row at a time: the first-row
+// table (the lowest valid in-domain build row per join bucket, m where
+// none), then for each probe row whether it is aggregated, its values and
+// its group bucket
+extern "C" void join_eval(const void* const* cols, long long n, const uint8_t* valid,
+                          long long m, const uint8_t* build_valid, int* first, uint8_t* ok_out,
+                          float* vals, long long* buckets) {
+  const GenCols c = gen_cols(cols);
+  for (long long b = 0; b < GEN_NJB; ++b) first[b] = static_cast<int>(m);
+  for (long long j = 0; j < m; ++j) {
+    if (!build_valid[j]) continue;
+    uint32_t ok = 1u;
+    const long long b = gen_build_jbucket(c, j, &ok);
+    if (ok && j < first[b]) first[b] = static_cast<int>(j);
+  }
+  for (long long i = 0; i < n; ++i) {
+    GenRow r{};
+    gen_load_pred(r, c, i);
+    uint32_t ok = valid[i] & gen_pred(r);
+    if (ok) {
+      gen_load_rest(r, c, i);
+      const long long jb = gen_jbucket(r, &ok);
+      if (ok && first[jb] < m) gen_load_build(r, c, first[jb]);
+      else ok = 0u;
+    }
+    ok_out[i] = static_cast<uint8_t>(ok);
+    if (!ok) continue;
+    float v[GEN_NV1];
+    gen_values(r, v);
+    for (int k = 0; k < GEN_NV; ++k) vals[k * n + i] = v[k];
+    buckets[i] = gen_bucket(r);
+  }
+}
+"""
+
+
+def _host_lib(gxx, tmp, text, harness):
     tmp.mkdir(parents=True, exist_ok=True)
     src, lib = tmp / "rows.cpp", tmp / "rows.so"
-    src.write_text(text + HARNESS)
+    src.write_text(text + harness)
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
                     "-I", str(build.CSRC), "-o", str(lib), str(src)], check=True,
                    capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).rows_eval
+    return ctypes.CDLL(str(lib))
+
+
+def _host_rows(gxx, tmp, text):
+    """The generated row functions ``text`` built for the host; returns a
+    function of the columns (slot order) → (predicate, values, buckets)."""
+    fn = _host_lib(gxx, tmp, text, HARNESS).rows_eval
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
     fn.restype = None
 
@@ -349,3 +394,143 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     ops.fused_select_agg(t, texpr.col("x") > 0.0, aggs)
     ops.grouped_select_agg(t, None, ("a",), aggs, 3, ((0, 2),), 3)
     assert ops.GEN_LAUNCHES == {r: 0 for r in ops.GEN_ROUTES}
+
+
+# ---------------------------------------------------------------------------
+# grouped_join_agg's row functions
+# ---------------------------------------------------------------------------
+
+
+def _join_tables(seed=6, n=2003, m=97):
+    """A probe side whose join keys lie partly outside [0, 29] and whose
+    group key ``k`` runs past its domain [0, 5]; a build side with
+    duplicate keys, invalid rows and keys outside the domain."""
+    rng = np.random.default_rng(seed)
+    left = {"a": rng.integers(-50, 50, n).astype(np.int32),
+            "x": rng.uniform(-2, 2, n).astype(np.float32),
+            "fk": rng.integers(-3, 34, n).astype(np.int32),
+            "k": rng.integers(0, 9, n).astype(np.int32),
+            "b": rng.random(n) < 0.4}
+    right = {"rk": rng.integers(-2, 33, m).astype(np.int32),
+             "w": rng.uniform(0, 5, m).astype(np.float32),
+             "g": rng.integers(0, 3, m).astype(np.int32),
+             "flag": rng.random(m) < 0.5}
+    return (left, rng.random(n) < 0.9), (right, rng.random(m) < 0.85)
+
+
+def _join_aggs(m):
+    return (m.AggSpec("sum", m.col("w") * m.col("x"), "s"),
+            m.AggSpec("max", m.col("g") + m.col("a"), "mx"),
+            m.AggSpec("sum", m.col("flag"), "nf"),
+            m.AggSpec("count", m.const(1), "c"))
+
+
+JOIN_KEYS, JOIN_DOMS = ("k", "g"), ((0, 5), (0, 2))
+
+
+def _join_text(monkeypatch, left, right, pred, aggs):
+    """grouped_join_agg's generated text for the call, as ``ops`` makes it
+    (the build is faked), with the query's column layout."""
+    texts = []
+
+    class Lib:
+        def __init__(self, text):
+            texts.append(text)
+            self.gja_gen_launch = self.gja_gen_scratch_bytes = self.gja_gen_build = object()
+
+        def gja_gen_route(self):
+            return 0
+
+    monkeypatch.setattr(build, "build_generated", lambda family, text: Lib(text))
+    monkeypatch.setattr(ops, "_QUERIES", {})
+    q = ops._join_query(left, right, pred, aggs, ("fk",), ("rk",), ((0, 29),), JOIN_KEYS,
+                        JOIN_DOMS)
+    cols = [left.cols[n] if j < q.join.n_probe else right.cols[n] for j, n in enumerate(q.names)]
+    gen = ops._generated("grouped_join_agg", pred, q,
+                         tuple(exprcode.column_type(c.dtype) for c in cols), JOIN_KEYS, JOIN_DOMS)
+    assert gen.route == "gja_reg" and len(texts) == 1
+    return texts[0], q, cols
+
+
+def test_join_rows_match_interpreter_and_jax(gxx, tmp_path, monkeypatch):
+    (lc, lv), (rc, rv) = _join_tables()
+    left, right = vectable_from_arrays(lc, lv, "cpu"), vectable_from_arrays(rc, rv, "cpu")
+    pred = (texpr.col("a") > -30) & ~texpr.col("b")
+    aggs = _join_aggs(texpr)
+    text, q, cols = _join_text(monkeypatch, left, right, pred, aggs)
+    assert q.names == ("a", "b", "fk", "k", "x", "flag", "g", "w", "rk")
+    n, m = len(lv), len(rv)
+    rows = text[:text.rindex('#include "grouped_join_agg.cu"')]  # the row functions only
+    fn = _host_lib(gxx, tmp_path, rows, JOIN_HARNESS).join_eval
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 5
+    fn.restype = None
+    arrays = [np.ascontiguousarray(c.numpy()) for c in cols]
+    ptrs = np.array([c.ctypes.data for c in arrays], np.uint64)
+    first = np.zeros(30, np.int32)
+    ok = np.zeros(n, np.uint8)
+    vals = np.zeros((len(q.values), n), np.float32)
+    buckets = np.zeros(n, np.int64)
+    lvalid, rvalid = lv.astype(np.uint8), rv.astype(np.uint8)
+    fn(ptrs.ctypes.data, n, lvalid.ctypes.data, m, rvalid.ctypes.data, first.ctypes.data,
+       ok.ctypes.data, vals.ctypes.data, buckets.ctypes.data)
+    # the same join in numpy: first valid in-domain build row per bucket
+    want_first = np.full(30, m, np.int64)
+    for j in range(m):
+        if rv[j] and 0 <= rc["rk"][j] < 30:
+            want_first[rc["rk"][j]] = min(want_first[rc["rk"][j]], j)
+    np.testing.assert_array_equal(first, want_first)
+    assert (want_first < m).sum() < 30 and (rc["rk"] < 0).any() and (rc["rk"] >= 30).any()
+    row = want_first[np.clip(lc["fk"], 0, 29)]
+    found = (lc["fk"] >= 0) & (lc["fk"] < 30) & (row < m)
+    joined = {**lc, **{f: rc[f][np.minimum(row, m - 1)] for f in ("w", "g", "flag")}}
+    prog = exprcode.compile_program(pred, [e for _, e in q.values],
+                                    {n_: exprcode.column_type(joined[n_].dtype)
+                                     for n_ in q.names[:-1]},
+                                    {n_: j for j, n_ in enumerate(q.names[:-1])}, max_stack=None)
+    want = exprcode.interpret(prog, [joined[n_] for n_ in q.names[:-1]])
+    want_ok = lv & want[0] & found
+    np.testing.assert_array_equal(ok.astype(bool), want_ok)
+    assert 0 < want_ok.sum() < (lv & want[0]).sum()  # rows dropped by the join
+    for k, w in enumerate(want[1:]):
+        np.testing.assert_array_equal(vals[k][want_ok].view(np.int32),
+                                      w[want_ok].view(np.int32))  # the same bits
+    want_bucket = np.clip(joined["k"], 0, 5).astype(np.int64) * 3 + np.clip(joined["g"], 0, 2)
+    np.testing.assert_array_equal(buckets[want_ok], want_bucket[want_ok])
+    assert (joined["k"][want_ok] > 5).any()  # group keys past the domain clip
+    # and against the JAX package's evaluation of the same expressions
+    sel = {f: v[want_ok] for f, v in joined.items()}
+    np.testing.assert_array_equal(_jax(pred, {f: v for f, v in joined.items()})[want_ok],
+                                  np.ones(want_ok.sum(), bool))
+    for (_, e), g in zip(q.values, vals):
+        np.testing.assert_allclose(g[want_ok], _jax(e, sel).astype(np.float32), rtol=1e-6)
+
+
+def test_join_text_follows_the_query(monkeypatch):
+    """The join family's text: the join domain and the build key's slot
+    in the checked join buckets, the build columns loaded at the build row
+    (only the ones the values and keys read), the predicate over probe
+    columns only; another join domain or predicate constant is another
+    kernel."""
+    (lc, lv), (rc, rv) = _join_tables()
+    left, right = vectable_from_arrays(lc, lv, "cpu"), vectable_from_arrays(rc, rv, "cpu")
+    x = texpr.col("x")
+    aggs = (texpr.AggSpec("sum", texpr.col("w") * x, "s"),)
+    text, q, _ = _join_text(monkeypatch, left, right, x < 0.5, aggs)
+    assert q.names == ("fk", "k", "x", "g", "w", "rk") and q.join.n_probe == 3
+    assert text.endswith('#include "grouped_join_agg.cu"\n')
+    assert "#define GEN_NJB 30LL" in text and "RF_LDG(c.c5 + i)" in text  # the build key
+    build_fn = text[text.index("gen_load_build"):text.index("RF_FN uint32_t gen_pred")]
+    assert "r.c3 = RF_LDG(c.c3 + i);" in build_fn and "r.c4 = RF_LDG(c.c4 + i);" in build_fn
+    assert "c.c0" not in build_fn and "c.c5" not in build_fn
+    assert "if (v < 0 || v >= 30LL) *ok = 0u;" in text  # checked, where the group key clips
+    assert text == _join_text(monkeypatch, left, right, x < 0.5, aggs)[0]
+    assert text != _join_text(monkeypatch, left, right, x < 0.25, aggs)[0]
+    with pytest.raises(ValueError, match="probe columns only"):
+        _join_text(monkeypatch, left, right, texpr.col("w") < 0.5, aggs)
+    prog = exprcode.compile_program(None, (), {}, {}, max_stack=None)
+    with pytest.raises(ValueError):
+        codegen.kernel_source("grouped_join_agg", prog, (), (), [])  # no join layout
+    with pytest.raises(ValueError, match="other domains"):
+        codegen.row_source(prog, ("i", "i"), (), [], codegen.Join(1, 0, [(0, 0, 30)],
+                                                                   [(1, 0, 31)]))

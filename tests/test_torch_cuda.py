@@ -8,8 +8,9 @@ machine with a card:
 
 Integers exact; floats within rtol 1e-4, because the kernels add float
 sums with atomics, in an order that changes from run to run (the
-tensor-core kmeans_step, fused_select_agg and grouped_select_agg's
-register route add in a fixed order: two runs agree bit for bit).  k-means
+tensor-core kmeans_step and segsum, fused_select_agg and the register
+route of grouped_select_agg and grouped_join_agg add in a fixed order: two
+runs agree bit for bit).  k-means
 steps go by the tie-margin rule of ``repro_torch.kmeans`` at rtol 1e-4:
 counts add up to n and sums to Σx whatever the ties, and each count and
 sum may move by what the points within a few f32 roundings of a tie carry.
@@ -82,10 +83,10 @@ def test_grouped_select_agg_on_card(card, keys, doms):
     _same(ops.grouped_select_agg(*args), ref.grouped_select_agg(*args))
 
 
-def _routed(fn, *args):
-    """fn(*args) and the generated kernel route its one launch took."""
+def _routed(fn, *args, **kw):
+    """fn(*args, **kw) and the generated kernel route its one launch took."""
     before = dict(ops.GEN_LAUNCHES)
-    out = fn(*args)
+    out = fn(*args, **kw)
     took = [r for r in ops.GEN_LAUNCHES if ops.GEN_LAUNCHES[r] != before[r]]
     assert len(took) == 1 and ops.GEN_LAUNCHES[took[0]] == before[took[0]] + 1
     return out, took[0]
@@ -158,6 +159,98 @@ def test_grouped_join_agg_on_card(card, keys, doms):
                     AggSpec("min", col("w") * col("x"), "mn"),
                     AggSpec("max", col("w"), "mx"), AggSpec("count", const(1), "c")))
     _same(ops.grouped_join_agg(t, right, **kw), ref.grouped_join_agg(t, right, **kw))
+
+
+def _build_side(card, m=6000, keys=4000, seed=3):
+    rng = np.random.default_rng(seed)
+    return vectable_from_arrays({"rk": rng.integers(0, keys, m).astype(np.int32),
+                                 "w": rng.uniform(0, 3, m).astype(np.float32),
+                                 "g": rng.integers(0, 3, m).astype(np.int32)},
+                                rng.random(m) < 0.95, card)
+
+
+JOIN_AGGS = (AggSpec("sum", col("w") * col("x"), "s"), AggSpec("min", col("w") * col("x"), "mn"),
+             AggSpec("max", col("w"), "mx"), AggSpec("count", const(1), "c"))
+
+
+# JOIN_AGGS has three values: 1 + 3 accumulators per group bucket, so the
+# reg route ends at 16 buckets and the smem route at 3072, as
+# grouped_select_agg's
+@pytest.mark.parametrize("nb,route", [(16, "gja_reg"), (17, "gja_smem"),
+                                      (3072, "gja_smem"), (3073, "gja_global")])
+def test_grouped_join_agg_routes_at_their_borders_on_card(card, nb, route):
+    t = _table(card)
+    kw = dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 3999),),
+              join_num_buckets=4000, keys=("a",), max_groups=nb, key_domains=((-50, nb - 51),),
+              num_buckets=nb, pred=col("x") < 1.5, aggs=JOIN_AGGS)
+    right = _build_side(card)
+    got, took = _routed(ops.grouped_join_agg, t, right, **kw)
+    assert took == route
+    torch.cuda.synchronize()
+    _same(got, ref.grouped_join_agg(t, right, **kw))
+
+
+def test_grouped_join_agg_duplicate_and_out_of_domain_keys_on_card(card):
+    """Duplicate and invalid build rows (first valid occurrence wins),
+    build keys outside the join domain (dropped), probe keys outside it
+    (dropped), a group key on the build side and one past its domain
+    (clipped), on the reg route; then the smallest presence case (probe key
+    0, build keys [2, 0]: one match)."""
+    t = _table(card)
+    rng = np.random.default_rng(4)
+    right = vectable_from_arrays({"rk": rng.integers(-50, 1200, 3000).astype(np.int32),
+                                  "w": rng.uniform(0, 3, 3000).astype(np.float32),
+                                  "g": rng.integers(0, 4, 3000).astype(np.int32)},
+                                 rng.random(3000) < 0.8, card)
+    kw = dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 999),),
+              join_num_buckets=1000, keys=("g", "k"), max_groups=15, key_domains=((0, 2), (0, 4)),
+              num_buckets=15, pred=col("a") > -40, aggs=JOIN_AGGS)
+    got, took = _routed(ops.grouped_join_agg, t, right, **kw)
+    assert took == "gja_reg"
+    _same(got, ref.grouped_join_agg(t, right, **kw))
+    left = vectable_from_arrays({"fk": np.array([0], np.int32)}, np.array([True]), card)
+    right = vectable_from_arrays({"rk": np.array([2, 0], np.int32)}, np.ones(2, bool), card)
+    out = ops.grouped_join_agg(left, right, left_on=("fk",), right_on=("rk",),
+                               join_key_domains=((0, 2),), join_num_buckets=3, keys=(),
+                               aggs=(AggSpec("count", const(1), "c"),), max_groups=1,
+                               key_domains=(), num_buckets=1)
+    assert out.to_numpy()["c"].tolist() == [1]
+
+
+def _tpch_join_calls(card, sf=0.05):
+    """The grouped_join_agg calls of Q4 and Q12 on a small TPC-H, as the
+    path makes them on the card."""
+    ctx = tpch.make_context(tpch.generate(sf=sf, seed=1))
+    calls, original = {}, ops.grouped_join_agg
+
+    def record(left, right, **kw):
+        calls[q] = (left, right, kw)
+        return original(left, right, **kw)
+
+    ops.grouped_join_agg = record
+    try:
+        for q in ("q4", "q12"):
+            tpch.QUERIES[q](ctx).collect(device=card)
+    finally:
+        ops.grouped_join_agg = original
+    return calls
+
+
+def test_grouped_join_agg_tpch_shapes_on_card_same_bits_twice(card):
+    """Q4's join (its build side a compacted inner result) and Q12's, as
+    the path makes them: the reg route, the plain version's result, the
+    same bits on a second run."""
+    for q, (left, right, kw) in _tpch_join_calls(card).items():
+        (first, took), (second, _) = (_routed(ops.grouped_join_agg, left, right, **kw),
+                                      _routed(ops.grouped_join_agg, left, right, **kw))
+        assert took == "gja_reg", q
+        _same(first, ref.grouped_join_agg(left, right, **kw))
+        assert torch.equal(first.valid, second.valid)
+        for k in first.cols:
+            a, b = first.cols[k], second.cols[k]
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (q, k)
 
 
 def test_tpch_on_card_matches_reference(card):
@@ -308,7 +401,7 @@ def test_kmeans_step_matches_its_recipe_on_card(card, n, d, k, offset):
     xt, ct = tensors_from_arrays(x, c, device=card)
     got, took = _routed_step(xt, ct)
     assert took == "kms_tc"
-    want = ref.kmeans_step_tiled(xt, ct, ops.kmeans_step_tiling(n, d, k, xt.device))
+    want = ref.kmeans_step_tiled(xt, ct, ops.onehot_tiling(n, d, k, xt.device))
     stats = kmeans.reference_step(x, c)
     kmeans.check_step("kms_tc vs recipe", got, want, stats, 1e-4)
     kmeans.check_step("kms_tc vs f64", got, (stats.sums, stats.counts), stats, 1e-4)
@@ -348,6 +441,49 @@ def test_segsum_on_card(card, n, d, k):
     got, want = ops.segsum(dt, it, k), ref.segsum(dt, it, k)
     torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
     assert bool((got[1] == 0).all())
+
+
+def _segsum_check(got, data, ids, k):
+    """The check of chip_smoke.py's check_segsum: rtol 1e-4 plus 1e-5 of the
+    segment's Σ|x| (another order's rounding)."""
+    want = ref.segsum(data, ids, k)
+    scale = ref.segsum(data.abs(), ids, k)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("n,d,k,shift", [
+    (1 << 20, 8, 16, (0, 0)), (1003, 8, 16, (0, 0)), (100, 8, 16, (0, 0)),
+    (777, 1, 3, (0, 1)),      # starts 4 bytes into a 16-byte granule
+    (3001, 3, 7, (5, 0)),     # rows of 12 bytes from row 5: 60 bytes in
+    (4099, 8, 64, (0, 0)), (6000, 16, 32, (0, 2)), (2000, 32, 16, (0, 3)), (0, 8, 16, (0, 0)),
+    (1000, 8, 65, (0, 0)), (1000, 33, 4, (0, 0)),  # past the range: the CUDA-core kernel
+])
+def test_segsum_routes_and_recipe_on_card(card, n, d, k, shift):
+    """seg_tc where the shape lies in kms_tc's range, seg_main elsewhere;
+    seg_tc against its recipe (ref.segsum_tiled on the kernel's tiling)
+    and both against the plain version; ids out of range dropped, the same
+    bits twice.  Against the recipe, rtol 1e-5 plus 4e-6 of Σ|x|: the
+    tensor cores sum a warp's slice of a tile, at most 64 rows, in another
+    order than torch's, at most 64 roundings of 2^-24."""
+    rng = np.random.default_rng(n + d + k)
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(-2, k + 2, n).astype(np.int32)
+    dt = _offset_view(data, card, *shift)
+    it = torch.from_numpy(ids).to(card)
+    before = dict(ops.SEGSUM_LAUNCHES)
+    got = ops.segsum(dt, it, k)
+    took = [r for r in ops.SEGSUM_LAUNCHES if ops.SEGSUM_LAUNCHES[r] != before[r]]
+    inside = d <= 32 and k <= 64 and ((k + 15) // 16 * 16 if k <= 32 else 64) * (
+        8 if d <= 8 else 16 if d <= 16 else 32) <= 512
+    assert took == ["seg_tc" if inside else "seg_main"] == [ops.segsum_route(d, k)]
+    torch.cuda.synchronize()
+    _segsum_check(got, dt, it, k)
+    if inside:
+        recipe = ref.segsum_tiled(dt, it, k, ops.onehot_tiling(n, d, k, dt.device))
+        scale = ref.segsum(dt.abs(), it, k)
+        assert bool(((got - recipe).abs() <= 1e-5 * recipe.abs() + 4e-6 * scale).all())
+        assert torch.equal(got, ops.segsum(dt, it, k))
 
 
 def test_kmeans_program_on_card_matches_cpu(card):

@@ -1,8 +1,8 @@
 """The kernels' expression programs against the JAX package's evaluation.
 
 ``repro_torch.kernels.exprcode`` lowers an ``Expr`` to the typed postfix
-program the CUDA kernels interpret; ``exprcode.interpret`` runs it with the
-same 32-bit arithmetic on numpy.  Each case here evaluates the same
+program that ``codegen`` writes out as the CUDA kernels' row functions;
+``exprcode.interpret`` runs it with the same 32-bit arithmetic on numpy.  Each case here evaluates the same
 expression with ``repro.core.expr.evaluate`` on jax.numpy (x64 off) and
 compares.  Predicates must agree exactly; values within rtol 1e-6, since
 XLA may fuse a multiply and an add into one FMA where the program rounds
@@ -134,32 +134,65 @@ def test_unsupported_forms_raise():
         exprcode.compile_program(None, (texpr.col("x"),) * 17, {"x": "f"}, {"x": 0})
 
 
+def _one_op(op):
+    """A program segment that runs ``op`` once on loaded operands of its
+    type (slot 0 an i32 column, 1 an f32 one, 2 a bool one) and emits it."""
+    load = {"i": ("LOAD_I32", 0), "f": ("LOAD_F32", 1), "b": ("LOAD_U8", 2)}
+    kind = {"LOAD_I32": "i", "LOAD_F32": "f", "LOAD_U8": "b"}
+    if op in kind:
+        code, out = [load[kind[op]]], kind[op]
+    elif op in ("CONST", "EMIT"):
+        code, out = [("CONST", 1)] if op == "CONST" else [load["b"]], "b"
+    elif op in ("AND", "OR", "NOT"):
+        code, out = [load["b"]] * (1 if op == "NOT" else 2) + [(op, 0)], "b"
+    elif op == "I2F":
+        code, out = [load["i"], (op, 0)], "f"
+    elif op in ("NEG_I", "ABS_I", "NEG_F", "ABS_F"):
+        out = op[-1].lower()
+        code = [load[out], (op, 0)]
+    else:
+        t = op[-1].lower()
+        code = [load[t], load[t], (op, 0)]
+        out = "b" if op[:-2] in ("LT", "LE", "GT", "GE", "EQ", "NE") else t
+    if out == "i":
+        code, out = code + [("I2F", 0)], "f"
+    return code + [("EMIT", 0 if out == "b" else 1)]
+
+
 def test_opcodes_match_the_cuda_header():
-    header = (Path(exprcode.__file__).parent / "csrc" / "exprvm.cuh").read_text()
-    enum = dict(re.findall(r"OP_(\w+) = (\d+),", header))
-    assert {k: int(v) for k, v in enum.items()} == exprcode.OPCODES
-    assert f"#define VM_MAX_STACK {exprcode.MAX_STACK}" in header
-    assert f"#define VM_MAX_ACC {exprcode.MAX_VALUES}" in header
-    col_enum = dict(re.findall(r"COL_(\w+) = (\d+)", header))
-    assert {"I32": 0, "F32": 1, "U8": 2} == {k: int(v) for k, v in col_enum.items()}
-    assert exprcode.COL_TYPES == {"i": 0, "f": 1, "b": 2}
+    """The generator has a case for every instruction of the programs, and
+    each operation it writes is a macro of ``csrc/rowfn.cuh``, the header
+    the generated code is compiled against."""
+    from repro_torch.kernels import codegen
+
+    header = (Path(exprcode.__file__).parent / "csrc" / "rowfn.cuh").read_text()
+    defined = set(re.findall(r"#define (RF_\w+)", header))
+    handled = (set(codegen._LOAD) | set(codegen._IBIN) | set(codegen._FBIN) | set(codegen._UN)
+               | {c + t for c in codegen._CMP for t in ("_I", "_F")}
+               | {"AND", "OR", "CONST", "EMIT"})
+    assert handled == set(exprcode.OPCODES)
+    for op in exprcode.OPCODES:
+        lines, result, _ = codegen._segment(_one_op(op), ("i", "f", "b"))
+        used = set(re.findall(r"\bRF_\w+", "\n".join(lines) + result))
+        assert used <= defined, (op, used - defined)
 
 
 def test_wrapper_limits_match_the_cuda_header():
-    """The wrappers check the column and key limits, and encode the
-    aggregate functions, as the interpreting kernel is built with; the
-    generated kernels' launch geometry is their own (each template
-    exports its scratch size, which the wrapper reads to size the
-    partials), and the generated code encodes the aggregates as the
-    interpreter does."""
+    """Each generated family's template exports its scratch helper, which
+    the wrapper reads to size the partials (and, for the join, the
+    first-row table); the generated code encodes the aggregates as
+    ``relagg.cuh``'s atomics read them (0 sum, 1 min, 2 max)."""
     from repro_torch.kernels import codegen, ops
 
     csrc = Path(exprcode.__file__).parent / "csrc"
-    header = (csrc / "exprvm.cuh").read_text()
-    assert "#define VM_MAX_COLS 32" in header and "#define VM_MAX_KEYS 8" in header
-    for family, prefix in (("fused_select_agg", "fsa"), ("grouped_select_agg", "gsa")):
-        helper = f"{prefix}_gen_scratch_bytes"
+    prefix = {"fused_select_agg": "fsa", "grouped_select_agg": "gsa", "grouped_join_agg": "gja"}
+    assert set(prefix) == set(codegen.FAMILIES)
+    for family, pre in prefix.items():
+        helper = f"{pre}_gen_scratch_bytes"
         assert f'extern "C" long long {helper}' in (csrc / f"{family}.cu").read_text()
         assert f".{helper}" in Path(ops.__file__).read_text()
-    fns = dict(re.findall(r"ACC_(\w+) = (\d+)", header))
-    assert {k.lower(): int(v) for k, v in fns.items()} == ops._FN == codegen._FN
+    relagg = (csrc / "relagg.cuh").read_text()
+    atomics = dict(re.findall(r"if \(fn == (\d)\) (\w+)\(", relagg))
+    assert atomics == {"0": "atomicAdd", "1": "rel_atomic_min"}
+    assert "else rel_atomic_max(a, v);" in relagg
+    assert codegen._FN == {"sum": 0, "min": 1, "max": 2}

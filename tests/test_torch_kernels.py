@@ -27,6 +27,7 @@ from repro.relational import runtime as jrt  # noqa: E402
 from repro_torch.convert import vectable_from_arrays  # noqa: E402
 from repro_torch.core import expr as texpr  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.relational import runtime as trt  # noqa: E402
 
 RTOL = 1e-5
 
@@ -193,15 +194,27 @@ def test_grouped_join_agg_smallest_presence_case():
 
 
 def test_build_tables_first_occurrence_wins():
+    """The first-row table that grouped_join_agg's build kernel makes, in
+    its plain version (``runtime.build_first_index``): the lowest valid
+    row of each join bucket, the build side's capacity where a bucket is
+    empty; a row outside the key domain falls away.  A join then reads the
+    build values at that row."""
     right = vectable_from_arrays(
         {"rk": np.array([5, 2, 5, 9, 2, 40], np.int32),
          "v": np.array([10, 20, 30, 40, 50, 60], np.int32)},
         np.array([True, True, True, False, True, True]), "cpu")
-    present, (v,) = ops.build_tables(right, ("rk",), ("v",), ((0, 9),), 10)
-    assert present.tolist() == [False, False, True, False, False, True,
-                                False, False, False, False]
-    assert v[2] == 20 and v[5] == 10  # first valid occurrence; 9 is invalid, 40 out of domain
-    assert v.dtype == torch.int32  # build values keep their own type
+    first = trt.build_first_index(right, ("rk",), ((0, 9),), 10)
+    # first valid occurrence; 9 is invalid, 40 out of domain
+    assert first.tolist() == [6, 6, 1, 6, 6, 0, 6, 6, 6, 6]
+    left = vectable_from_arrays({"fk": np.array([5, 2, 9, 7, 40], np.int32)},
+                                np.ones(5, bool), "cpu")
+    out = ops.grouped_join_agg(left, right, left_on=("fk",), right_on=("rk",),
+                               join_key_domains=((0, 9),), join_num_buckets=10, keys=(),
+                               aggs=(texpr.AggSpec("sum", texpr.col("v"), "s"),
+                                     texpr.AggSpec("max", texpr.col("v"), "mx"),
+                                     texpr.AggSpec("count", texpr.const(1), "c")),
+                               max_groups=1, key_domains=(), num_buckets=1).to_numpy()
+    assert out["s"].tolist() == [30] and out["mx"].tolist() == [20] and out["c"].tolist() == [2]
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -268,9 +281,9 @@ def test_ctypes_helpers_match_c_signatures(kernel, helper):
 
 def test_library_path_tracks_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
-    p = build.library_path("grouped_join_agg")
-    assert p.parent == tmp_path and p.name.startswith("grouped_join_agg-")
-    assert p == build.library_path("grouped_join_agg")
+    p = build.library_path("kmeans_step")
+    assert p.parent == tmp_path and p.name.startswith("kmeans_step-")
+    assert p == build.library_path("kmeans_step")
     assert p != build.library_path("segsum")
 
 
@@ -314,3 +327,63 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# segsum on the tensor cores: its recipe against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+def _tc_tiling(n, d, k, sms=132):
+    """The tensor-core kernels' tiling (``oh_grid`` in ``csrc/onehot.cuh``)
+    on a card of ``sms`` SMs: 16 KB tiles, 8 warps, two blocks an SM where
+    KP·DP ≤ 256, at most 512 blocks, groups of 32."""
+    dp = 8 if d <= 8 else 16 if d <= 16 else 32
+    kp = 16 if k <= 16 else 32 if k <= 32 else 64
+    tile = max(16384 // (4 * dp), 128)
+    tiles = -(-n // tile)
+    grid = max(1, min(tiles, sms * (2 if kp * dp <= 256 else 1), 512))
+    return ref.KmsTiling(tile=tile, warps=8, grid=grid, group=32)
+
+
+#: label: (n, d, K, (rows, floats) before the view's start)
+SEG_CASES = {
+    "ids at K-1, negative and past K": (1003, 8, 16, (0, 0)),
+    "ragged tail, several tiles a block": (20_011, 8, 16, (0, 0)),
+    "d=1 view 4 bytes into a granule": (777, 1, 3, (0, 1)),
+    "d=3 view from row 5 (60 bytes in)": (3001, 3, 7, (5, 0)),
+    "top of the range, K=64 d=8": (4099, 8, 64, (0, 0)),
+    "d=32 K=16": (2000, 32, 16, (0, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+@pytest.mark.parametrize("small", [False, True])
+def test_segsum_tiled_matches_pallas(case, small):
+    """``ref.segsum_tiled`` (seg_tc's arithmetic: TF32 hi + lo one-hot
+    products per warp slice, added in the tiling's fixed order) against the
+    JAX Pallas segsum in interpret mode and the plain ``ref.segsum``, on
+    the card's tiling and on a small one (several tiles a block, several
+    groups): within rtol 1e-4 of the sum plus 1e-5 of the segment's Σ|x|
+    (the other order's rounding, as ``chip_smoke.py``'s check_segsum)."""
+    n, d, k, (rows, floats) = SEG_CASES[case]
+    rng = np.random.default_rng(n + d + k)
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(-2, k + 2, n).astype(np.int32)  # some out of range
+    ids[:5] = k - 1
+    ids[ids == 1] = 0  # segment 1 stays empty
+    flat = np.zeros((rows + n + 1) * d + floats, np.float32)
+    at = rows * d + floats
+    flat[at:at + n * d] = data.ravel()
+    dt = torch.from_numpy(flat)[at:at + n * d].view(n, d)
+    tiling = ref.KmsTiling(tile=128, warps=8, grid=7, group=4) if small else _tc_tiling(n, d, k)
+    got = ref.segsum_tiled(dt, torch.from_numpy(ids), k, tiling).numpy()
+    pallas = np.asarray(jops.segsum(jnp.asarray(data), jnp.asarray(ids), k, interpret=True))
+    plain = ref.segsum(dt, torch.from_numpy(ids), k).numpy()
+    keep = (ids >= 0) & (ids < k)
+    scale = np.zeros((k, d), np.float64)
+    np.add.at(scale, ids[keep], np.abs(data[keep]).astype(np.float64))
+    for want in (pallas, plain):
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want) + 1e-5 * scale)
+    assert not got[1].any()

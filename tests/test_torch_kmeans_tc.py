@@ -6,7 +6,7 @@ arithmetic (``csrc/kmeans_step.cu``, ``kms_tc``): TF32 rounding as
 reads an f32 operand), the three-way hi/lo split of the score
 ‖c‖² + x·(−2c), exact copies of a centroid set aside, and per-tile one-hot
 sums of x_hi + x_lo added in the fixed order that a tiling gives (the
-kernel's own comes from the library on the card, ``ops.kmeans_step_tiling``;
+kernel's own comes from the library on the card, ``ops.onehot_tiling``;
 here the recipe takes a few, among them the H100's at d = 8, and any tiling
 must meet the rule).  Here it is held,
 on the same numpy inputs, against the JAX Pallas kernel in interpret mode
