@@ -57,7 +57,23 @@ Phases, each printing its own lines:
    once per chunk; the route of every ``grouped_select_agg`` call; each
    kernel call of this path (chunk views, Q1's recombine, Q4's split inner
    aggregation) against its plain version;
-7. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
+7. the JAX package's default tiers: the six queries under
+   ``groupby=sorted, join=sorted`` with ``use_kernels``, sequential and
+   with ``parallel=4``, against the references (Q6, Q14 and Q19 launch
+   ``fused_select_agg``, no query a grouped kernel); Q1 and Q12 under
+   ``fuse=unfused``; per query the compile and execute ms of the sorted
+   tiers beside the direct ones;
+8. the plan cache: per query a fresh ``PlanCache``, the first collect (a
+   miss) and ``--reps`` repeats (hits), each hit the miss's bits;
+9. dictionary encoding: tests/test_dict_encoding.py's string group-by,
+   sparse int group-by (300 keys over a 1.5e9 span) and string join with
+   out-of-dictionary probes at 2^22 rows under ``encode=dict`` (the join
+   also under ``join=sorted``), each against a numpy oracle, with its
+   plan, the kernels and routes it launched;
+10. SQL: TPC-H Q6 and a grouped ``ORDER BY … LIMIT 3`` through
+   ``sql.query(ctx, ..., device="cuda")``: the Python frontend's program
+   (the plan cache serves its plan), its bits, and numpy's answer;
+11. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
    layers at full width, bf16, parameters from ``model.init`` with seed 0)
    with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
    ``launch/serve.py`` makes them) in waves of 4, 32 greedy tokens each,
@@ -71,7 +87,7 @@ Phases, each printing its own lines:
    64 and 128, a non-default scale), each with its share of the bound and,
    in bf16, its distance from the tensor-core recipe
    (``ref.flash_attention_tiled``);
-8. each kernel against its plain version on the inputs the paths gave it,
+12. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -81,8 +97,8 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-9. per-query latency (median over ``--reps`` after a warm-up), sequential
-   and with ``parallel=4``, lineitem rows/s, the k-means step time and
+13. per-query latency (median over ``--reps`` after a warm-up, each run
+   compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
    ``--profile``, device time by kernel and busy share, one serving wave
@@ -1131,6 +1147,350 @@ def phase_parallel(tables, frames) -> None:
         f"plain versions; max abs error {json.dumps(worst)}")
 
 
+#: the port's strategy for the JAX package's default lowering path
+SORTED = {"groupby": "sorted", "join": "sorted"}
+#: phase_dict's rows, and the distinct keys of its sparse group-by
+DICT_ROWS, SPARSE_NDV = 1 << 22, 300
+CITIES = ["athens", "berlin", "cairo", "dakar", "edinburgh", "florence", "geneva", "havana"]
+
+
+def counted(fn, *args, **kw):
+    """fn(*args, **kw), the kernel launches it made and the generated
+    routes it took."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    out, took = routed(fn, *args, **kw)
+    return out, {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]}, took
+
+
+def same_result(what: str, a, b) -> None:
+    """Two query results (dicts of numpy arrays) equal bit for bit."""
+    import numpy as np
+
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: columns {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}.{k}: not the same bits")
+
+
+def split_ms(ctx, frame, reps: int, **kw):
+    """Median (compile ms, execute ms) of ``frame`` on the card, the plan
+    compiled anew each time (no cache); execute includes the result's copy
+    to the host."""
+    import torch
+
+    from repro_torch.frontends.dataflow import _to_numpy
+
+    frame.collect(device="cuda", cache=False, **kw)  # warm-up
+    comp, run = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compiled = ctx.compile(frame, device="cuda", cache=False, **kw)
+        t1 = time.perf_counter()
+        _to_numpy(compiled(ctx.sources("cuda"))[0])
+        t2 = time.perf_counter()
+        comp.append((t1 - t0) * 1e3)
+        run.append((t2 - t1) * 1e3)
+    return statistics.median(comp), statistics.median(run)
+
+
+def phase_default_tiers(tables, ctx, frames, reps: int) -> None:
+    """The six queries under the JAX package's default tiers (``SORTED``)
+    with ``use_kernels``, sequential and with ``parallel=4``, each run with
+    the counts set to 0 just before and read just after, against the numpy
+    references: Q6, Q14 and Q19 launch ``fused_select_agg`` (its generated
+    kernel), no query a grouped kernel.  Then Q1 and Q12 under
+    ``fuse=unfused`` (the port's tiers, no fusion pass: the predicate and
+    the join stay apart, the group-by alone on ``grouped_select_agg``).
+    Then per query the compile and execute ms of the sorted tiers beside
+    the direct ones."""
+    from repro_torch.kernels import ops
+    from repro_torch.relational import tpch
+
+    for par in (None, PARALLEL):
+        mode = "sequential" if par is None else f"parallel={PARALLEL}"
+        results, per_query, routes = {}, {}, {}
+        ops.reset_launches()
+        for q, frame in frames.items():
+            results[q], per_query[q], routes[q] = counted(
+                frame.collect, device="cuda", parallel=par, strategy=SORTED)
+        launches = dict(ops.LAUNCHES)
+        for q, got in results.items():
+            check_query(q, got, tpch.REFERENCES[q](tables))
+        for q in EXPECTED["fused_select_agg"]:
+            if not per_query[q].get("fused_select_agg") or "fsa_gen" not in routes[q]:
+                raise AssertionError(f"sorted tiers {mode}: {q} launched {per_query[q]}, "
+                                     f"routes {routes[q]}")
+        if launches["grouped_select_agg"] or launches["grouped_join_agg"]:
+            raise AssertionError(f"sorted tiers {mode}: a grouped kernel ran: {launches}")
+        log(f"sorted tiers ({json.dumps(SORTED)}, use_kernels) {mode}: six queries match the "
+            f"numpy references; launches per query {json.dumps(per_query)}; routes "
+            f"{json.dumps(routes)}")
+
+    ops.reset_launches()
+    for q, want in (("q1", "grouped_select_agg"), ("q12", "grouped_select_agg")):
+        got, launched, took = counted(frames[q].collect, device="cuda",
+                                      strategy={"fuse": "unfused"})
+        check_query(q, got, tpch.REFERENCES[q](tables))
+        if not launched.get(want) or launched.get("grouped_join_agg"):
+            raise AssertionError(f"fuse=unfused {q}: launched {launched}")
+        log(f"fuse=unfused {q}: matches the numpy reference; launched {json.dumps(launched)}, "
+            f"routes {took}")
+
+    summary = {}
+    for q, frame in frames.items():
+        for par in (None, PARALLEL):
+            mode = "sequential" if par is None else f"parallel{PARALLEL}"
+            sc, se = split_ms(ctx, frame, reps, parallel=par, strategy=SORTED)
+            dc, de = split_ms(ctx, frame, reps, parallel=par)
+            summary.setdefault(mode, {})[q] = {"sorted_compile_ms": sc, "sorted_execute_ms": se,
+                                               "direct_compile_ms": dc, "direct_execute_ms": de}
+            log(f"tiers {q} {mode}: sorted compile {sc:.3f} ms, execute {se:.3f} ms; "
+                f"direct compile {dc:.3f} ms, execute {de:.3f} ms (medians of {reps})")
+    log("tiers: " + json.dumps(summary))
+
+
+def phase_plan_cache(frames, reps: int) -> None:
+    """Per query a fresh PlanCache: the first collect (a miss) and ``reps``
+    repeats (hits), each timed, the repeats' compile alone too.  Fails
+    unless every repeat hits and gives the miss's bits.  Counts set to 0
+    just before, read just after: the three relational kernels ran."""
+    import torch
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.kernels import ops
+
+    summary = {}
+    ops.reset_launches()
+    for q, frame in frames.items():
+        cache = PlanCache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = frame.collect(device="cuda", cache=cache)
+        miss = (time.perf_counter() - t0) * 1e3
+        hits, lookups = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = frame.collect(device="cuda", cache=cache)
+            t1 = time.perf_counter()
+            if not frame._ctx.compile(frame, device="cuda", cache=cache).cache_hit:
+                raise AssertionError(f"plan cache: {q} repeat compiled anew")
+            lookups.append((time.perf_counter() - t1) * 1e3)
+            hits.append((t1 - t0) * 1e3)
+            same_result(f"plan cache {q} hit", got, first)
+        if cache.stats != {"hits": 2 * reps, "misses": 1, "evictions": 0, "entries": 1}:
+            raise AssertionError(f"plan cache {q}: {cache.stats}")
+        summary[q] = {"miss_ms": miss, "hit_ms": statistics.median(hits),
+                      "hit_min_ms": min(hits), "hit_max_ms": max(hits),
+                      "hit_compile_ms": statistics.median(lookups), "stats": cache.stats}
+        log(f"plan cache {q}: miss {miss:.3f} ms, hit median {statistics.median(hits):.3f} ms "
+            f"over {reps} (min {min(hits):.3f}, max {max(hits):.3f}; the hit's compile "
+            f"{statistics.median(lookups):.3f} ms); {json.dumps(cache.stats)}; every hit "
+            "the miss's bits")
+    launches = dict(ops.LAUNCHES)
+    if not all(launches[k] for k in TPCH_KERNELS):
+        raise AssertionError(f"plan cache: launches {launches}")
+    log(f"plan cache: launches {json.dumps(launches)}")
+    log("plan_cache: " + json.dumps(summary))
+
+
+def _dict_shapes():
+    """tests/test_dict_encoding.py's three shapes at DICT_ROWS rows (seed
+    0): (name, tables, query builder, numpy oracle, strategies)."""
+    import numpy as np
+
+    from repro_torch.frontends.dataflow import count_, sum_
+
+    rng = np.random.default_rng(0)
+    n = DICT_ROWS
+    city_idx = rng.integers(0, len(CITIES), n)
+    amount = rng.gamma(2.0, 50.0, n).astype(np.float32)
+
+    def city_q(ctx):
+        return (ctx.table("sales").group_by("city", max_groups=16)
+                .agg(sum_("amount").as_("rev"), count_().as_("n")).order_by("city"))
+
+    def city_want():
+        cnt = np.bincount(city_idx, minlength=len(CITIES))
+        keep = cnt > 0
+        return {"city": np.array(CITIES)[keep], "n": cnt[keep],
+                "rev": np.bincount(city_idx, amount.astype(np.float64), len(CITIES))[keep]}
+
+    domain = rng.integers(0, 1_500_000_000, SPARSE_NDV).astype(np.int32)
+    k = domain[rng.integers(0, SPARSE_NDV, n)]
+    v = rng.normal(size=n).astype(np.float32)
+
+    def sparse_q(ctx):
+        return (ctx.table("t").group_by("k", max_groups=512)
+                .agg(sum_("v").as_("s"), count_().as_("n")).order_by("k"))
+
+    def sparse_want():
+        keys, inv = np.unique(k, return_inverse=True)
+        return {"k": keys, "n": np.bincount(inv),
+                "s": np.bincount(inv, v.astype(np.float64))}
+
+    skus = np.array([f"sku-{i:04d}" for i in range(64)])
+    pool = np.concatenate([skus, np.array([f"xsku-{i:04d}" for i in range(16)])])
+    sku_idx = rng.integers(0, len(pool), n)
+    qty = rng.integers(1, 10, n).astype(np.int32)
+
+    def join_q(ctx):
+        return (ctx.table("orders")
+                .join(ctx.table("parts"), left_on=("sku",), right_on=("psku",))
+                .group_by("sku", max_groups=128)
+                .agg(sum_("qty").as_("q"), count_().as_("n")).order_by("sku"))
+
+    def join_want():
+        hit = sku_idx < len(skus)  # the xsku-* probes are in no build row
+        cnt = np.bincount(sku_idx[hit], minlength=len(skus))
+        keep = cnt > 0
+        return {"sku": skus[keep], "n": cnt[keep],
+                "q": np.bincount(sku_idx[hit], qty[hit].astype(np.float64), len(skus))[keep]}
+
+    direct = {"groupby": "direct", "join": "hash", "encode": "dict"}
+    return [
+        ("string group-by", {"sales": {"city": np.array(CITIES)[city_idx], "amount": amount}},
+         city_q, city_want, (direct,)),
+        (f"sparse int group-by ({SPARSE_NDV} keys over a 1.5e9 span)",
+         {"t": {"k": k, "v": v}}, sparse_q, sparse_want, (direct,)),
+        ("string join, out-of-dictionary probes",
+         {"orders": {"sku": pool[sku_idx], "qty": qty},
+          "parts": {"psku": skus, "price": rng.gamma(2.0, 10.0, len(skus)).astype(np.float32)}},
+         join_q, join_want, (direct, {"join": "sorted", "encode": "dict"})),
+    ]
+
+
+def check_frame(what: str, got, want) -> None:
+    """A result against its numpy oracle, in order: strings and integers
+    exact, floats within QUERY_RTOL of the f64 oracle."""
+    import numpy as np
+
+    for k, w in want.items():
+        g, w = np.asarray(got[k]), np.asarray(w)
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}.{k}: shape {g.shape} vs {w.shape}")
+        if w.dtype.kind in "USO" or np.issubdtype(w.dtype, np.integer):
+            if not np.array_equal(g.astype(w.dtype), w):
+                raise AssertionError(f"{what}.{k}: values differ")
+        else:
+            np.testing.assert_allclose(g.astype(np.float64), w, rtol=QUERY_RTOL,
+                                       err_msg=f"{what}.{k}")
+
+
+def phase_dict(reps: int) -> None:
+    """``encode=dict`` at DICT_ROWS rows: each shape under its strategies,
+    counts set to 0 just before and read just after, against its numpy
+    oracle; prints the lowered plan, the kernels and routes it launched,
+    and its median ms over ``reps`` plan-cache hits."""
+    import torch
+
+    from repro_torch.frontends.dataflow import Context
+    from repro_torch.kernels import ops
+
+    for name, tables, build, oracle, strategies in _dict_shapes():
+        t0 = time.perf_counter()
+        ctx = Context(pad_to=256)
+        for tname, data in tables.items():
+            ctx.register(tname, data)
+        ctx.sources("cuda")
+        want = oracle()
+        setup = time.perf_counter() - t0
+        for strategy in strategies:
+            frame = build(ctx)
+            plan = ctx.compile(frame, device="cuda", strategy=strategy).program.opcodes()
+            ops.reset_launches()
+            got, launched, took = counted(frame.collect, device="cuda", strategy=strategy)
+            check_frame(f"{name} {strategy}", got, want)
+            if not launched or "vec.GroupAggSorted" in plan:
+                raise AssertionError(f"{name} {strategy}: plan {plan}, launched {launched}")
+            if "vec.DictEncode" in plan and not launched.get("grouped_select_agg"):
+                raise AssertionError(f"{name}: no grouped_select_agg after DictEncode")
+            fused = "vec.FusedJoinGroupAgg" in plan
+            if fused != bool(launched.get("grouped_join_agg")):
+                raise AssertionError(f"{name}: plan {plan}, launched {launched}")
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                frame.collect(device="cuda", strategy=strategy)
+                times.append((time.perf_counter() - t1) * 1e3)
+            join_note = ""
+            if "join" in name:
+                join_note = ("; FuseJoinGroupAgg fires" if fused else
+                             "; FuseJoinGroupAgg does not fire (no HashJoinDirect → "
+                             "GroupAggDirect pair)")
+            log(f"dict {name}, {json.dumps(strategy)}: {len(next(iter(want.values())))} groups "
+                f"match the numpy oracle; plan {plan}; launched {json.dumps(launched)}, "
+                f"routes {took}{join_note}; median {statistics.median(times):.3f} ms over "
+                f"{reps} (set-up {setup:.1f} s)")
+
+
+def phase_sql(tables, ctx) -> None:
+    """TPC-H Q6 and a grouped ORDER BY … LIMIT 3 through
+    ``sql.query(ctx, ..., device="cuda")``, counts set to 0 just before and
+    read just after: each parses to the Python frontend's program (the
+    same fingerprint, so the plan cache serves the Python frame's plan),
+    gives its bits and matches numpy."""
+    import numpy as np
+
+    from repro_torch.compiler import PLAN_CACHE
+    from repro_torch.compiler.fingerprint import fingerprint
+    from repro_torch.core.expr import col
+    from repro_torch.frontends import sql
+    from repro_torch.frontends.dataflow import count_, sum_
+    from repro_torch.kernels import ops
+    from repro_torch.relational import tpch
+
+    d0, d1 = tpch._day(1994, 1, 1), tpch._day(1995, 1, 1)
+    q6 = (f"SELECT sum(l_extendedprice * l_discount) AS revenue FROM lineitem WHERE "
+          f"l_shipdate >= {d0} AND l_shipdate < {d1} AND l_discount BETWEEN 0.05 AND 0.07 "
+          "AND l_quantity < 24.0")
+    grouped = ("SELECT sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS sum_base_price, "
+               f"count(*) AS count_order FROM lineitem WHERE l_shipdate <= {tpch.Q1_CUTOFF} "
+               "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus LIMIT 3")
+    py_grouped = (ctx.table("lineitem").filter(col("l_shipdate") <= tpch.Q1_CUTOFF)
+                  .group_by("l_returnflag", "l_linestatus", max_groups=4096)
+                  .agg(sum_("l_quantity").as_("sum_qty"),
+                       sum_("l_extendedprice").as_("sum_base_price"),
+                       count_().as_("count_order"))
+                  .order_by("l_returnflag", "l_linestatus").limit(3))
+    li = tables["lineitem"]
+    keep = li["l_shipdate"] <= tpch.Q1_CUTOFF
+    flag, status = li["l_returnflag"][keep], li["l_linestatus"][keep]
+    groups = sorted(set(zip(flag.tolist(), status.tolist())))[:3]
+    masks = [(flag == f) & (status == s) for f, s in groups]
+    want_grouped = {
+        "l_returnflag": np.array([f for f, _ in groups]),
+        "l_linestatus": np.array([s for _, s in groups]),
+        "sum_qty": np.array([li["l_quantity"][keep][m].sum(dtype=np.float64) for m in masks]),
+        "sum_base_price": np.array([li["l_extendedprice"][keep][m].sum(dtype=np.float64)
+                                    for m in masks]),
+        "count_order": np.array([int(m.sum()) for m in masks])}
+
+    ops.reset_launches()
+    for name, text, frame, want, kernel in (
+            ("q6", q6, tpch.q6(ctx), tpch.REFERENCES["q6"](tables), "fused_select_agg"),
+            ("grouped order-by limit 3", grouped, py_grouped, want_grouped,
+             "grouped_select_agg")):
+        if fingerprint(sql.parse(text, ctx).program()) != fingerprint(frame.program()):
+            raise AssertionError(f"sql {name}: not the Python frontend's program")
+        py, py_launched, _ = counted(frame.collect, device="cuda")
+        hits = PLAN_CACHE.hits
+        got, launched, took = counted(sql.query, ctx, text, device="cuda")
+        if PLAN_CACHE.hits != hits + 1 or not launched.get(kernel):
+            raise AssertionError(f"sql {name}: cache hits {hits} → {PLAN_CACHE.hits}, "
+                                 f"launched {launched}")
+        same_result(f"sql {name}", got, py)
+        check_frame(f"sql {name}", got, want)
+        log(f"sql {name}: the Python frontend's plan (a plan-cache hit) and bits, matches "
+            f"numpy; launched {json.dumps(launched)}, routes {took}")
+    log(f"sql: launches {json.dumps(dict(ops.LAUNCHES))}")
+
+
 def phase_edges_attention() -> None:
     """flash_attention against its plain version at the edges: S ∈ {1, 77,
     200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 and bf16, causal or
@@ -1529,7 +1889,8 @@ def phase_queries(tables, frames, reps: int) -> None:
     """End-to-end latency of ``Frame.collect`` per query, sequential and
     with ``parallel=4`` in turns, and each run split into its compile
     (lowering, host only) and execute (operators, kernels and the copy of
-    the result to the host) parts."""
+    the result to the host) parts.  Every run compiles anew (no plan
+    cache): this is a miss's latency; ``phase_plan_cache`` times hits."""
     import torch
 
     from repro_torch.frontends.dataflow import _to_numpy
@@ -1539,14 +1900,14 @@ def phase_queries(tables, frames, reps: int) -> None:
     for q, frame in frames.items():
         ctx = frame._ctx
         for par, mode in ((None, "sequential"), (PARALLEL, f"parallel{PARALLEL}")):
-            frame.collect(device="cuda", parallel=par)  # warm-up
+            frame.collect(device="cuda", parallel=par, cache=False)  # warm-up
             times, comp, run = [], [], []
             for _ in range(reps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                frame.collect(device="cuda", parallel=par)
+                frame.collect(device="cuda", parallel=par, cache=False)
                 t1 = time.perf_counter()
-                compiled = ctx.compile(frame, parallel=par, device="cuda")
+                compiled = ctx.compile(frame, parallel=par, device="cuda", cache=False)
                 t2 = time.perf_counter()
                 _to_numpy(compiled(ctx.sources("cuda"))[0])
                 t3 = time.perf_counter()
@@ -1714,6 +2075,10 @@ def main() -> int:
         km_launches, km_captured, seg_inputs, km_times, km_step = phase_kmeans(pool)
         seg_launches, seg_captured = phase_segsum(seg_inputs)
         phase_parallel(tables, frames)
+        phase_default_tiers(tables, ctx, frames, min(a.reps, 3))
+        phase_plan_cache(frames, a.reps)
+        phase_dict(a.reps)
+        phase_sql(tables, ctx)
         fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches["flash_attention"])

@@ -38,6 +38,19 @@ class EvalCtx:
     use_kernels: bool = False
     #: where ``la.Literal`` values are made
     device: Optional[torch.device] = None
+    #: the plan's numpy constants (dictionary tables) on ``device``, kept
+    #: by the compiled plan across its calls: ``(id, device) → (array, tensor)``
+    consts: Dict[Any, Any] = field(default_factory=dict)
+
+
+def _on_device(ctx: EvalCtx, arr: Any) -> torch.Tensor:
+    """A numpy constant of the plan as a tensor on the run's device (x64
+    off), moved there once per plan and device."""
+    key = (id(arr), str(ctx.device))
+    got = ctx.consts.get(key)
+    if got is None:
+        got = ctx.consts[key] = (arr, rt.x32(torch.as_tensor(arr, device=ctx.device)))
+    return got[1]
 
 
 def evaluate_program(ctx: EvalCtx, program: Program, *args: Any) -> List[Any]:
@@ -50,7 +63,7 @@ def evaluate_program(ctx: EvalCtx, program: Program, *args: Any) -> List[Any]:
         if fn is None:
             raise NotImplementedError(
                 f"no torch emitter for {ins.opcode}: not ported yet "
-                "(ROADMAP.md, 'What remains')")
+                "(ROADMAP.md, Queue 1: the emitters still missing)")
         outs = fn(ctx, ins, [env[r.name] for r in ins.inputs])
         for r, v in zip(ins.outputs, outs):
             env[r.name] = v
@@ -65,6 +78,11 @@ def _scanvec(ctx, ins, args):
 @emitter("vec.MaskSelect")
 def _maskselect(ctx, ins, args):
     return [rt.mask_select(args[0], ins.param("pred"))]
+
+
+@emitter("vec.ProjVec")
+def _projvec(ctx, ins, args):
+    return [rt.proj(args[0], ins.param("names"))]
 
 
 @emitter("vec.ExProjVec")
@@ -100,6 +118,12 @@ def _sortbykey(ctx, ins, args):
     return [rt.sort_by_key(args[0], keys, asc)]
 
 
+@emitter("vec.GroupAggSorted")
+def _groupagg(ctx, ins, args):
+    return [rt.group_agg_sorted(args[0], ins.param("keys"), ins.param("aggs"),
+                                int(ins.param("max_groups")))]
+
+
 @emitter("vec.GroupAggDirect")
 def _groupagg_direct(ctx, ins, args):
     (t,) = args
@@ -113,6 +137,26 @@ def _groupagg_direct(ctx, ins, args):
         from ..kernels import ops as kops
         return [kops.grouped_select_agg(t, pred, keys, aggs, mg, domains, nb)]
     return [rt.group_agg_direct(t, keys, aggs, mg, domains, nb, pred=pred)]
+
+
+@emitter("vec.DictEncode")
+def _dictencode(ctx, ins, args):
+    tables = [_on_device(ctx, tab) for tab in ins.param("tables")]
+    return [rt.dict_encode(args[0], ins.param("cols"), ins.param("modes"), tables,
+                           ins.param("lows"), ins.param("cards"))]
+
+
+@emitter("vec.DictDecode")
+def _dictdecode(ctx, ins, args):
+    tables = [_on_device(ctx, tab) for tab in ins.param("tables")]
+    return [rt.dict_decode(args[0], ins.param("cols"), tables)]
+
+
+@emitter("vec.MergeJoinSorted")
+def _mergejoin(ctx, ins, args):
+    return [rt.merge_join_sorted(args[0], args[1], ins.param("left_on"),
+                                 ins.param("right_on"), int(ins.param("max_count")),
+                                 key_domains=ins.param("key_domains"))]
 
 
 @emitter("vec.HashJoinDirect")
@@ -144,6 +188,23 @@ def _fused_join_group_agg(ctx, ins, args):
         from ..kernels import ops as kops
         return [kops.grouped_join_agg(left, right, **kw)]
     return [rt.fused_join_group_agg(left, right, **kw)]
+
+
+@emitter("vec.Compact")
+def _compact(ctx, ins, args):
+    return [rt.compact(args[0], ins.param("max_count"))]
+
+
+@emitter("vec.TopKVec")
+def _topkvec(ctx, ins, args):
+    keys = ins.param("keys")
+    asc = ins.param("ascending") or [True] * len(keys)
+    return [rt.topk(args[0], keys, asc, int(ins.param("k")))]
+
+
+@emitter("vec.LimitVec")
+def _limitvec(ctx, ins, args):
+    return [rt.limit(args[0], int(ins.param("k")))]
 
 
 @emitter("vec.SplitVec")

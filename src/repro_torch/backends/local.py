@@ -9,8 +9,8 @@ source collections and the program's positional inputs
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, List, Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -44,12 +44,15 @@ class Compiled:
     program: Program
     use_kernels: bool = True
     device: Any = None
+    #: the plan's constants on the device, filled at the first call
+    consts: Dict[Any, Any] = field(default_factory=dict)
 
     def __call__(self, sources: Optional[Mapping[str, Any]] = None, *args: Any) -> List[Any]:
         dev = rt.resolve_device(self.device)
         srcs = {k: _on(dev, v, f"source {k!r}") for k, v in dict(sources or {}).items()}
         ins = [_on(dev, a, f"input {i}") for i, a in enumerate(args)]
-        ctx = EvalCtx(sources=srcs, use_kernels=self.use_kernels, device=dev)
+        ctx = EvalCtx(sources=srcs, use_kernels=self.use_kernels, device=dev,
+                      consts=self.consts)
         return evaluate_program(ctx, self.program, *ins)
 
 

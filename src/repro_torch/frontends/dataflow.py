@@ -175,15 +175,16 @@ class Frame:
 
     def collect(self, parallel: Optional[int] = None, use_kernels: bool = True,
                 optimize: Optional[str] = None, strategy: Any = None,
-                device: Any = None) -> Dict[str, np.ndarray]:
-        """Compile and run on ``device`` (``cuda`` unless given; ``"cpu"``
-        runs the kernels' plain versions).  Defaults: ``use_kernels=True``
-        and the strategy ``groupby=direct, join=hash, encode=raw,
-        fuse=fused`` — the only lowering path this package executes;
-        ``parallel=n`` splits the tables into ``n`` chunks."""
+                device: Any = None, cache: Any = None) -> Dict[str, np.ndarray]:
+        """Compile (through the plan cache) and run on ``device`` (``cuda``
+        unless given; ``"cpu"`` runs the kernels' plain versions).
+        Defaults: ``use_kernels=True`` and the strategy ``groupby=direct,
+        join=hash, encode=raw, fuse=fused`` (the JAX package defaults to
+        the sorted tiers and no kernels); ``parallel=n`` splits the tables
+        into ``n`` chunks."""
         return self._ctx.execute(self, parallel=parallel, use_kernels=use_kernels,
                                  optimize=optimize, strategy=strategy,
-                                 device=device)
+                                 device=device, cache=cache)
 
 
 class GroupBy:
@@ -290,20 +291,23 @@ class Context:
 
     def compile(self, frame: Frame, parallel: Optional[int] = None,
                 use_kernels: bool = True, optimize: Optional[str] = None,
-                strategy: Any = None, device: Any = None):
-        """Lower ``frame`` through this package's fixed driver.
+                strategy: Any = None, device: Any = None, cache: Any = None):
+        """Lower ``frame`` through this package's driver and its plan cache
+        (``cache``: ``None`` the process-wide one, ``False`` none, or a
+        ``PlanCache``).
 
-        Defaults are the torch port's lowering path: strategy
-        ``groupby=direct, join=hash, encode=raw, fuse=fused``, sequential
-        unless ``parallel`` > 1, ``use_kernels=True`` (the CUDA kernels on
-        a card, their plain versions on CPU tensors) and ``device``
-        ``cuda``.  The direct tiers need key-domain bounds, so the catalog
-        always carries exact statistics."""
+        Defaults: strategy ``groupby=direct, join=hash, encode=raw,
+        fuse=fused``, sequential unless ``parallel`` > 1,
+        ``use_kernels=True`` (the CUDA kernels on a card, their plain
+        versions on CPU tensors) and ``device`` ``cuda``.  The direct tiers
+        and dictionary encoding need the statistics, so the catalog always
+        carries them."""
         from ..compiler import compile as cvm_compile
 
         return cvm_compile(frame.program(), catalog=self.catalog(),
                            use_kernels=use_kernels, parallel=parallel,
-                           optimize=optimize, strategy=strategy, device=device)
+                           optimize=optimize, strategy=strategy, device=device,
+                           cache=cache)
 
     def _physical_columns(self, name: str) -> Dict[str, np.ndarray]:
         """Columns in their physical dtypes: string columns become i32
@@ -337,9 +341,11 @@ class Context:
 
     def execute(self, frame: Frame, parallel: Optional[int] = None,
                 use_kernels: bool = True, optimize: Optional[str] = None,
-                strategy: Any = None, device: Any = None) -> Dict[str, np.ndarray]:
+                strategy: Any = None, device: Any = None,
+                cache: Any = None) -> Dict[str, np.ndarray]:
         compiled = self.compile(frame, parallel=parallel, use_kernels=use_kernels,
-                                optimize=optimize, strategy=strategy, device=device)
+                                optimize=optimize, strategy=strategy, device=device,
+                                cache=cache)
         (out,) = compiled(self.sources(device))
         return self._decode_output(frame, _to_numpy(out))
 

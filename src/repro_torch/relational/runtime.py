@@ -11,7 +11,9 @@ from the JAX package:
 * sorts are stable and put valid rows first;
 * ``compact`` drops rows past ``max_count`` (through a dump slot);
 * duplicate build keys resolve to the first occurrence, and probe keys
-  outside the declared domain never match.
+  outside the declared domain never match;
+* key packings are int32 arithmetic and wrap as JAX's do;
+* ``topk`` breaks ties by the lowest row index.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 from ..core.expr import AggSpec, Expr, evaluate
 
 _F32_INF = float("inf")
+_I32_MAX = (1 << 31) - 1
+_I32_MIN = -(1 << 31)
 
 def resolve_device(device: Any = None) -> torch.device:
     """``cuda`` unless the caller names a device; asking for a card that
@@ -183,6 +187,10 @@ def mask_select(t: VecTable, pred: Expr) -> VecTable:
     return VecTable(t.cols, t.valid & p)
 
 
+def proj(t: VecTable, names: Sequence[str]) -> VecTable:
+    return VecTable({n: t.cols[n] for n in names}, t.valid)
+
+
 def exproj(t: VecTable, exprs: Sequence[Tuple[str, Expr]]) -> VecTable:
     out = {}
     for name, e in exprs:
@@ -284,11 +292,143 @@ def compact(t: VecTable, max_count: Optional[int] = None) -> VecTable:
     return VecTable(cols, valid)
 
 
+def dict_encode(t: VecTable, cols: Sequence[str], modes: Sequence[str],
+                tables: Sequence[torch.Tensor], lows: Sequence[int],
+                cards: Sequence[int]) -> VecTable:
+    """Per-column value → rank encoding against static sorted dictionaries
+    (``tables`` on the table's device).
+
+    ``mode == "remap"``: one gather through a span-sized rank table whose
+    out-of-dictionary slots already hold the sentinel.  Otherwise a
+    searchsorted rank lookup.  Values outside the dictionary get the
+    sentinel rank ``card``, one past every declared rank domain."""
+    out = dict(t.cols)
+    for c, mode, tab, lo, card in zip(cols, modes, tables, lows, cards):
+        arr = t.cols[c]
+        if mode == "remap":
+            span = tab.shape[0]
+            idx = _cast_i32(arr) - int(lo)
+            ok = (idx >= 0) & (idx < span)
+            ranks = tab[idx.clamp(0, span - 1).to(torch.int64)]
+            out[c] = torch.where(ok, ranks, int(card)).to(torch.int32)
+        else:
+            tab = tab.to(arr.dtype)
+            ic = torch.searchsorted(tab, arr).clamp_(0, int(card) - 1)
+            out[c] = torch.where(tab[ic] == arr, ic, int(card)).to(torch.int32)
+    return VecTable(out, t.valid)
+
+
+def dict_decode(t: VecTable, cols: Sequence[str], tables: Sequence[torch.Tensor]) -> VecTable:
+    """Ranks back to raw values through the sorted value tables; sentinel
+    and invalid ranks clip to the last entry (such rows are invalid)."""
+    out = dict(t.cols)
+    for c, tab in zip(cols, tables):
+        ranks = t.cols[c].to(torch.int64).clamp(0, tab.shape[0] - 1)
+        out[c] = tab[ranks]
+    return VecTable(out, t.valid)
+
+
+#: composite-key packings with more buckets than this raise instead of
+#: silently colliding in the 32-bit accumulator
+_PACK_LIMIT = 1 << 31
+
+
+def _composite_key(t: VecTable, keys: Sequence[str],
+                   key_domains: Optional[Sequence[Tuple[int, int]]] = None,
+                   lows: Optional[Sequence[torch.Tensor]] = None,
+                   sizes: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Pack key columns into one i32, preserving lexicographic order.
+
+    The bounds come from static ``key_domains`` (checked against the 32-bit
+    budget), else from dynamic ``lows``/``sizes`` traced from the data;
+    with neither, only a single column packs."""
+    if key_domains is not None:
+        n_buckets = 1
+        for lo, hi in key_domains:
+            n_buckets *= int(hi) - int(lo) + 1
+        if n_buckets > _PACK_LIMIT:
+            raise ValueError(
+                f"composite key domain for {tuple(keys)} has {n_buckets} "
+                f"buckets and cannot be packed into a 32-bit accumulator; "
+                "reduce the key domain or use a single integer key column")
+        acc = torch.zeros(t.capacity, dtype=torch.int32, device=t.device)
+        for k, (lo, hi) in zip(keys, key_domains):
+            size = int(hi) - int(lo) + 1
+            acc = acc * size + (_int_key(t.cols[k]) - int(lo)).clamp(0, size - 1)
+        return acc
+    if lows is not None and sizes is not None:
+        acc = torch.zeros(t.capacity, dtype=torch.int32, device=t.device)
+        for k, lo, size in zip(keys, lows, sizes):
+            acc = acc * size + (_int_key(t.cols[k]) - lo)
+        return acc
+    if len(keys) == 1:
+        return _int_key(t.cols[keys[0]])
+    raise ValueError(
+        f"cannot pack composite key {tuple(keys)} without per-column domain "
+        "bounds; provide catalog key domains (see Catalog.stats) or derive "
+        "dynamic bounds from the data")
+
+
+def _cast_i32(arr: torch.Tensor) -> torch.Tensor:
+    """``astype(int32)`` as XLA converts: floats truncate and saturate, NaN
+    gives 0 (a plain torch cast of an out-of-range float on the CPU gives
+    INT32_MIN)."""
+    if not arr.is_floating_point():
+        return arr.to(torch.int32)
+    big = arr >= 2.0 ** 31
+    sat = torch.nan_to_num(arr, nan=0.0).clamp(min=-2.0 ** 31).masked_fill(big, 0.0)
+    return torch.where(big, _I32_MAX, sat.to(torch.int32))
+
+
 def _int_key(arr: torch.Tensor) -> torch.Tensor:
     """Key columns as i32: f32 keys bit-cast (as the JAX runtime does)."""
     if arr.dtype == torch.float32:
         return arr.view(torch.int32)
     return arr.to(torch.int32)
+
+
+def _key_change(t: VecTable, keys: Sequence[str]) -> torch.Tensor:
+    """Per-row "starts a new group" flags of a key-sorted block: each key
+    column against the previous row (collision-free for any key)."""
+    change = torch.zeros(t.capacity, dtype=torch.bool, device=t.device)
+    change[:1] = True
+    for k in keys:
+        c = t.cols[k]
+        change |= c != torch.cat([c[:1], c[:-1]])
+    return change & t.valid
+
+
+def _lowest(dtype: torch.dtype) -> Any:
+    """The identity of a max: ``jax.ops.segment_max``'s empty-segment value."""
+    if dtype == torch.bool:
+        return False
+    if dtype.is_floating_point:
+        return -_F32_INF
+    return torch.iinfo(dtype).min
+
+
+def group_agg_sorted(t: VecTable, keys: Sequence[str], aggs: Sequence[AggSpec],
+                     max_groups: int) -> VecTable:
+    """Grouped aggregation over a key-sorted block (valid rows first) by
+    segment reduction: segment ids are the prefix count of key changes,
+    clipped into a dump segment past ``max_groups``."""
+    change = _key_change(t, keys)
+    seg = torch.cumsum(change.to(torch.int64), 0) - 1
+    seg = torch.where(t.valid, seg, max_groups).clamp_(0, max_groups)
+    out_cols: Dict[str, torch.Tensor] = {}
+    for k in keys:
+        c = t.cols[k]
+        as_int = c.to(torch.int32) if c.dtype == torch.bool else c
+        vals = torch.where(t.valid, as_int, torch.zeros((), dtype=as_int.dtype,
+                                                         device=t.device))
+        red = torch.full((max_groups + 1,), _lowest(c.dtype), dtype=as_int.dtype,
+                         device=t.device).scatter_reduce_(0, seg, vals, "amax",
+                                                          include_self=False)
+        out_cols[k] = red[:max_groups].to(c.dtype)
+    for a in aggs:
+        out_cols[a.name] = _segment_agg(a, t.cols, t.valid, seg, max_groups + 1)[:max_groups]
+    n_groups = change.sum()
+    return VecTable(out_cols, torch.arange(max_groups, device=t.device) < n_groups)
 
 
 #: rows per chunk of a segment sum, and the most chunk partials it keeps
@@ -425,33 +565,36 @@ def _bucket_ids_checked(t: VecTable, keys: Sequence[str],
     return acc, ok
 
 
-def build_first_index(right: VecTable, right_on: Sequence[str],
-                      key_domains: Sequence[Tuple[int, int]],
-                      num_buckets: int) -> torch.Tensor:
-    """Direct table over the join-bucket axis: the lowest valid build row
-    index per bucket, ``right.capacity`` where the bucket is empty.
-
-    A scatter-min into a table with a dump slot, so duplicate build keys
-    resolve to the first occurrence and out-of-domain rows fall away."""
+def _first_index(right: VecTable, rbid: torch.Tensor, rok: torch.Tensor,
+                 num_buckets: int) -> torch.Tensor:
+    """The lowest valid build row index per join bucket, ``right.capacity``
+    where the bucket is empty: a scatter-min into a table with a dump
+    slot, so duplicate build keys resolve to the first occurrence and rows
+    outside the domain fall away."""
     cap_r = right.capacity
-    rbid, rok = _bucket_ids_checked(right, right_on, key_domains)
-    slot = torch.where(rok & right.valid, rbid, num_buckets)
+    slot = torch.where(rok & right.valid, rbid.to(torch.int64), num_buckets)
     table = torch.full((num_buckets + 1,), cap_r, dtype=torch.int64,
                        device=right.device)
     rows = torch.arange(cap_r, dtype=torch.int64, device=right.device)
     return table.scatter_reduce_(0, slot, rows, "amin")[:num_buckets]
 
 
+def build_first_index(right: VecTable, right_on: Sequence[str],
+                      key_domains: Sequence[Tuple[int, int]],
+                      num_buckets: int) -> torch.Tensor:
+    """Direct table over the join-bucket axis of static ``key_domains``."""
+    rbid, rok = _bucket_ids_checked(right, right_on, key_domains)
+    return _first_index(right, rbid, rok, num_buckets)
+
+
 def _direct_probe(left: VecTable, right: VecTable, right_on: Sequence[str],
-                  key_domains: Sequence[Tuple[int, int]], num_buckets: int,
-                  lbid: torch.Tensor, lok: torch.Tensor,
+                  table: torch.Tensor, lbid: torch.Tensor, lok: torch.Tensor,
                   columns: Optional[Sequence[str]] = None) -> VecTable:
     """Dense direct-table probe: one gather per left row.  Output rows stay
     at ``left.capacity``; ``columns`` restricts which right columns are
     gathered."""
     cap_r = right.capacity
-    table = build_first_index(right, right_on, key_domains, num_buckets)
-    idx = table[torch.clamp(lbid, 0, num_buckets - 1)]
+    idx = table[torch.clamp(lbid.to(torch.int64), 0, table.shape[0] - 1)]
     match = left.valid & lok & (idx < cap_r)
     idx_c = torch.clamp(idx, max=cap_r - 1)
     out = dict(left.cols)
@@ -464,21 +607,102 @@ def _direct_probe(left: VecTable, right: VecTable, right_on: Sequence[str],
     return VecTable(out, match)
 
 
+def merge_join_sorted(left: VecTable, right: VecTable, left_on: Sequence[str],
+                      right_on: Sequence[str], max_count: int,
+                      key_domains: Optional[Sequence[Tuple[int, int]]] = None,
+                      ) -> VecTable:
+    """PK-FK inner equi-join; ``right`` must be key-sorted (valid rows
+    first).  searchsorted + gather.  Multi-column keys pack with
+    ``key_domains`` where given, else with bounds traced jointly from both
+    sides; a single key column is cast to i32 (not bit-cast, as in JAX)."""
+    if len(left_on) != 1 or len(right_on) != 1:
+        if key_domains is not None:
+            lk = _composite_key(left, left_on, key_domains=key_domains)
+            rk = _composite_key(right, right_on, key_domains=key_domains)
+        else:
+            lows, sizes = _joint_key_bounds(left, right, left_on, right_on)
+            lk = _composite_key(left, left_on, lows=lows, sizes=sizes)
+            rk = _composite_key(right, right_on, lows=lows, sizes=sizes)
+    else:
+        lk = _cast_i32(left.cols[left_on[0]])
+        rk = _cast_i32(right.cols[right_on[0]])
+    rk = torch.where(right.valid, rk, _I32_MAX)
+    idx = torch.searchsorted(rk, lk)
+    idx_c = idx.clamp_(0, right.capacity - 1)
+    match = (rk[idx_c] == lk) & left.valid
+    out = dict(left.cols)
+    lnames = set(left.cols)
+    for k, v in right.cols.items():
+        if k in right_on:
+            continue
+        name = k if k not in lnames else k + "_r"
+        out[name] = v[idx_c]
+    joined = VecTable(out, match)
+    if max_count != left.capacity:
+        joined = compact(joined, max_count)
+    return joined
+
+
+def _joint_key_bounds(left: VecTable, right: VecTable, left_on: Sequence[str],
+                      right_on: Sequence[str]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Shared per-column (lo, size), 0-dim i32, over the valid rows of both
+    join sides (packing must agree across sides)."""
+    lows, sizes = [], []
+    for lk, rk in zip(left_on, right_on):
+        la, ra = _int_key(left.cols[lk]), _int_key(right.cols[rk])
+        lo = torch.minimum(torch.where(left.valid, la, _I32_MAX).min(),
+                           torch.where(right.valid, ra, _I32_MAX).min())
+        hi = torch.maximum(torch.where(left.valid, la, -_I32_MAX).max(),
+                           torch.where(right.valid, ra, -_I32_MAX).max())
+        lows.append(lo)
+        sizes.append(torch.clamp(hi - lo + 1, min=1))
+    return lows, sizes
+
+
 def hash_join_direct(left: VecTable, right: VecTable, left_on: Sequence[str],
                      right_on: Sequence[str], max_count: int,
                      key_domains: Optional[Sequence[Tuple[int, int]]] = None,
                      num_buckets: Optional[int] = None) -> VecTable:
-    """Sort-free PK-FK inner equi-join via a dense direct table, for
-    catalog-bounded ``key_domains`` (out-of-domain rows never match)."""
-    if key_domains is None:
-        raise NotImplementedError(
-            "hash_join_direct with dynamic key bounds (no catalog key_domains) "
-            "is not ported yet: ROADMAP Queue 1, the sorted tiers")
-    nb = 1
-    for lo, hi in key_domains:
-        nb *= int(hi) - int(lo) + 1
-    lbid, lok = _bucket_ids_checked(left, left_on, key_domains)
-    joined = _direct_probe(left, right, right_on, key_domains, nb, lbid, lok)
+    """Sort-free PK-FK inner equi-join via a dense direct table.
+
+    * static ``key_domains`` (catalog-derived): bucket ids are checked
+      against the declared domain, out-of-domain rows never match;
+    * dynamic (``key_domains=None``): per-column bounds are taken jointly
+      from both sides; when their product passes the static
+      ``num_buckets`` budget the join falls back to the sorted merge join.
+      JAX decides inside the trace (``lax.cond``); here the test is a host
+      branch on one value read from the device."""
+    if key_domains is not None:
+        nb = 1
+        for lo, hi in key_domains:
+            nb *= int(hi) - int(lo) + 1
+        lbid, lok = _bucket_ids_checked(left, left_on, key_domains)
+        table = build_first_index(right, right_on, key_domains, nb)
+        joined = _direct_probe(left, right, right_on, table, lbid, lok)
+    else:
+        if num_buckets is None:
+            raise ValueError("hash_join_direct without key_domains needs a "
+                             "static num_buckets budget")
+        nb = int(num_buckets)
+        lows, sizes = _joint_key_bounds(left, right, left_on, right_on)
+        prod = torch.ones((), dtype=torch.float32, device=left.device)
+        for s in sizes:
+            prod = prod * s.to(torch.float32)  # f32: no i32 overflow on the product
+        if bool(prod <= nb):
+            # joint bounds cover every valid row of both sides by construction
+            def dyn_bid(t: VecTable, keys: Sequence[str]) -> torch.Tensor:
+                acc = torch.zeros(t.capacity, dtype=torch.int32, device=t.device)
+                for k, lo, size in zip(keys, lows, sizes):
+                    arr = torch.minimum((_int_key(t.cols[k]) - lo).clamp(min=0), size - 1)
+                    acc = acc * size + arr
+                return acc
+
+            table = _first_index(right, dyn_bid(right, right_on), right.valid, nb)
+            joined = _direct_probe(left, right, right_on, table, dyn_bid(left, left_on),
+                                   left.valid)
+        else:
+            joined = merge_join_sorted(left, sort_by_key(right, right_on), left_on,
+                                       right_on, left.capacity)
     if max_count != left.capacity:
         joined = compact(joined, max_count)
     return joined
@@ -498,12 +722,12 @@ def fused_join_group_agg(left: VecTable, right: VecTable,
     if pred is not None:
         valid = mask_select(left, pred).valid
     lbid, lok = _bucket_ids_checked(left, left_on, join_key_domains)
+    table = build_first_index(right, right_on, join_key_domains, join_num_buckets)
     needed = set(keys)
     for a in aggs:
         if a.fn != "count":
             needed.update(a.expr.fields())
-    joined = _direct_probe(VecTable(left.cols, valid), right, right_on,
-                           join_key_domains, join_num_buckets, lbid, lok,
+    joined = _direct_probe(VecTable(left.cols, valid), right, right_on, table, lbid, lok,
                            columns=sorted(needed))
     return group_agg_direct(joined, keys, aggs, max_groups, key_domains,
                             num_buckets)
@@ -526,3 +750,31 @@ def split(t: VecTable, n: int) -> List[VecTable]:
                  t.valid[i * c:(i + 1) * c])
         for i in range(n)
     ]
+
+
+def topk(t: VecTable, keys: Sequence[str], ascending: Sequence[bool], k: int) -> VecTable:
+    """The first ``k`` rows in key order.  A single numeric key takes a
+    stable descending sort of a validity-masked score, so ties go to the
+    lowest index (``lax.top_k``'s order); ascending ints flip by bitwise
+    NOT, which stays strictly decreasing at INT32_MIN.  As in JAX, a valid
+    key whose score equals the sentinel can lose its slot to an earlier
+    invalid row; the sort path is the general tier."""
+    if len(keys) == 1 and t.cols[keys[0]].dtype != torch.bool:
+        arr = t.cols[keys[0]]
+        k_eff = min(int(k), t.capacity)
+        if arr.is_floating_point():
+            sentinel = -_F32_INF
+            score = -arr if ascending[0] else arr
+        else:
+            sentinel = _I32_MIN
+            score = ~arr.to(torch.int32) if ascending[0] else arr.to(torch.int32)
+        score = torch.where(t.valid, score, sentinel)
+        idx = torch.sort(score, descending=True, stable=True).indices[:k_eff]
+        return VecTable({kk: v[idx] for kk, v in t.cols.items()}, t.valid[idx])
+    s = sort_by_key(t, keys, ascending)
+    return VecTable({kk: v[:k] for kk, v in s.cols.items()}, s.valid[:k])
+
+
+def limit(t: VecTable, k: int) -> VecTable:
+    c = compact(t)
+    return VecTable(c.cols, c.valid & (torch.arange(t.capacity, device=t.device) < k))

@@ -285,6 +285,84 @@ def test_tpch_parallel_on_card_matches_reference(card):
                                            err_msg=f"{q}.{k}")
 
 
+def _mixed_pair(card, n=50_003, seed=6):
+    """The same table on the card and on the CPU: int keys reaching
+    INT32_MIN, bool keys, f32 keys with ties, invalid rows."""
+    rng = np.random.default_rng(seed)
+    cols = {"i": rng.integers(-4, 4, n).astype(np.int32),
+            "b": rng.random(n) < 0.4,
+            "f": rng.choice(np.array([-1.5, 0.25, 2.0], np.float32), n),
+            "fk": rng.integers(-3, 900, n).astype(np.int32),
+            "x": rng.normal(size=n).astype(np.float32)}
+    cols["i"][:7] = np.iinfo(np.int32).min
+    valid = rng.random(n) < 0.85
+    return vectable_from_arrays(cols, valid, card), vectable_from_arrays(cols, valid, "cpu")
+
+
+@pytest.mark.parametrize("keys,asc", [(("i",), (False,)), (("b", "i"), (False, True)),
+                                      (("f", "b", "i"), (True, True, False))])
+def test_sort_chain_and_group_agg_sorted_on_card(card, keys, asc):
+    """The chained stable sorts (bool keys cast, descending ints negated at
+    INT32_MIN) and the sorted group-by on the card, against the CPU."""
+    from repro_torch.relational import runtime as rt
+
+    dev, cpu = _mixed_pair(card)
+    _same(rt.sort_by_key(dev, keys, asc), rt.sort_by_key(cpu, keys, asc))
+    aggs = (AggSpec("sum", col("x"), "s"), AggSpec("min", col("x"), "mn"),
+            AggSpec("max", col("fk"), "mx"), AggSpec("count", const(1), "c"))
+    _same(rt.group_agg_sorted(rt.sort_by_key(dev, keys), keys, aggs, 40),
+          rt.group_agg_sorted(rt.sort_by_key(cpu, keys), keys, aggs, 40))
+
+
+@pytest.mark.parametrize("nb", [4096, 64])
+def test_merge_join_and_dynamic_hash_join_on_card(card, nb):
+    """merge_join_sorted, and the dynamic hash_join_direct on its direct
+    branch (4096 buckets hold the joint key span) and its sorted one (64
+    do not), on the card against the CPU."""
+    from repro_torch.relational import runtime as rt
+
+    dev, cpu = _mixed_pair(card)
+    rng = np.random.default_rng(8)
+    build = {"rk": rng.permutation(900).astype(np.int32),
+             "y": rng.normal(size=900).astype(np.float32)}
+    rvalid = rng.random(900) < 0.9
+    rdev, rcpu = (vectable_from_arrays(build, rvalid, d) for d in (card, "cpu"))
+    _same(rt.merge_join_sorted(dev, rt.sort_by_key(rdev, ("rk",)), ("fk",), ("rk",), 30_000),
+          rt.merge_join_sorted(cpu, rt.sort_by_key(rcpu, ("rk",)), ("fk",), ("rk",), 30_000))
+    _same(rt.hash_join_direct(dev, rdev, ("fk",), ("rk",), 30_000, num_buckets=nb),
+          rt.hash_join_direct(cpu, rcpu, ("fk",), ("rk",), 30_000, num_buckets=nb))
+
+
+def test_plan_cache_hit_on_card(card):
+    """A repeated collect on the card hits the plan cache and runs the
+    miss's plan: under the port's tiers and encode=dict the same bits (the
+    generated kernels add in a fixed order, Q4's atomic route counts
+    integers); under the sorted tiers, whose torch segment sums add with
+    atomics in any order, integers exact and floats within rtol 1e-5.
+    The CPU's plan is another entry."""
+    from repro_torch.compiler import PlanCache
+
+    tables = tpch.generate(sf=0.05, seed=1)
+    ctx = tpch.make_context(tables)
+    cache = PlanCache()
+    strategies = (None, {"encode": "dict"}, {"groupby": "sorted", "join": "sorted"})
+    for strategy in strategies:
+        for q, f in tpch.QUERIES.items():
+            first = f(ctx).collect(device=card, strategy=strategy, cache=cache)
+            hit = ctx.compile(f(ctx), device=card, strategy=strategy, cache=cache)
+            assert hit.cache_hit
+            again = f(ctx).collect(device=card, strategy=strategy, cache=cache)
+            for k in first:
+                a, b = np.asarray(first[k]), np.asarray(again[k])
+                if strategy == strategies[-1] and a.dtype.kind == "f":
+                    np.testing.assert_allclose(b, a, rtol=1e-5, err_msg=f"{q}.{k}")
+                else:
+                    assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (q, k)
+            assert not ctx.compile(f(ctx), device="cpu", strategy=strategy,
+                                   cache=cache).cache_hit
+    assert cache.stats["hits"] == 2 * len(strategies) * len(tpch.QUERIES)
+
+
 def _clusters(n, d, k, seed):
     rng = np.random.default_rng(seed)
     centres = rng.normal(0, 5, (k, d))

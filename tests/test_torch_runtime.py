@@ -199,11 +199,16 @@ def test_hash_join_direct_static(dup, max_count):
           jrt.hash_join_direct(jl, jr, *args, key_domains=((0, 21),)))
 
 
-def test_hash_join_direct_dynamic_bounds_not_ported():
-    _, tl = _both(*_data())
-    _, tr = _both(*_build())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.hash_join_direct(tl, tr, ("fk",), ("rk",), 777, num_buckets=64)
+@pytest.mark.parametrize("num_buckets", [64, 8])
+def test_hash_join_direct_dynamic_bounds_not_ported(num_buckets):
+    """The dynamic-bounds variant (no catalog key domains) against JAX's:
+    64 buckets hold the joint key span (the direct branch), 8 do not (the
+    sorted merge join)."""
+    jl, tl = _both(*_data())
+    jr, tr = _both(*_build())
+    args = (("fk",), ("rk",), 777)
+    _same(trt.hash_join_direct(tl, tr, *args, num_buckets=num_buckets),
+          jrt.hash_join_direct(jl, jr, *args, num_buckets=num_buckets))
 
 
 @pytest.mark.parametrize("pred", ["mixed", None])
