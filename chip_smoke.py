@@ -73,7 +73,36 @@ Phases, each printing its own lines:
 10. SQL: TPC-H Q6 and a grouped ``ORDER BY … LIMIT 3`` through
    ``sql.query(ctx, ..., device="cuda")``: the Python frontend's program
    (the plan cache serves its plan), its bits, and numpy's answer;
-11. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
+11. the cost search: the six queries with ``optimize="cost"`` and a fresh
+   ``PlanCache``, sequential and with ``parallel=4``, against the
+   references: per query the chosen strategy of 16 candidates, the
+   search's compile ms against the fixed path's miss compile, the chosen
+   plan's execute ms against the default strategy's; then a fresh cache on
+   a temporary ``PlanStore``: the second compile replays the stored
+   strategy (``cache_source == "store"``), timed;
+12. admission: every query admitted under the card's total memory, each
+   estimate's peak bytes beside the caching allocator's measured rise; Q4
+   under a budget that drops its sorted candidates (the model estimates
+   them above the direct ones) and under one below every candidate
+   (rejected); a group-by over a 10^6-wide key domain whose direct
+   candidates the budget drops, answered by a sorted plan as numpy does;
+13. taps and feedback: the six queries under ``tracing()``, one observation
+   per tapped operator, scans and the last aggregation measuring numpy's
+   rows, traced ms beside plain ms; ``enable_auto_replan`` re-plans Q1
+   compiled on stale statistics;
+14. control flow: the k-means step as the body of ``cf.Loop(n=5)`` at the
+   k-means path's shape, fused and split in 8, through the driver:
+   ``kmeans_step`` launched 40 times on ``kms_tc``, the centroids the bits
+   of five one-step calls; ``cf.Cond`` (both branches), ``cf.Call`` and
+   ``df.Source → df.Collect`` against the CPU;
+15. the fallback ladder: Q1 with ``backend.execute`` injected once (the
+   ``groupby=sorted`` rung answers) and at every rung down to ``interp``
+   (numpy on the host), each against the reference, with ms per rung;
+   then a subprocess with an empty build directory and no ``nvcc``, whose
+   ``collect()`` must raise ``KernelBuildError`` under ``guard=True``.
+   Every other phase runs with ``DegradedWarning`` an error, so a step down
+   the ladder anywhere else fails the run;
+16. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
    layers at full width, bf16, parameters from ``model.init`` with seed 0)
    with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
    ``launch/serve.py`` makes them) in waves of 4, 32 greedy tokens each,
@@ -87,7 +116,7 @@ Phases, each printing its own lines:
    64 and 128, a non-default scale), each with its share of the bound and,
    in bf16, its distance from the tensor-core recipe
    (``ref.flash_attention_tiled``);
-12. each kernel against its plain version on the inputs the paths gave it,
+17. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -97,7 +126,7 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-13. per-query latency (median over ``--reps`` after a warm-up, each run
+18. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -2047,6 +2076,464 @@ def phase_profile(workloads, captured) -> None:
         + json.dumps(rows))
 
 
+# ---------------------------------------------------------------------------
+# the compile driver: cost search, plan store, admission, the fallback
+# ladder, taps and feedback, control flow
+# ---------------------------------------------------------------------------
+
+
+def sync(dev: str) -> None:
+    import torch
+
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def run_ms(fn, dev: str, reps: int) -> float:
+    """Median host ms of ``fn()`` over ``reps`` runs, the card synchronised
+    before and after each (after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_cost(tables, ctx, frames, reps: int, dev: str = "cuda") -> None:
+    """The six queries with ``optimize="cost"`` and a fresh ``PlanCache``,
+    sequential and with ``parallel=4``, against the numpy references: per
+    query the chosen strategy, the number of candidates (16), the search's
+    compile ms against the fixed path's miss compile ms, and the chosen
+    plan's execute ms against the default strategy's.  Then a fresh cache
+    on a temporary ``PlanStore``: the second compile replays the stored
+    strategy (``cache_source == "store"``), timed, and answers right."""
+    import tempfile
+
+    from repro_torch.compiler import PlanCache, PlanStore
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.relational import tpch
+
+    srcs = ctx.sources(dev)
+    refs = {q: tpch.REFERENCES[q](tables) for q in frames}
+    summary = {}
+    for par in (None, PARALLEL):
+        mode = "sequential" if par is None else f"parallel={PARALLEL}"
+        cache = PlanCache()
+        for q, frame in frames.items():
+            check_query(q, frame.collect(device=dev, parallel=par, optimize="cost",
+                                         cache=cache), refs[q])
+            chosen = ctx.compile(frame, device=dev, parallel=par, optimize="cost", cache=cache)
+            default = ctx.compile(frame, device=dev, parallel=par, cache=cache)
+            if not chosen.cache_hit or len(chosen.decision.candidates) != 16:
+                raise AssertionError(f"cost {q} {mode}: hit {chosen.cache_hit}, "
+                                     f"{len(chosen.decision.candidates)} candidates")
+            search = run_ms(lambda: ctx.compile(frame, device=dev, parallel=par,
+                                                optimize="cost", cache=False), dev, reps)
+            fixed = run_ms(lambda: ctx.compile(frame, device=dev, parallel=par, cache=False),
+                           dev, reps)
+            ex_chosen = run_ms(lambda: _to_numpy(chosen(srcs)[0]), dev, reps)
+            ex_default = run_ms(lambda: _to_numpy(default(srcs)[0]), dev, reps)
+            row = {"strategy": dict(chosen.strategy), "candidates": 16,
+                   "search_compile_ms": search, "fixed_compile_ms": fixed,
+                   "chosen_execute_ms": ex_chosen, "default_execute_ms": ex_default,
+                   "default_is_chosen": chosen.strategy == default.strategy}
+            summary.setdefault(mode, {})[q] = row
+            log(f"cost {q} {mode}: chose {json.dumps(row['strategy'])} of 16 candidates; "
+                f"search compile {search:.3f} ms against the fixed path's {fixed:.3f} ms; "
+                f"execute {ex_chosen:.3f} ms against the default strategy's {ex_default:.3f} "
+                f"ms (medians of {reps}); matches the numpy reference")
+    log("cost: " + json.dumps(summary))
+
+    with tempfile.TemporaryDirectory(prefix="plan-store-") as root:
+        store, replay = PlanStore(root), {}
+        for q, frame in frames.items():
+            ctx.compile(frame, device=dev, optimize="cost", cache=PlanCache(), store=store)
+            sync(dev)
+            t0 = time.perf_counter()
+            res = ctx.compile(frame, device=dev, optimize="cost", cache=PlanCache(),
+                              store=store)
+            replay[q] = (time.perf_counter() - t0) * 1e3
+            if res.cache_source != "store" or res.decision.source != "store":
+                raise AssertionError(f"plan store {q}: source {res.cache_source}")
+            check_query(q, _to_numpy(res(srcs)[0]), refs[q])
+        log(f"plan store: {len(store)} records; a fresh cache replays each query's stored "
+            f"strategy (cache_source=store) and answers right; replay compile ms "
+            f"{json.dumps(replay)}")
+
+
+def peak_rise(fn, dev: str) -> int:
+    """Bytes the caching allocator's peak rose by while ``fn()`` ran."""
+    import torch
+
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    sync(dev)
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_admission(tables, ctx, frames, dev: str = "cuda") -> None:
+    """Admission on the card.  With a budget of the card's total memory
+    every query is admitted; per query the estimate's peak bytes beside
+    the allocator's measured rise while the plan's first run ran.  Q4's
+    sorted tiers are estimated above its direct ones (their sorts' scratch),
+    so a budget of Q4's direct estimate drops the sorted candidates and
+    one byte less rejects every candidate; a group-by over a 10^6-wide key
+    domain whose bucket table dwarfs its 2^16 rows drops the direct
+    candidates under a budget below their estimate, picks a sorted one and
+    answers as numpy does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.frontends.dataflow import Context, _to_numpy, count_, sum_
+    from repro_torch.relational import tpch
+    from repro_torch.robust.admission import AdmissionError, estimate_peak_bytes
+
+    srcs = ctx.sources(dev)
+    total = torch.cuda.mem_get_info()[1]
+    peaks, over = {}, []
+    for q, frame in frames.items():
+        res = ctx.compile(frame, device=dev, cache=False, memory_budget=total)
+        if res.degraded or res.resources is None:
+            raise AssertionError(f"admission {q}: {res.degraded}, {res.resources}")
+        out = {}
+        rise = peak_rise(lambda: out.update(_to_numpy(res(srcs)[0])), dev)
+        check_query(q, out, tpch.REFERENCES[q](tables))
+        est = res.resources.peak_bytes
+        peaks[q] = {"estimate": est, "measured_rise": rise, "site": res.resources.peak_site}
+        if rise > est:
+            over.append(q)
+        log(f"admission {q}: admitted under {total} bytes; estimate {est} bytes at "
+            f"{res.resources.peak_site}, measured peak rise {rise} bytes "
+            f"({rise / max(est, 1):.3f} of the estimate)")
+    log("admission: " + json.dumps(peaks) + f"; measured above the estimate: {over}")
+
+    q4 = frames["q4"]
+    search = ctx.compile(q4, device=dev, cache=False, optimize="cost")
+    ests = {c.strategy: estimate_peak_bytes(ctx.compile(
+        q4, device=dev, cache=False, strategy=dict(c.strategy)).program).peak_bytes
+        for c in search.decision.candidates}
+    tier = {s_: dict(s_)["groupby"] for s_ in ests}
+    budget = max(e for s_, e in ests.items() if tier[s_] == "direct")
+    lowest_sorted = min(e for s_, e in ests.items() if tier[s_] == "sorted")
+    if lowest_sorted <= budget:
+        raise AssertionError(f"admission q4: a sorted candidate is estimated at "
+                             f"{lowest_sorted} bytes, within the direct ones' {budget}")
+    res = ctx.compile(q4, device=dev, cache=PlanCache(), optimize="cost",
+                      memory_budget=budget)
+    kept = [tier[c.strategy] for c in res.decision.candidates]
+    if res.degraded or "sorted" in kept or dict(res.strategy)["groupby"] != "direct":
+        raise AssertionError(f"admission q4: kept {kept}, chose {res.strategy}")
+    check_query("q4", _to_numpy(res(srcs)[0]), tpch.REFERENCES["q4"](tables))
+    try:
+        ctx.compile(q4, device=dev, cache=False, optimize="cost", guard=False,
+                    memory_budget=min(ests.values()) - 1)
+        raise AssertionError("admission q4: a budget below every estimate admitted a plan")
+    except AdmissionError as e:
+        rejected = str(e).splitlines()[0]
+    log(f"admission q4: direct candidates estimated at most {budget} bytes, sorted ones at "
+        f"least {lowest_sorted} (their sorts' scratch); under a budget of {budget} the "
+        f"search kept {len(kept)} direct candidates, chose {json.dumps(dict(res.strategy))} "
+        f"and matches numpy; below every estimate it rejects all ({rejected})")
+
+    rng = np.random.default_rng(0)
+    n, span = 1 << 16, 1_000_000
+    wide = Context(pad_to=1024)
+    wide.register("w", {"k": rng.integers(0, span, n).astype(np.int32),
+                        "v": rng.normal(size=n).astype(np.float32)})
+    frame = wide.table("w").group_by("k", max_groups=n).agg(sum_("v").as_("s"),
+                                                            count_().as_("n"))
+    est = estimate_peak_bytes(wide.compile(frame, device=dev, cache=False,
+                                           strategy={"groupby": "direct"}).program)
+    res = wide.compile(frame, device=dev, cache=PlanCache(), optimize="cost",
+                       strategy={"encode": "raw"}, memory_budget=est.peak_bytes - 1)
+    if res.degraded or dict(res.strategy)["groupby"] != "sorted" or any(
+            dict(c.strategy)["groupby"] == "direct" for c in res.decision.candidates):
+        raise AssertionError(f"admission wide: {res.strategy}, {res.decision.records()}")
+    out = {}
+    rise = peak_rise(lambda: out.update(_to_numpy(res(wide.sources(dev))[0])), dev)
+    k, v = wide.tables["w"]["k"], wide.tables["w"]["v"]
+    keys, inv = np.unique(k, return_inverse=True)
+    order = np.argsort(out["k"])
+    np.testing.assert_array_equal(out["k"][order], keys)
+    np.testing.assert_array_equal(out["n"][order], np.bincount(inv))
+    np.testing.assert_allclose(out["s"][order], np.bincount(inv, v.astype(np.float64)),
+                               rtol=QUERY_RTOL, atol=1e-4)
+    log(f"admission wide group-by ({n} rows, keys over {span}): direct estimate "
+        f"{est.peak_bytes} bytes; under a budget one byte below it the search dropped the "
+        f"direct candidates and chose {json.dumps(dict(res.strategy))} "
+        f"({res.resources.peak_bytes} bytes estimated, {rise} measured); matches numpy")
+
+
+def phase_fallback(tables, ctx, frames, dev: str = "cuda") -> None:
+    """The fallback ladder on the card.  Q1 with ``backend.execute``
+    injected to raise once: the first rung (``groupby=sorted``) answers;
+    then injected at every rung down to ``interp`` (numpy on the host at
+    this scale); each answer against the numpy reference, the ms per rung
+    from the trace's ``robust.fallback`` events.  Then Q1 whose
+    ``grouped_select_agg`` refuses its inputs (its own bucket check) or runs
+    out of the card's memory: ``collect()`` must raise ``KernelLaunchError``
+    under ``guard=True`` with no rung walked.  Then a subprocess whose build
+    directory is empty and whose ``nvcc`` cannot be found: its ``collect()``
+    must raise ``KernelBuildError`` under ``guard=True``."""
+    import os
+    import tempfile
+    import textwrap
+    import warnings
+
+    import torch
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.errors import KernelLaunchError
+    from repro_torch.kernels import ops as kops
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.obs import DegradedWarning, tracing
+    from repro_torch.relational import tpch
+    from repro_torch.robust.inject import inject
+
+    srcs = ctx.sources(dev)
+    want = tpch.REFERENCES["q1"](tables)
+    for times, rungs in ((1, ("groupby=sorted",)),
+                         (4, ("groupby=sorted", "join=sorted", "fuse=unfused", "interp"))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with tracing() as tr, inject("backend.execute", times=times):
+                res = ctx.compile(frames["q1"], device=dev, cache=PlanCache())
+                got = _to_numpy(res(srcs)[0])
+                sync(dev)
+                end = time.perf_counter() - tr.epoch
+        check_query("q1", got, want)
+        steps = [e for e in tr.events if e["name"] == "robust.fallback"]
+        warned = [w for w in caught if issubclass(w.category, DegradedWarning)]
+        if res.degraded != rungs or len(warned) != len(rungs) or len(steps) != len(rungs):
+            raise AssertionError(f"fallback q1 ×{times}: degraded {res.degraded}, "
+                                 f"{len(warned)} warnings")
+        ts = [e["ts"] for e in steps] + [end]
+        per_rung = {r: (ts[i + 1] - ts[i]) * 1e3 for i, r in enumerate(rungs)}
+        log(f"fallback q1, backend.execute injected {times}×: degraded via "
+            f"{' → '.join(res.degraded)} (target {res.target}); matches the numpy reference; "
+            f"ms per rung {json.dumps(per_rung)}")
+
+    real = kops.grouped_select_agg
+
+    def refused(t, pred, keys, aggs, mg, domains, nb):
+        return real(t, pred, keys, aggs, mg, domains, nb + 1)
+
+    def out_of_memory(*args, **kw):
+        raise torch.OutOfMemoryError("CUDA out of memory (raised on purpose)")
+
+    for what, failing in (("refuses its inputs", refused),
+                          ("runs out of memory", out_of_memory)):
+        kops.grouped_select_agg = failing
+        try:
+            frames["q1"].collect(device=dev, cache=PlanCache(), guard=True)
+        except KernelLaunchError as e:
+            log(f"fallback q1 whose grouped_select_agg {what}: collect() under guard=True "
+                f"raised KernelLaunchError ({str(e).splitlines()[0][:120]}); no rung walked")
+        else:
+            raise AssertionError(f"fallback q1 whose grouped_select_agg {what}: answered")
+        finally:
+            kops.grouped_select_agg = real
+
+    code = textwrap.dedent(f"""
+        import sys, warnings
+        sys.path.insert(0, {str(ROOT / 'src')!r})
+        from repro_torch.kernels import build
+        build.DEFAULT_NVCC = "/nonexistent/bin/nvcc"
+        from repro_torch.obs import DegradedWarning
+        from repro_torch.relational import tpch
+        warnings.simplefilter("error", DegradedWarning)
+        ctx = tpch.make_context(tpch.generate(sf=0.01, seed=0))
+        try:
+            tpch.q6(ctx).collect(device={dev!r}, guard=True)
+        except Exception as e:
+            print("raised", type(e).__name__, str(e).splitlines()[0])
+        else:
+            print("answered")
+    """)
+    with tempfile.TemporaryDirectory(prefix="empty-build-") as empty:
+        env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+        env["REPRO_TORCH_BUILD_DIR"] = empty
+        env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                      if p and not (Path(p) / "nvcc").exists())
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, timeout=300)
+    said = out.stdout.strip().splitlines()[-1:] or [out.stderr.strip()[-500:]]
+    if out.returncode != 0 or not said[0].startswith("raised KernelBuildError"):
+        raise AssertionError(f"fallback without nvcc: exit {out.returncode}, {said}")
+    log(f"fallback without nvcc (empty build directory): collect() under guard=True "
+        f"{said[0]}; no rung walked")
+
+
+def phase_traced(tables, ctx, frames, reps: int, dev: str = "cuda") -> None:
+    """The six queries under ``tracing()``: each profile has one
+    observation per tapped operator of the plan, the scans measure the
+    tables' rows and the last aggregation the numpy reference's result
+    rows; the traced run's ms beside the plain run's.  Then
+    ``enable_auto_replan``: Q1 compiled on statistics that claim 1,000
+    lineitem rows misses its scan estimate on a traced run and re-plans by
+    cost under the observed rows."""
+    import numpy as np
+
+    from repro_torch.compiler import (PlanCache, compile as cvm_compile,
+                                      disable_auto_replan, enable_auto_replan)
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.obs import TAPPED_OPS, tracing
+    from repro_torch.relational import tpch
+
+    srcs = ctx.sources(dev)
+    rows = {t: len(next(iter(cols.values()))) for t, cols in tables.items()}
+    aggs = ("vec.GroupAggDirect", "vec.GroupAggSorted", "vec.FusedJoinGroupAgg",
+            "vec.FusedSelectAgg", "vec.AggrVec")
+    summary = {}
+    for q, frame in frames.items():
+        res = ctx.compile(frame, device=dev, cache=PlanCache())
+        plain = run_ms(lambda: _to_numpy(res(srcs)[0]), dev, reps)
+
+        def traced():
+            with tracing():
+                return _to_numpy(res(srcs)[0])
+        traced_ms = run_ms(traced, dev, reps)
+        check_query(q, traced(), tpch.REFERENCES[q](tables))
+        prof = res.profile
+        tapped = sum(ins.opcode in TAPPED_OPS and bool(ins.outputs)
+                     for p in res.program.walk() for ins in p.body)
+        if len(prof.observations) != tapped:
+            raise AssertionError(f"traced {q}: {len(prof.observations)} observations for "
+                                 f"{tapped} tapped operators")
+        for o in prof.observations:
+            if o.table is not None and o.rows_out != rows[o.table]:
+                raise AssertionError(f"traced {q}: scan of {o.table} measured {o.rows_out}")
+        want = tpch.REFERENCES[q](tables)
+        first = np.asarray(next(iter(want.values())))
+        want_rows = len(first) if first.ndim else 1
+        last = [o for o in prof.observations
+                if o.opcode in aggs and o.program == res.program.name][-1]
+        if last.rows_out != want_rows:
+            raise AssertionError(f"traced {q}: {last.opcode} measured {last.rows_out} rows, "
+                                 f"numpy {want_rows}")
+        summary[q] = {"plain_ms": plain, "traced_ms": traced_ms,
+                      "observations": len(prof.observations),
+                      "worst_miss": prof.worst_miss}
+        log(f"traced {q}: {len(prof.observations)} observations, one per tapped operator; "
+            f"scans and {last.opcode} measure numpy's rows ({want_rows}); worst miss "
+            f"{prof.worst_miss}; traced {traced_ms:.3f} ms against plain {plain:.3f} ms "
+            f"(medians of {reps})")
+    log("traced: " + json.dumps(summary))
+
+    catalog = ctx.catalog()
+    catalog.stats = catalog.stats.with_observed_rows({"lineitem": 1000})
+    res = cvm_compile(frames["q1"].program(), catalog, device=dev, cache=PlanCache())
+    enable_auto_replan(threshold=1.0)
+    try:
+        with tracing() as tr:
+            _to_numpy(res(srcs)[0])
+    finally:
+        disable_auto_replan()
+    replans = [e for e in tr.events if e["name"] == "driver.replan"]
+    if tr.counters.get("driver.replan") != 1 or res.decision is None:
+        raise AssertionError(f"auto re-plan: {tr.counters}")
+    check_query("q1", _to_numpy(res(srcs)[0]), tpch.REFERENCES["q1"](tables))
+    log(f"auto re-plan q1: stale statistics (1000 lineitem rows) missed by "
+        f"{replans[0]['worst_miss']:.1f}; re-planned by cost from "
+        f"{json.dumps(replans[0]['old_strategy'])} to {json.dumps(replans[0]['new_strategy'])}"
+        f" under {res.stats.table('lineitem').rows} observed rows; matches numpy")
+
+
+def control_flow_programs():
+    """Small programs of the other control-flow instructions: a ``cf.Cond``
+    over (pred, x, y), a ``cf.Call`` and ``df.Source`` → ``df.Collect``."""
+    from repro_torch.core import Builder, subprogram
+    from repro_torch.core.types import BOOL, F32, Single, Tensor
+
+    t, tb = Tensor(F32, (1024, 8)), Single(BOOL)
+
+    def ew(b, op, *regs):
+        return b.emit1("la.Ewise", list(regs), {"op": op})
+
+    then = subprogram("then", [("x", t), ("y", t)], lambda b, r: [ew(b, "mul", *r)])
+    other = subprogram("else", [("x", t), ("y", t)], lambda b, r: [ew(b, "sub", *r)])
+    b = Builder("branched")
+    regs = [b.input("pred", tb), b.input("x", t), b.input("y", t)]
+    cond = b.finish(*b.emit("cf.Cond", regs, {"Pthen": then, "Pelse": other}))
+    callee = subprogram("callee", [("x", t), ("y", t)], lambda b, r: [
+        b.emit1("la.MMMult", [r[0], b.emit1("la.Transpose", [r[1]])])])
+    b = Builder("caller")
+    call = b.finish(*b.emit("cf.Call", [b.input("x", t), b.input("y", t)], {"P": callee}))
+    b = Builder("sourced")
+    source = b.finish(b.emit1("df.Collect", [b.emit1("df.Source", [], {"name": "t", "type": t})]))
+    return cond, call, source
+
+
+def phase_control_flow(dev: str = "cuda", n: int = KMEANS_N) -> None:
+    """The k-means step as the body of a ``cf.Loop(n=5)`` at the k-means
+    path's shape (2^24 points, d = 8, k = 16, seed 0), fused and split in 8
+    (``kmeans.loop_program``), compiled by the driver: ``kmeans_step``
+    launched 40 times, all on ``kms_tc``, with the launch counts set to 0
+    just before and read just after; its centroids the bits of five calls of
+    the one-step program.  Then ``cf.Cond`` (both branches), ``cf.Call`` and
+    ``df.Source → df.Collect`` on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kmeans
+    from repro_torch.compiler import compile as cvm_compile
+    from repro_torch.convert import tensors_from_arrays
+    from repro_torch.kernels import ops
+
+    d, k, steps = KMEANS_D, KMEANS_K, 5
+    x, c0 = kmeans.make_data(n, d, k, KMEANS_SEED)
+    X, C = tensors_from_arrays(x, c0, device=dev)
+    loop = cvm_compile(kmeans.loop_program(n, d, k, steps, KMEANS_PARALLEL), device=dev,
+                       cache=False)
+    one = cvm_compile(kmeans.loop_program(n, d, k, 1, KMEANS_PARALLEL), device=dev, cache=False)
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    (looped,) = loop({"X": X}, C)
+    sync(dev)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = ops.LAUNCHES["kmeans_step"], dict(ops.KMEANS_LAUNCHES)
+    expect = steps * KMEANS_PARALLEL
+    if launches != expect or routes != {"kms_tc": expect, "kms_main": 0}:
+        raise AssertionError(f"cf.Loop k-means: {launches} launches, routes {routes}")
+    stepped = C
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        (stepped,) = one({"X": X}, stepped)
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if (looped.shape != (k, d) or not bool(torch.isfinite(looped).all())
+            or looped.cpu().numpy().tobytes() != stepped.cpu().numpy().tobytes()):
+        raise AssertionError("cf.Loop k-means: centroids differ from five one-step calls")
+    if loop.degraded or one.degraded:
+        raise AssertionError("cf.Loop k-means: degraded")
+    log(f"cf.Loop k-means n={n} d={d} k={k}, {steps} iterations: kmeans_step launched "
+        f"{launches} times, routes {json.dumps(routes)}; centroids the bits of {steps} "
+        f"one-step calls; loop {loop_ms:.3f} ms, stepped {step_ms:.3f} ms (host clock)")
+
+    rng = np.random.default_rng(1)
+    xs, ys = (rng.normal(size=(1024, 8)).astype(np.float32) for _ in range(2))
+    cond, call, source = control_flow_programs()
+    cases = [("cf.Cond then", cond, {}, [np.array(True), xs, ys]),
+             ("cf.Cond else", cond, {}, [np.array(False), xs, ys]),
+             ("cf.Call", call, {}, [xs, ys]),
+             ("df.Source → df.Collect", source, {"t": xs}, [])]
+    for what, prog, srcs, args in cases:
+        got = cvm_compile(prog, device=dev, cache=False)(srcs, *args)
+        want = cvm_compile(prog, device="cpu", cache=False)(srcs, *args)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=KERNEL_RTOL,
+                                       atol=1e-5, err_msg=what)
+    log("control flow on the card: " + ", ".join(c[0] for c in cases) + " match the CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0)
@@ -2060,7 +2547,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import warnings
     from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.obs import DegradedWarning
+
+    # a plan that steps down the fallback ladder fails the run, except in
+    # phase_fallback, which lifts this inside its own catch_warnings()
+    warnings.simplefilter("error", DegradedWarning)
 
     # full-f32 products in the plain versions: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2079,6 +2573,18 @@ def main() -> int:
         phase_plan_cache(frames, a.reps)
         phase_dict(a.reps)
         phase_sql(tables, ctx)
+        driver_s = {}
+        for name, run in (("cost", lambda: phase_cost(tables, ctx, frames, min(a.reps, 3))),
+                          ("admission", lambda: phase_admission(tables, ctx, frames)),
+                          ("traced", lambda: phase_traced(tables, ctx, frames, min(a.reps, 3))),
+                          ("control_flow", phase_control_flow)):
+            t0 = time.perf_counter()
+            run()
+            driver_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_fallback(tables, ctx, frames)
+        driver_s["fallback"] = time.perf_counter() - t0
+        log(f"driver phases took {sum(driver_s.values()):.1f} s: " + json.dumps(driver_s))
         fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches["flash_attention"])

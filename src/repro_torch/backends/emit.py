@@ -5,6 +5,8 @@ lowered program runs as a building block on torch tensors, eagerly.
 Under ``use_kernels`` the fused operators launch their CUDA kernels
 (``kernels.ops``) — the relational ones at any bucket count: the JAX
 package's 4096-bucket gate existed only for the TPU kernels' one-hot.
+Any failure inside a kernel's wrapper re-raises as ``KernelLaunchError``,
+which the driver's fallback ladder does not walk.
 
 Value model: Vec⟨tuple⟩ → VecTable, Single⟨tuple⟩ → dict[str, 0-dim
 tensor], Tensor → torch.Tensor, split Seq[n]⟨X⟩ → list of n values.
@@ -13,11 +15,12 @@ tensor], Tensor → torch.Tensor, split Seq[n]⟨X⟩ → list of n values.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..core.program import Program
+from ..core.program import Instruction, Program
+from ..errors import KernelLaunchError, card_fault
 from ..relational import runtime as rt
 
 _EMIT: Dict[str, Callable[..., List[Any]]] = {}
@@ -41,6 +44,10 @@ class EvalCtx:
     #: the plan's numpy constants (dictionary tables) on ``device``, kept
     #: by the compiled plan across its calls: ``(id, device) → (array, tensor)``
     consts: Dict[Any, Any] = field(default_factory=dict)
+    #: traced executions install a dict here; tapped ops accumulate
+    #: ``key → [occurrences, rows_in, rows_out]``, the rows as 0-dim device
+    #: tensors where they depend on the data (read back once, at the end)
+    taps: Optional[Dict[str, List[Any]]] = None
 
 
 def _on_device(ctx: EvalCtx, arr: Any) -> torch.Tensor:
@@ -53,18 +60,73 @@ def _on_device(ctx: EvalCtx, arr: Any) -> torch.Tensor:
     return got[1]
 
 
+def tap_rows(v: Any) -> Any:
+    """Cardinality of one runtime value: valid rows for a VecTable (a 0-dim
+    tensor on its device, no sync), leading dim for tensors and column
+    dicts, summed chunks for split sequences, 1 for singles."""
+    if isinstance(v, rt.VecTable):
+        return v.count()
+    if isinstance(v, dict):
+        if not v:
+            return 0
+        first = next(iter(v.values()))
+        return first.shape[0] if getattr(first, "ndim", 0) >= 1 else 1
+    if isinstance(v, (list, tuple)):
+        return sum(tap_rows(c) for c in v)
+    shape = getattr(v, "shape", None)
+    if shape:
+        return shape[0]
+    return 1
+
+
+def record_tap(ctx: EvalCtx, program: Program, index: int, ins: Instruction,
+               args: Sequence[Any], outs: Sequence[Any]) -> None:
+    """Accumulate one instruction's measured cardinality into ``ctx.taps``.
+
+    Repeated hits of the same instruction (ConcurrentExecute chunks, loop
+    iterations) sum their row counts — the summed-chunk global cardinality
+    the profile joins against the per-chunk estimate × occurrences."""
+    from ..obs.feedback import TAPPED_OPS, tap_key
+
+    if ins.opcode not in TAPPED_OPS or not ins.outputs:
+        return
+    key = tap_key(program.name, index, ins.opcode, ins.outputs[0].name)
+    rows_in = tap_rows(args[0]) if args else None
+    rows_out = tap_rows(outs[0])
+    entry = ctx.taps.get(key)
+    if entry is None:
+        ctx.taps[key] = [1, rows_in, rows_out]
+    else:
+        entry[0] += 1
+        entry[1] = (None if entry[1] is None or rows_in is None
+                    else entry[1] + rows_in)
+        entry[2] = entry[2] + rows_out
+
+
+def read_taps(taps: Dict[str, List[Any]]) -> Dict[str, List[Any]]:
+    """``taps`` with every device count read back, in one copy to the host."""
+    on_device = [v for e in taps.values() for v in e[1:] if isinstance(v, torch.Tensor)]
+    host = iter(torch.stack([v.reshape(()).to(torch.int64) for v in on_device]).tolist()
+                if on_device else ())
+    return {k: [e[0]] + [next(host) if isinstance(v, torch.Tensor) else v for v in e[1:]]
+            for k, e in taps.items()}
+
+
 def evaluate_program(ctx: EvalCtx, program: Program, *args: Any) -> List[Any]:
     """Run a lowered CVM program on torch tensors."""
     if len(args) != len(program.inputs):
         raise ValueError(f"{program.name}: expected {len(program.inputs)} args")
     env: Dict[str, Any] = {r.name: v for r, v in zip(program.inputs, args)}
-    for ins in program.body:
+    for i, ins in enumerate(program.body):
         fn = _EMIT.get(ins.opcode)
         if fn is None:
             raise NotImplementedError(
                 f"no torch emitter for {ins.opcode}: not ported yet "
                 "(ROADMAP.md, Queue 1: the emitters still missing)")
-        outs = fn(ctx, ins, [env[r.name] for r in ins.inputs])
+        ins_args = [env[r.name] for r in ins.inputs]
+        outs = fn(ctx, ins, ins_args)
+        if ctx.taps is not None:
+            record_tap(ctx, program, i, ins, ins_args, outs)
         for r, v in zip(ins.outputs, outs):
             env[r.name] = v
     return [env[r.name] for r in program.results]
@@ -101,7 +163,8 @@ def _fused_select_agg(ctx, ins, args):
     pred, aggs = ins.param("pred"), ins.param("aggs")
     if ctx.use_kernels:
         from ..kernels import ops as kops
-        return [kops.fused_select_agg(t, pred, aggs)]
+        with card_fault(KernelLaunchError, "fused_select_agg"):
+            return [kops.fused_select_agg(t, pred, aggs)]
     return [rt.aggr(rt.mask_select(t, pred), aggs)]
 
 
@@ -135,7 +198,8 @@ def _groupagg_direct(ctx, ins, args):
     pred = ins.param("pred")
     if ctx.use_kernels:
         from ..kernels import ops as kops
-        return [kops.grouped_select_agg(t, pred, keys, aggs, mg, domains, nb)]
+        with card_fault(KernelLaunchError, "grouped_select_agg"):
+            return [kops.grouped_select_agg(t, pred, keys, aggs, mg, domains, nb)]
     return [rt.group_agg_direct(t, keys, aggs, mg, domains, nb, pred=pred)]
 
 
@@ -186,7 +250,8 @@ def _fused_join_group_agg(ctx, ins, args):
     )
     if ctx.use_kernels:
         from ..kernels import ops as kops
-        return [kops.grouped_join_agg(left, right, **kw)]
+        with card_fault(KernelLaunchError, "grouped_join_agg"):
+            return [kops.grouped_join_agg(left, right, **kw)]
     return [rt.fused_join_group_agg(left, right, **kw)]
 
 
@@ -296,6 +361,64 @@ def _cf_take(ctx, ins, args):
     return [args[0][int(ins.param("i", 0))]]
 
 
+# The nested-program instructions run as host loops and branches: each
+# iteration's operators queue on the card, and ``While``/``Cond`` read their
+# one ``Single⟨bool⟩`` back per test (where the JAX package traces
+# ``lax.scan``/``while_loop``/``cond`` into one compiled body).
+
+
+def _truth(pred: Any) -> bool:
+    """A ``Single⟨bool⟩`` as a host bool: one read from its device."""
+    return bool(pred.item() if isinstance(pred, torch.Tensor) else pred)
+
+
+@emitter("cf.Loop")
+def _cf_loop(ctx, ins, args):
+    p: Program = ins.param("P")
+    state = list(args)
+    for _ in range(int(ins.param("n"))):
+        state = evaluate_program(ctx, p, *state)
+    return state
+
+
+@emitter("cf.While")
+def _cf_while(ctx, ins, args):
+    p: Program = ins.param("P")
+    state = list(args)
+    while True:
+        outs = evaluate_program(ctx, p, *state)
+        if not _truth(outs[0]):
+            return state
+        state = outs[1:]
+
+
+@emitter("cf.Cond")
+def _cf_cond(ctx, ins, args):
+    pred, rest = args[0], args[1:]
+    p: Program = ins.param("Pthen") if _truth(pred) else ins.param("Pelse")
+    return evaluate_program(ctx, p, *rest)
+
+
+@emitter("cf.Call")
+def _cf_call(ctx, ins, args):
+    return evaluate_program(ctx, ins.param("P"), *args)
+
+
+# ---------------------------------------------------------------------------
+# dataflow
+# ---------------------------------------------------------------------------
+
+
+@emitter("df.Source")
+def _df_source(ctx, ins, args):
+    return [ctx.sources[ins.param("name")]]
+
+
+@emitter("df.Collect")
+def _df_collect(ctx, ins, args):
+    return [args[0]]
+
+
 # ---------------------------------------------------------------------------
 # linear algebra
 # ---------------------------------------------------------------------------
@@ -366,5 +489,7 @@ def _la_segcount(ctx, ins, args):
 @emitter("la.KMeansStep")
 def _la_kmeans_step(ctx, ins, args):
     from ..kernels import ops as kops, ref
-    step = kops.kmeans_step if ctx.use_kernels else ref.kmeans_step
-    return list(step(*args))
+    if not ctx.use_kernels:
+        return list(ref.kmeans_step(*args))
+    with card_fault(KernelLaunchError, "kmeans_step"):
+        return list(kops.kmeans_step(*args))

@@ -1,9 +1,10 @@
 """IR flavors this package executes.
 
   * ``cf.*``   control-flow-like higher-order instructions
+  * ``df.*``   generic dataflow frontend flavor
   * ``rel.*``  relational flavor (Select/Proj/ExProj/Aggr/Join/...)
   * ``vec.*``  physical vector flavor (ScanVec/GroupAggDirect/...)
   * ``la.*``   linear-algebra flavor (CDist2/ArgMinRow/SegSum/KMeansStep/...)
 """
 
-from . import controlflow, linalg, relational, vec  # noqa: F401
+from . import controlflow, dataflow, linalg, relational, vec  # noqa: F401

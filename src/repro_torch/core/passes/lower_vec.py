@@ -26,10 +26,10 @@ Catalog decisions made here (the "physical optimizer"):
 
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+from ...obs.trace import warn_event
 from ..program import Builder, Instruction, Program, Register
 from ..types import ItemType
 
@@ -43,13 +43,6 @@ MAX_DIRECT_BUCKETS = 1 << 20
 #: under ``encode="dict"`` composites over this raw budget are packed as
 #: dictionary *ranks* instead, lifting the 32-bit ceiling
 PACK_LIMIT = 1 << 31
-
-
-def warn_event(code: str, **fields: Any) -> None:
-    """A structured warning: the event name, then its fields as
-    ``key=value`` pairs."""
-    detail = " ".join(f"{k}={v}" for k, v in sorted(fields.items()))
-    warnings.warn(f"{code}: {detail}" if detail else code, stacklevel=3)
 
 
 @dataclass

@@ -175,16 +175,21 @@ class Frame:
 
     def collect(self, parallel: Optional[int] = None, use_kernels: bool = True,
                 optimize: Optional[str] = None, strategy: Any = None,
-                device: Any = None, cache: Any = None) -> Dict[str, np.ndarray]:
+                device: Any = None, cache: Any = None, target: str = "local",
+                store: Any = None, memory_budget: Optional[int] = None,
+                guard: bool = True) -> Dict[str, np.ndarray]:
         """Compile (through the plan cache) and run on ``device`` (``cuda``
         unless given; ``"cpu"`` runs the kernels' plain versions).
         Defaults: ``use_kernels=True`` and the strategy ``groupby=direct,
         join=hash, encode=raw, fuse=fused`` (the JAX package defaults to
         the sorted tiers and no kernels); ``parallel=n`` splits the tables
-        into ``n`` chunks."""
+        into ``n`` chunks; ``optimize="cost"`` picks the strategy by cost.
+        ``target="interp"`` runs the numpy interpreter on the host."""
         return self._ctx.execute(self, parallel=parallel, use_kernels=use_kernels,
                                  optimize=optimize, strategy=strategy,
-                                 device=device, cache=cache)
+                                 device=device, cache=cache, target=target,
+                                 store=store, memory_budget=memory_budget,
+                                 guard=guard)
 
 
 class GroupBy:
@@ -291,10 +296,13 @@ class Context:
 
     def compile(self, frame: Frame, parallel: Optional[int] = None,
                 use_kernels: bool = True, optimize: Optional[str] = None,
-                strategy: Any = None, device: Any = None, cache: Any = None):
+                strategy: Any = None, device: Any = None, cache: Any = None,
+                target: str = "local", store: Any = None,
+                memory_budget: Optional[int] = None, guard: bool = True):
         """Lower ``frame`` through this package's driver and its plan cache
         (``cache``: ``None`` the process-wide one, ``False`` none, or a
-        ``PlanCache``).
+        ``PlanCache``); ``optimize``, ``store``, ``memory_budget`` and
+        ``guard`` as ``repro_torch.compiler.compile`` takes them.
 
         Defaults: strategy ``groupby=direct, join=hash, encode=raw,
         fuse=fused``, sequential unless ``parallel`` > 1,
@@ -304,10 +312,11 @@ class Context:
         carries them."""
         from ..compiler import compile as cvm_compile
 
-        return cvm_compile(frame.program(), catalog=self.catalog(),
+        return cvm_compile(frame.program(), catalog=self.catalog(), target=target,
                            use_kernels=use_kernels, parallel=parallel,
                            optimize=optimize, strategy=strategy, device=device,
-                           cache=cache)
+                           cache=cache, store=store, memory_budget=memory_budget,
+                           guard=guard)
 
     def _physical_columns(self, name: str) -> Dict[str, np.ndarray]:
         """Columns in their physical dtypes: string columns become i32
@@ -342,11 +351,18 @@ class Context:
     def execute(self, frame: Frame, parallel: Optional[int] = None,
                 use_kernels: bool = True, optimize: Optional[str] = None,
                 strategy: Any = None, device: Any = None,
-                cache: Any = None) -> Dict[str, np.ndarray]:
+                cache: Any = None, target: str = "local", store: Any = None,
+                memory_budget: Optional[int] = None,
+                guard: bool = True) -> Dict[str, np.ndarray]:
+        from ..compiler import get_target
+
         compiled = self.compile(frame, parallel=parallel, use_kernels=use_kernels,
                                 optimize=optimize, strategy=strategy, device=device,
-                                cache=cache)
-        (out,) = compiled(self.sources(device))
+                                cache=cache, target=target, store=store,
+                                memory_budget=memory_budget, guard=guard)
+        src = (self.tables if get_target(target).source_kind == "numpy"
+               else self.sources(device))
+        (out,) = compiled(src)
         return self._decode_output(frame, _to_numpy(out))
 
     def _decode_output(self, frame: Frame,

@@ -16,8 +16,8 @@ frontend is a thin translation, not a new engine)::
 
 Produces a ``dataflow.Frame`` — i.e. compiles through exactly the same
 rewritings and backends as the Python frontend.  This package's copy of
-``repro.frontends.sql``; only ``query`` differs (the local target alone,
-on a device).
+``repro.frontends.sql``; only ``query`` differs (the ``local`` and
+``interp`` targets, on a device).
 """
 
 from __future__ import annotations
@@ -244,27 +244,14 @@ def parse(sql: str, ctx: Context) -> Frame:
     return frame
 
 
-#: the JAX package's other targets, and the ROADMAP item that brings each
-_TARGETS_LATER = {
-    "interp": "ROADMAP Queue 1 item 5: the numpy interpreter of the fallback ladder",
-    "stream": "ROADMAP Queue 1 item 6: the stream target",
-    "spmd": "ROADMAP Queue 1 item 7: SPMD and multipod",
-    "multipod": "ROADMAP Queue 1 item 7: SPMD and multipod",
-    "pjit": "ROADMAP Queue 1 item 8: the LM substrate's training",
-}
-
-
 def query(ctx: Context, sql: str, target: str = "local",
           parallel: Optional[int] = None, optimize: Optional[str] = None,
           device: Any = None):
-    """Parse + execute through the port's compile driver on ``device``
-    (``cuda`` unless given).  ``target`` is ``"local"``, the one target
-    this package runs; the others raise ``NotImplementedError`` naming
-    their ROADMAP item."""
-    if target != "local":
-        if target not in _TARGETS_LATER:
-            raise KeyError(f"unknown compile target {target!r}; "
-                           f"known: {sorted(_TARGETS_LATER) + ['local']}")
-        raise NotImplementedError(f"target {target!r} is not ported to torch yet "
-                                  f"({_TARGETS_LATER[target]})")
-    return parse(sql, ctx).collect(parallel=parallel, optimize=optimize, device=device)
+    """Parse + execute through the port's compile driver: ``target``
+    ``"local"`` on ``device`` (``cuda`` unless given) or ``"interp"`` (the
+    numpy interpreter on the host); ``optimize="cost"`` lets the driver
+    choose between the target's physical lowerings by the context's table
+    statistics.  The JAX package's other targets raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    return parse(sql, ctx).collect(target=target, parallel=parallel,
+                                   optimize=optimize, device=device)

@@ -32,6 +32,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+from ..errors import KernelBuildError, card_fault
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("kmeans_step", "segsum", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,7 +95,7 @@ def nvcc() -> str:
         return found
     if Path(DEFAULT_NVCC).exists():
         return DEFAULT_NVCC
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
@@ -167,7 +169,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         else:
             os.replace(tmp, todo[n])
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     return out
 
 
@@ -175,56 +177,58 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (building every missing one
     first, in parallel)."""
     if name not in _LOADED:
-        paths = build()
-        for n, p in paths.items():
-            if n in _LOADED:
-                continue
-            lib = ctypes.CDLL(str(p))
-            fn_name, argtypes = ENTRY[n]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            for helper, (args, result) in HELPERS.get(n, {}).items():
-                getattr(lib, helper).argtypes = args
-                getattr(lib, helper).restype = result
-            _LOADED[n] = lib
+        with card_fault(KernelBuildError, f"kernel library {name}"):
+            paths = build()
+            for n, p in paths.items():
+                if n in _LOADED:
+                    continue
+                lib = ctypes.CDLL(str(p))
+                fn_name, argtypes = ENTRY[n]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                for helper, (args, result) in HELPERS.get(n, {}).items():
+                    getattr(lib, helper).argtypes = args
+                    getattr(lib, helper).restype = result
+                _LOADED[n] = lib
     return _LOADED[name]
 
 
 def build_generated(family: str, text: str) -> ctypes.CDLL:
     """The loaded library of one generated kernel of ``family``: compiled
     by one nvcc for sm_90a if it is not built yet (the compiler's report in
-    a ``.log`` beside it), reused otherwise.  Raises with nvcc's output if
-    the build fails."""
-    path = generated_path(family, text)
-    if path.exists():
-        GEN_STATS["reused"] += 1
-    else:
-        path.parent.mkdir(parents=True, exist_ok=True)
-        src = path.with_suffix(".cu")
-        src.write_text(text)
-        tmp = path.with_suffix(f".so.tmp{os.getpid()}")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        took = time.perf_counter() - t0
-        GEN_STATS["nvcc_s"] += took
-        GEN_STATS["nvcc_max_s"] = max(GEN_STATS["nvcc_max_s"], took)
-        path.with_suffix(".log").write_text(proc.stdout)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"generated {family} kernel build failed (nvcc exit "
-                               f"{proc.returncode}, source {src}):\n{proc.stdout}")
-        os.replace(tmp, path)
-        GEN_STATS["built"] += 1
-    lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = GEN_ENTRY[family]
-    getattr(lib, fn_name).argtypes = argtypes
-    getattr(lib, fn_name).restype = ctypes.c_int
-    for helper, (args, result) in GEN_HELPERS[family].items():
-        getattr(lib, helper).argtypes = args
-        getattr(lib, helper).restype = result
-    return lib
+    a ``.log`` beside it), reused otherwise.  Raises ``KernelBuildError``
+    (with nvcc's output) if it cannot be built or loaded."""
+    with card_fault(KernelBuildError, f"generated {family} kernel"):
+        path = generated_path(family, text)
+        if path.exists():
+            GEN_STATS["reused"] += 1
+        else:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            src = path.with_suffix(".cu")
+            src.write_text(text)
+            tmp = path.with_suffix(f".so.tmp{os.getpid()}")
+            t0 = time.perf_counter()
+            proc = subprocess.run([nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            took = time.perf_counter() - t0
+            GEN_STATS["nvcc_s"] += took
+            GEN_STATS["nvcc_max_s"] = max(GEN_STATS["nvcc_max_s"], took)
+            path.with_suffix(".log").write_text(proc.stdout)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"generated {family} kernel build failed (nvcc "
+                                       f"exit {proc.returncode}, source {src}):\n{proc.stdout}")
+            os.replace(tmp, path)
+            GEN_STATS["built"] += 1
+        lib = ctypes.CDLL(str(path))
+        fn_name, argtypes = GEN_ENTRY[family]
+        getattr(lib, fn_name).argtypes = argtypes
+        getattr(lib, fn_name).restype = ctypes.c_int
+        for helper, (args, result) in GEN_HELPERS[family].items():
+            getattr(lib, helper).argtypes = args
+            getattr(lib, helper).restype = result
+        return lib
 
 
 def entry(name: str):

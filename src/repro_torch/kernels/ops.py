@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.expr import AggSpec, Expr
+from ..errors import DeviceMismatchError, KernelBuildError, KernelLaunchError, card_fault
 from ..relational import runtime as rt
 from . import codegen, exprcode, ref
 
@@ -66,7 +67,8 @@ def _on_card(*tables: Any) -> bool:
     or on any other device."""
     devs = {t.device for t in tables}
     if len(devs) != 1:
-        raise ValueError(f"kernel inputs lie on several devices: {sorted(map(str, devs))}")
+        raise DeviceMismatchError(
+            f"kernel inputs lie on several devices: {sorted(map(str, devs))}")
     (dev,) = devs
     if dev.type == "cpu":
         return False
@@ -77,7 +79,7 @@ def _on_card(*tables: Any) -> bool:
 
 def _check(t: torch.Tensor, rows: int, what: str, device: torch.device) -> None:
     if t.device != device:
-        raise ValueError(f"{what} lies on {t.device}, expected {device}")
+        raise DeviceMismatchError(f"{what} lies on {t.device}, expected {device}")
     if t.dim() != 1 or t.shape[0] != rows:
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected ({rows},)")
     if not t.is_contiguous():
@@ -101,7 +103,7 @@ def _stream(device: torch.device) -> int:
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _from_sentinel(x: torch.Tensor) -> torch.Tensor:
@@ -195,29 +197,30 @@ def _generated(family: str, pred: Optional[Expr], q: _Query, types: Tuple[str, .
     repeated call neither regenerates nor rehashes the text)."""
     gen = q.kernels.get(types)
     if gen is None:
-        from .build import build_generated
+        with card_fault(KernelBuildError, f"generating the {family} kernel"):
+            from .build import build_generated
 
-        slots: Dict[str, int] = {}
-        for j, n in enumerate(q.names):  # a name on both sides of a join: the probe's
-            slots.setdefault(n, j)
-        prog = exprcode.compile_program(pred, [e for _, e in q.values],
-                                        {n: types[j] for n, j in slots.items()}, slots,
-                                        max_stack=None)
-        key_slots = None
-        if family != "fused_select_agg":
-            key_slots = [(slots[k], int(lo), int(hi) - int(lo) + 1)
-                         for k, (lo, hi) in zip(keys, domains)]
-        text = codegen.kernel_source(family, prog, types, [fn for fn, _ in q.values], key_slots,
-                                     q.join)
-        lib = build_generated(family, text)
-        if family == "fused_select_agg":
-            gen = _Generated(lib.fsa_gen_launch, lib.fsa_gen_scratch_bytes, "fsa_gen")
-        elif family == "grouped_select_agg":
-            gen = _Generated(lib.gsa_gen_launch, lib.gsa_gen_scratch_bytes,
-                             GEN_ROUTES[1 + lib.gsa_gen_route()])
-        else:
-            gen = _Generated(lib.gja_gen_launch, lib.gja_gen_scratch_bytes,
-                             GEN_ROUTES[4 + lib.gja_gen_route()], lib.gja_gen_build)
+            slots: Dict[str, int] = {}
+            for j, n in enumerate(q.names):  # a name on both sides of a join: the probe's
+                slots.setdefault(n, j)
+            prog = exprcode.compile_program(pred, [e for _, e in q.values],
+                                            {n: types[j] for n, j in slots.items()}, slots,
+                                            max_stack=None)
+            key_slots = None
+            if family != "fused_select_agg":
+                key_slots = [(slots[k], int(lo), int(hi) - int(lo) + 1)
+                             for k, (lo, hi) in zip(keys, domains)]
+            text = codegen.kernel_source(family, prog, types, [fn for fn, _ in q.values],
+                                         key_slots, q.join)
+            lib = build_generated(family, text)
+            if family == "fused_select_agg":
+                gen = _Generated(lib.fsa_gen_launch, lib.fsa_gen_scratch_bytes, "fsa_gen")
+            elif family == "grouped_select_agg":
+                gen = _Generated(lib.gsa_gen_launch, lib.gsa_gen_scratch_bytes,
+                                 GEN_ROUTES[1 + lib.gsa_gen_route()])
+            else:
+                gen = _Generated(lib.gja_gen_launch, lib.gja_gen_scratch_bytes,
+                                 GEN_ROUTES[4 + lib.gja_gen_route()], lib.gja_gen_build)
         q.kernels[types] = gen
     return gen
 

@@ -160,3 +160,42 @@ def check_step(what: str, got, want, ref: Reference, rtol: float) -> float:
         raise AssertionError(f"{what}: sums differ by up to {err.max()} "
                              f"(worst over tolerance {(err - tol).max()})")
     return float(err.max())
+
+
+def loop_program(n: int, d: int, k: int, steps: int, parallel: int = 0):
+    """``steps`` k-means iterations as one ``cf.Loop`` over the centroids C
+    (k, d).  The body reads the points X (n, d) as the source ``"X"``
+    (``la.Literal(name="X")``), runs the step of :func:`program` and returns
+    the updated centroids Transpose(Transpose(sums) / (counts + 1e-9)).
+    ``parallel`` > 0 adds ``FuseKMeansStep`` and ``Parallelize`` over X to
+    the loop body.  Call it as ``compiled({"X": x}, c)``."""
+    from .core import Builder, subprogram, verify
+    from .core.passes import FuseKMeansStep, Parallelize
+    from .core.types import F32, Tensor
+
+    tc = Tensor(F32, (k, d))
+    names = {}
+
+    def step(b, regs):
+        (cr,) = regs
+        xr = b.emit1("la.Literal", [], {"name": "X", "shape": (n, d), "dtype": F32})
+        names["X"] = xr.name
+        lab = b.emit1("la.ArgMinRow", [b.emit1("la.CDist2", [xr, cr])])
+        sums = b.emit1("la.SegSum", [xr, lab], {"k": k})
+        counts = b.emit1("la.SegCount", [lab], {"k": k})
+        eps = b.emit1("la.Literal", [], {"value": 1e-9, "shape": (), "dtype": F32})
+        denom = b.emit1("la.Ewise", [counts, eps], {"op": "add"})
+        mean = b.emit1("la.Ewise", [b.emit1("la.Transpose", [sums]), denom], {"op": "div"})
+        return [b.emit1("la.Transpose", [mean])]
+
+    body = subprogram("kmeans_body", [("C", tc)], step)
+    b = Builder("kmeans_loop")
+    prog = b.finish(*b.emit("cf.Loop", [b.input("C", tc)], {"n": steps, "P": body}))
+    if parallel:
+        # FuseKMeansStep recurses into the loop body; Parallelize does not
+        # (``recurse = False``), so it is applied to the body itself
+        split = Parallelize(n=parallel, targets={names["X"]})
+        prog = FuseKMeansStep().apply(prog).map_instructions(
+            lambda ins: [ins.map_nested(split.apply)])
+    verify(prog)
+    return prog

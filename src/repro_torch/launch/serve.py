@@ -213,7 +213,7 @@ def make_run_wave(model, params, *, batch: int, prompt_len: int, gen: int, cache
 
     if model.cfg.family != "dense":
         raise NotImplementedError(f"serving family {model.cfg.family!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+                                  "(ROADMAP Queue 1 item 8)")
     dev = torch.device(device)
     serve = make_serve_step(model)
 

@@ -129,7 +129,7 @@ def build_model(cfg: ModelConfig) -> Model:
         )
     if cfg.family in ("moe", "vlm", "hybrid", "rwkv", "encdec"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP Queue 1 item 7)")
+            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP Queue 1 item 8)")
     raise ValueError(f"unknown family {cfg.family}")
 
 

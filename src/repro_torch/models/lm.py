@@ -32,7 +32,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
     if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 8)")
     p["layers"] = {
         "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                                  cfg.qkv_bias, dtype=dt, lead=lead),

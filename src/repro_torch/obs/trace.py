@@ -7,6 +7,9 @@
     returns one shared no-op object (no allocation, no clock read).
   * :func:`tracing` — context manager installing an enabled tracer (and
     restoring the previous one), the ergonomic way to trace one workload.
+  * structured warnings (:func:`warn_event`) — always surfaced as a Python
+    :class:`ObsWarning` so nothing is silently dropped, and additionally
+    recorded as a trace event when tracing is on.
 
 Spans are pure host-side bookkeeping on the host clock: work enqueued on
 the card is inside a span only where the caller synchronises before the
@@ -21,11 +24,27 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
-    "Span", "Tracer", "get_tracer", "set_tracer", "tracing",
+    "Span", "Tracer", "ObsWarning", "DegradedWarning",
+    "get_tracer", "set_tracer", "tracing", "warn_event",
 ]
+
+
+class ObsWarning(UserWarning):
+    """Structured warning raised through the observability layer."""
+
+
+class DegradedWarning(ObsWarning):
+    """The plan that ran is not the plan that was chosen.
+
+    Raised by the driver's fallback chain (``repro_torch.robust.fallback``)
+    when a cost-chosen candidate failed and a safer variant — or the interp
+    tier — answered the query instead.  Catch it (or filter it) to detect
+    degraded service; the paired ``robust.fallback.*`` counters carry the
+    same signal into metrics."""
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +271,24 @@ def tracing(enabled: bool = True, max_events: int = 100_000) -> _TracingContext:
     """``with tracing() as tracer: ...`` — installs (and restores) the
     process-global tracer around one traced workload."""
     return _TracingContext(Tracer(enabled=enabled, max_events=max_events))
+
+
+# ---------------------------------------------------------------------------
+# structured warnings
+# ---------------------------------------------------------------------------
+
+
+def warn_event(code: str, category: type = ObsWarning, **fields: Any) -> None:
+    """Emit a structured warning through the obs layer.
+
+    Always raises a Python warning of ``category`` (an :class:`ObsWarning`
+    subclass — so the condition is visible even with tracing off; nothing is
+    silently swallowed); when tracing is on, the same record lands in the
+    trace as an event and bumps the ``warnings.<code>`` counter.
+    """
+    tracer = get_tracer()
+    tracer.event(code, **fields)
+    tracer.counter(f"warnings.{code}")
+    detail = " ".join(f"{k}={v}" for k, v in sorted(fields.items()))
+    warnings.warn(f"{code}: {detail}" if detail else code, category,
+                  stacklevel=2)

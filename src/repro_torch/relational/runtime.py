@@ -35,7 +35,8 @@ def resolve_device(device: Any = None) -> torch.device:
     is not there raises instead of carrying on on the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        from ..errors import NoCardError
+        raise NoCardError(
             "repro_torch runs on an NVIDIA card by default and none is "
             "visible; pass device='cpu' to run the plain versions on the CPU")
     return dev

@@ -1,7 +1,30 @@
-"""Fault injection and retries for the port's serve loop: the
-``serve.step`` injection point (``inject``) and bounded retries with
-deadlines (``retry``), copied from ``repro/robust``.  Admission by memory
-budget and the fallback ladder are not ported."""
+"""Guarded compilation and execution for the port, copied from
+``repro/robust``:
 
-from .inject import POINTS, FaultRule, InjectedFault, clear_faults, inject, maybe_inject  # noqa: F401
+* ``inject`` — seeded fault injection at the wired points (the driver's
+  pass loop, PlanStore I/O, backend compile/execute, the serve step);
+* ``fallback`` — the ladder the driver walks when a chosen plan fails
+  (safer strategy variants, then the numpy interpreter);
+* ``admission`` — a plan's estimated peak bytes against a byte budget;
+* ``retry`` — bounded retries with backoff, and deadlines.
+"""
+
+from .admission import (  # noqa: F401
+    AdmissionError,
+    ResourceEstimate,
+    admit,
+    default_budget,
+    estimate_peak_bytes,
+)
+from .fallback import DegradedWarning, SAFE_VARIANTS, degrade, fallback_ladder  # noqa: F401
+from .inject import (  # noqa: F401
+    FaultRule,
+    InjectedFault,
+    InjectionPoint,
+    clear_faults,
+    inject,
+    maybe_inject,
+    register_point,
+    registered_points,
+)
 from .retry import Deadline, RetryPolicy, call_with_retry  # noqa: F401

@@ -1,18 +1,26 @@
 """Deterministic, seeded fault injection for chaos testing.
 
-The port's copy of ``repro/robust/inject.py``, cut to the one point the
-port wires: the serve wave step (``serve.step``).  A wired site costs one
-module-level list check when no fault is armed — the hot path stays free.
+The port's copy of ``repro/robust/inject.py``.  A small registry of *named
+injection points* is wired into the port where its failures surface: the
+driver's pass loop, PlanStore I/O, backend compile, (first) execution, and
+the serve wave step.  The JAX package's ``spmd.shard`` and ``stream.*``
+points wait for the targets that own them (ROADMAP Queue 1 items 6–7).
+Each wired site costs one module-level list check when no fault is armed —
+the hot path stays free.
 
-Chaos tests arm the point with :func:`inject`::
+Chaos tests arm points with :func:`inject`::
 
-    with inject("serve.step", mode="raise", seed=7):
-        serve_loop(requests, run_wave, batch=4)   # every wave fails
+    with inject("backend.compile", mode="raise", seed=7):
+        compile(program)                   # backend compile raises
 
-Two modes:
+Three modes:
 
-* ``raise`` — the site raises :class:`InjectedFault`;
-* ``delay`` — the site sleeps ``delay_s`` (straggler / slow-step
+* ``raise``   — the site raises :class:`InjectedFault`;
+* ``corrupt`` — the site's payload is deterministically mangled (the pass
+  loop truncates the rewritten program so verification fails; the plan
+  store scribbles the record text so the JSON parse fails) — sites without
+  a corruptor treat ``corrupt`` as ``raise``;
+* ``delay``   — the site sleeps ``delay_s`` (straggler / slow-step
   simulation for timeout and load-shedding paths).
 
 Firing is decided by a ``random.Random(seed)`` stream per armed rule, so a
@@ -28,20 +36,72 @@ import random
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..obs.trace import get_tracer
 
-__all__ = ["InjectedFault", "FaultRule", "POINTS", "inject", "maybe_inject", "clear_faults"]
+__all__ = [
+    "InjectedFault", "InjectionPoint", "FaultRule",
+    "register_point", "registered_points",
+    "inject", "maybe_inject", "clear_faults",
+]
 
 
 class InjectedFault(RuntimeError):
     """The exception raised by an armed ``raise``-mode injection point."""
 
 
-#: the wired points and their modes: ``serve.step`` is launch/serve.py's
-#: serve_loop, before each wave (slow-step / load-shedding simulation)
-POINTS: Dict[str, Tuple[str, ...]] = {"serve.step": ("raise", "delay")}
+@dataclass(frozen=True)
+class InjectionPoint:
+    """One named place in the stack where faults can be injected."""
+
+    name: str
+    modes: Tuple[str, ...]
+    description: str = ""
+
+
+_POINTS: Dict[str, InjectionPoint] = {}
+
+
+def register_point(name: str, modes: Tuple[str, ...] = ("raise", "delay"),
+                   description: str = "") -> InjectionPoint:
+    point = InjectionPoint(name, tuple(modes), description)
+    _POINTS[name] = point
+    return point
+
+
+def registered_points() -> Dict[str, InjectionPoint]:
+    """The injection-point catalog: the points the port wires."""
+    return dict(sorted(_POINTS.items()))
+
+
+# ---------------------------------------------------------------------------
+# the canonical catalog — registered here, wired at the named sites
+# ---------------------------------------------------------------------------
+
+register_point(
+    "driver.pass", ("raise", "corrupt", "delay"),
+    "compiler/driver.py run_passes: after each rewrite pass; corrupt "
+    "truncates the rewritten program so verification fails")
+register_point(
+    "store.load", ("raise", "corrupt", "delay"),
+    "compiler/store.py PlanStore.load_plan: record read; corrupt mangles "
+    "the JSON text (exercises quarantine)")
+register_point(
+    "store.save", ("raise", "delay"),
+    "compiler/store.py PlanStore.save_plan: atomic record write")
+register_point(
+    "backend.compile", ("raise", "delay"),
+    "compiler/driver.py: the target backend's compile() of the lowered "
+    "program")
+register_point(
+    "backend.execute", ("raise", "delay"),
+    "compiler/driver.py CompileResult.__call__: executable dispatch (the "
+    "local and interp backends route through it)")
+register_point(
+    "serve.step", ("raise", "delay"),
+    "launch/serve.py serve_loop: before each decode wave (slow-step / "
+    "load-shedding simulation)")
 
 
 # ---------------------------------------------------------------------------
@@ -86,11 +146,13 @@ def inject(point: str, mode: str = "raise", *, rate: float = 1.0,
            times: Optional[int] = 1, delay_s: float = 0.05,
            seed: int = 0) -> Iterator[FaultRule]:
     """Arm one fault rule for the scope of the ``with`` block."""
-    modes = POINTS.get(point)
-    if modes is None:
-        raise KeyError(f"unknown injection point {point!r}; wired: {sorted(POINTS)}")
-    if mode not in modes:
-        raise ValueError(f"injection point {point!r} supports modes {modes}, not {mode!r}")
+    reg = _POINTS.get(point)
+    if reg is None:
+        raise KeyError(f"unknown injection point {point!r}; registered: "
+                       f"{sorted(_POINTS)}")
+    if mode not in reg.modes:
+        raise ValueError(f"injection point {point!r} supports modes "
+                         f"{reg.modes}, not {mode!r}")
     rule = FaultRule(point=point, mode=mode, rate=rate, times=times,
                      delay_s=delay_s, seed=seed)
     _ACTIVE.append(rule)
@@ -103,9 +165,16 @@ def inject(point: str, mode: str = "raise", *, rate: float = 1.0,
             pass
 
 
-def maybe_inject(point: str, payload: Any = None, **attrs: Any) -> Any:
-    """The wired-site entry: fire any armed rule for ``point``; returns
-    ``payload``."""
+def maybe_inject(point: str, payload: Any = None,
+                 corrupt: Optional[Callable[[Any, FaultRule], Any]] = None,
+                 **attrs: Any) -> Any:
+    """The wired-site entry: fire any armed rule for ``point``.
+
+    Returns ``payload`` (possibly corrupted).  ``corrupt`` is the site's
+    deterministic payload mangler; a ``corrupt``-mode rule at a site
+    without one degenerates to ``raise`` so no armed fault is ever a
+    silent no-op.
+    """
     if not _ACTIVE:  # the hot path: one list truthiness check
         return payload
     for rule in list(_ACTIVE):
@@ -118,6 +187,9 @@ def maybe_inject(point: str, payload: Any = None, **attrs: Any) -> Any:
                      seed=rule.seed, fired=rule.fired, **attrs)
         if rule.mode == "delay":
             time.sleep(rule.delay_s)
+            continue
+        if rule.mode == "corrupt" and corrupt is not None:
+            payload = corrupt(payload, rule)
             continue
         raise InjectedFault(
             f"injected fault at {point} (mode={rule.mode}, seed={rule.seed}, "

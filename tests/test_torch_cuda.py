@@ -656,3 +656,100 @@ def test_serve_wave_on_card_matches_plain_attention(card):
     assert sorted(outs["pallas"]) == list(range(8))
     for rid, toks in outs["ref"].items():
         np.testing.assert_array_equal(outs["pallas"][rid], toks)
+
+
+# ---------------------------------------------------------------------------
+# the compile driver on the card: cost search, the fallback ladder, taps
+# ---------------------------------------------------------------------------
+
+
+def _by_keys(d):
+    keys = [k for k in d if np.asarray(d[k]).ndim and np.asarray(d[k]).dtype.kind in "iu"]
+    if not keys or len(np.asarray(d[keys[0]])) < 2:
+        return {k: np.asarray(v) for k, v in d.items()}
+    order = np.lexsort([np.asarray(d[k]) for k in reversed(keys)])
+    return {k: np.asarray(v)[order] for k, v in d.items()}
+
+
+def test_cost_chosen_plan_equals_the_forced_plan_on_card(card):
+    """The plan the cost search picks answers as the same strategy forced."""
+    from repro_torch.compiler import PlanCache
+
+    ctx = tpch.make_context(tpch.generate(sf=0.05, seed=1))
+    for q, f in tpch.QUERIES.items():
+        res = ctx.compile(f(ctx), device=card, optimize="cost", cache=PlanCache())
+        chosen = dict(res.strategy)
+        got = _by_keys(f(ctx).collect(device=card, optimize="cost", cache=PlanCache()))
+        want = _by_keys(f(ctx).collect(device=card, strategy=chosen, cache=PlanCache()))
+        for k in want:
+            if want[k].dtype.kind == "f":
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=f"{q}.{k}")
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{q}.{k}")
+
+
+def test_injected_execute_fault_recovers_on_card(card):
+    """One injected execute fault walks the ladder on the card (the first
+    rung, groupby=sorted, runs there) and gives the numpy reference's Q1."""
+    import warnings
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.obs import DegradedWarning
+    from repro_torch.robust.inject import inject
+
+    tables = tpch.generate(sf=0.05, seed=1)
+    ctx = tpch.make_context(tables)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with inject("backend.execute", times=1):
+            res = ctx.compile(tpch.q1(ctx), device=card, cache=PlanCache())
+            (out,) = res(ctx.sources(card))
+    assert res.degraded == ("groupby=sorted",) and res.target == "local"
+    assert any(issubclass(w.category, DegradedWarning) for w in caught)
+    got, want = _by_keys(out.to_numpy()), _by_keys(tpch.REFERENCES["q1"](tables))
+    np.testing.assert_array_equal(got["count_order"], want["count_order"])
+    np.testing.assert_allclose(got["sum_qty"], want["sum_qty"], rtol=2e-4)
+
+
+def test_traced_cardinalities_equal_the_cpus(card):
+    """A traced run on the card measures each tapped operator's rows as the
+    same plan's run on the CPU does."""
+    from repro_torch.compiler import PlanCache
+    from repro_torch.obs import tracing
+
+    ctx = tpch.make_context(tpch.generate(sf=0.05, seed=1))
+    for q, f in tpch.QUERIES.items():
+        profiles = []
+        for dev in (card, "cpu"):
+            with tracing():
+                res = ctx.compile(f(ctx), device=dev, cache=PlanCache())
+                res(ctx.sources(dev))
+            profiles.append({o.key: (o.occurrences, o.rows_in, o.rows_out)
+                             for o in res.profile.observations})
+        assert profiles[0] == profiles[1], q
+
+
+@pytest.mark.parametrize("fault", ["refused", "oom"])
+def test_kernel_path_failure_raises_on_card(card, fault, monkeypatch):
+    """On the card a wrapper that refuses its inputs (its own bucket check)
+    or runs out of memory raises KernelLaunchError under guard=True: no
+    rung is walked, so neither the plain version nor the host answers."""
+    import warnings
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.errors import KernelLaunchError
+    from repro_torch.obs import DegradedWarning
+
+    real = ops.grouped_select_agg
+
+    def failing(t, pred, keys, aggs, mg, domains, nb):
+        if fault == "refused":
+            return real(t, pred, keys, aggs, mg, domains, nb + 1)
+        raise torch.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(ops, "grouped_select_agg", failing)
+    ctx = tpch.make_context(tpch.generate(sf=0.01, seed=1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DegradedWarning)
+        with pytest.raises(KernelLaunchError):
+            tpch.q1(ctx).collect(device=card, cache=PlanCache(), guard=True)

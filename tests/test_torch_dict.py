@@ -8,8 +8,9 @@ port's ``Context`` on the CPU, built from the same numpy tables as a JAX
 the warnings that name why encoding did not apply are checked as there.
 ``dict_encode`` and ``dict_decode`` are held against the JAX runtime's,
 and a plan moves its dictionary tables to the device once.  The costed
-search and the SPMD subprocess cases of that file wait for ROADMAP Queue
-1 items 5 and 7.
+search's cases pick the JAX package's strategy from the same decision
+table; the SPMD subprocess cases of that file wait for ROADMAP Queue 1
+item 7.
 """
 
 import warnings
@@ -106,6 +107,18 @@ def compiled(ctx, q, **kw):
     return ctx.compile(q, device="cpu", cache=PlanCache(), **kw)
 
 
+def costed(jctx, tctx, jq, tq):
+    """The port's cost search, its decision table held to the JAX package's."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = compiled(tctx, tq, optimize="cost")
+        jres = jctx.compile(jq, optimize="cost", cache=False)
+    assert [(c.strategy, c.est_cost) for c in res.decision.candidates] == \
+        [(c.strategy, c.est_cost) for c in jres.decision.candidates]
+    assert res.strategy == jres.strategy
+    return res
+
+
 # ---------------------------------------------------------------------------
 # string group-by keys
 # ---------------------------------------------------------------------------
@@ -119,6 +132,18 @@ class TestStringGroupBy:
         got = city_query(tdf, tctx).collect(device="cpu", strategy=DICT_DIRECT,
                                             use_kernels=use_kernels)
         assert np.asarray(got["city"]).dtype.kind in ("U", "S", "O")
+        assert_frames_equal(got, want)
+
+    def test_cost_search_picks_dict_direct_on_low_card_strings(self):
+        jctx, tctx = make_city_ctxs()
+        res = costed(jctx, tctx, city_query(jdf, jctx), city_query(tdf, tctx))
+        chosen = dict(res.strategy)
+        assert chosen["encode"] == "dict" and chosen["groupby"] == "direct"
+        assert "vec.GroupAggDirect" in res.program.opcodes()
+        want = jctx.execute(city_query(jdf, jctx), target="interp")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = city_query(tdf, tctx).collect(device="cpu", optimize="cost")
         assert_frames_equal(got, want)
 
     def test_string_predicate_remapped_to_code_space(self):
@@ -147,6 +172,15 @@ class TestSparseIntKeys:
         body = [i.opcode for i in res.program.body]
         assert {"vec.DictEncode", "vec.GroupAggDirect", "vec.DictDecode"} <= set(body)
         assert body.index("vec.DictDecode") > body.index("vec.GroupAggDirect")
+        (out,) = res(tctx.sources("cpu"))
+        assert_frames_equal(out.to_numpy(), jctx.execute(sparse_query(jdf, jctx),
+                                                         target="interp"))
+
+    def test_cost_search_picks_dict_on_sparse_keys(self):
+        jctx, tctx = make_sparse_ctxs()
+        res = costed(jctx, tctx, sparse_query(jdf, jctx), sparse_query(tdf, tctx))
+        assert dict(res.strategy)["encode"] == "dict"
+        assert "vec.GroupAggDirect" in res.program.opcodes()
         (out,) = res(tctx.sources("cpu"))
         assert_frames_equal(out.to_numpy(), jctx.execute(sparse_query(jdf, jctx),
                                                          target="interp"))
@@ -189,13 +223,17 @@ class TestStringJoin:
         {"join": "hash", "encode": "dict"},
         {"join": "sorted", "encode": "dict"},
         {"join": "hash", "groupby": "direct", "encode": "dict"},
+        None,  # the costed search
     ])
     def test_join_with_out_of_dictionary_probes(self, strategy):
         jctx, tctx = make_join_ctxs()
         want = jctx.execute(sku_query(jdf, jctx), target="interp")
+        if strategy is None:
+            costed(jctx, tctx, sku_query(jdf, jctx), sku_query(tdf, tctx))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            got = sku_query(tdf, tctx).collect(device="cpu", strategy=strategy)
+            got = sku_query(tdf, tctx).collect(device="cpu", strategy=strategy,
+                                               optimize=None if strategy else "cost")
         assert not any(str(s).startswith("xsku") for s in got["sku"])
         assert_frames_equal(got, want)
 

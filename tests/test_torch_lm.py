@@ -211,7 +211,7 @@ def test_serve_step_is_greedy():
 @pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "rwkv", "encdec"])
 def test_other_families_are_not_ported(family):
     cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         build_model(cfg)
 
 

@@ -154,9 +154,20 @@ def test_drop_invalidates_one_entry(tctx):
     assert not tctx.compile(frame, device="cpu", cache=cache).cache_hit
 
 
-def test_cost_search_still_raises_before_the_cache(tctx):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tctx.compile(ttpch.q6(tctx), device="cpu", optimize="cost")
+def test_cost_search_still_raises_before_the_cache(tables, tctx):
+    """The cost search is ported: it gives Q6's answer, the JAX package's
+    decision table, and its plan is cached under the key of its options."""
+    cache = PlanCache()
+    res = tctx.compile(ttpch.q6(tctx), device="cpu", optimize="cost", cache=cache)
+    jctx = jtpch.make_context(tables)
+    jres = jctx.compile(jtpch.q6(jctx), optimize="cost", cache=False)
+    assert [(c.strategy, c.est_cost) for c in res.decision.candidates] == \
+        [(c.strategy, c.est_cost) for c in jres.decision.candidates]
+    assert res.strategy == jres.strategy and res.decision.chosen == jres.decision.chosen
+    got = ttpch.q6(tctx).collect(device="cpu", optimize="cost", cache=cache)
+    want = ttpch.q6(tctx).collect(device="cpu", cache=False)
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-5)
+    assert cache.stats["hits"] == 1 and cache.stats["entries"] == 1
 
 
 def test_every_strategy_variant_is_accepted():

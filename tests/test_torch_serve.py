@@ -17,7 +17,7 @@ from repro_torch.launch.serve import AdmissionQueue, Request, serve_loop  # noqa
 from repro_torch.obs.trace import tracing  # noqa: E402
 from repro_torch.robust import (  # noqa: E402
     Deadline, InjectedFault, RetryPolicy, call_with_retry, clear_faults, inject,
-    POINTS, maybe_inject)
+    maybe_inject, registered_points)
 
 ROOT = Path(__file__).resolve().parents[1]
 CHAOS_SEED = int(os.environ.get("REPRO_CHAOS_SEED", "0"))
@@ -103,9 +103,17 @@ def test_request_latency_is_observed_per_served_request():
 
 
 def test_only_the_serve_step_point_is_registered():
-    assert POINTS == {"serve.step": ("raise", "delay")}
+    """The serve step and the compile driver's five points are wired; the
+    JAX package's spmd and stream points wait for their targets."""
+    points = {name: p.modes for name, p in registered_points().items()}
+    assert points == {"serve.step": ("raise", "delay"),
+                      "driver.pass": ("raise", "corrupt", "delay"),
+                      "store.load": ("raise", "corrupt", "delay"),
+                      "store.save": ("raise", "delay"),
+                      "backend.compile": ("raise", "delay"),
+                      "backend.execute": ("raise", "delay")}
     with pytest.raises(KeyError):
-        with inject("backend.compile"):
+        with inject("spmd.shard"):
             pass
     with pytest.raises(ValueError):
         with inject("serve.step", mode="corrupt"):

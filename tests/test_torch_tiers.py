@@ -8,9 +8,9 @@ files check, and each port result is held against the JAX one (integers,
 keys and validity exact, floats within rtol 1e-5).  The forced-strategy
 cases compile through the port's ``Context`` on the CPU and are held
 against the JAX package's numpy interpreter (``target="interp"``) at the
-tier suites' rtol 1e-4.  The cost search (``optimize="cost"``), admission
-budgets and the SPMD subprocess cases of those files wait for ROADMAP
-Queue 1 items 5 and 7.
+tier suites' rtol 1e-4.  So are their cost-search (``optimize="cost"``)
+and admission-budget cases, whose decision tables must also be the JAX
+package's; the SPMD subprocess cases wait for ROADMAP Queue 1 item 7.
 """
 
 import warnings
@@ -26,7 +26,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import expr as jexpr  # noqa: E402
 from repro.frontends import dataflow as jdf  # noqa: E402
 from repro.relational import runtime as jrt  # noqa: E402
+from repro.robust.admission import estimate_peak_bytes as jax_peak_bytes  # noqa: E402
 from repro_torch.compiler import PlanCache  # noqa: E402
+from repro_torch.robust.admission import AdmissionError, estimate_peak_bytes  # noqa: E402
 from repro_torch.convert import vectable_from_arrays  # noqa: E402
 from repro_torch.core import expr as texpr  # noqa: E402
 from repro_torch.frontends import dataflow as tdf  # noqa: E402
@@ -112,6 +114,20 @@ def compiled_rows(ctx, q, **kw):
     res = ctx.compile(q, device="cpu", cache=PlanCache(), **kw)
     (out,) = res(ctx.sources("cpu"))
     return res.program.opcodes(), out.to_numpy()
+
+
+def costed(jctx, tctx, jq, tq, **kw):
+    """The port's cost search of ``tq`` on the CPU, after asserting that its
+    decision table (candidates, estimated costs, winner) is the JAX
+    package's for ``jq``."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = tctx.compile(tq, optimize="cost", cache=PlanCache(), device="cpu", **kw)
+        jres = jctx.compile(jq, optimize="cost", cache=False, **kw)
+    table = [(c.strategy, c.est_cost) for c in res.decision.candidates]
+    assert table == [(c.strategy, c.est_cost) for c in jres.decision.candidates]
+    assert res.strategy == jres.strategy
+    return res
 
 
 def aggs(m):
@@ -591,6 +607,36 @@ class TestGroupByStrategy:
         assert "vec.GroupAggSorted" in ops and "vec.GroupAggDirect" not in ops
         assert_tables_equal(got, jctx.execute(q(J, jctx), target="interp"), ("amount",))
 
+    def test_cost_low_ndv_selects_direct(self, sales):
+        jctx, tctx = sales
+        res = costed(jctx, tctx, grouped_query(J, jctx, "region", "flag"),
+                     grouped_query(T, tctx, "region", "flag"))
+        assert dict(res.strategy)["groupby"] == "direct"
+        assert "vec.GroupAggDirect" in res.program.opcodes()
+        labels = [c.label() for c in res.decision.candidates]
+        assert any("groupby=sorted" in label for label in labels)
+        (out,) = res(tctx.sources("cpu"))
+        want = jctx.execute(grouped_query(J, jctx, "region", "flag"), target="interp")
+        assert_tables_equal(out.to_numpy(), want, ("region", "flag"))
+
+    def test_cost_huge_domain_selects_sorted(self):
+        """A key spread over a 2^17 domain: the dense bucket table would
+        dwarf one pass over the rows, so the sorted tier must win."""
+        rng = np.random.default_rng(13)
+        n = 4096
+        jctx, tctx = contexts(512, sales={
+            "k": rng.integers(0, 1 << 17, n).astype(np.int32),
+            "amount": rng.gamma(2.0, 50.0, n).astype(np.float32)})
+
+        def q(m, ctx):
+            return (ctx.table("sales").group_by("k", max_groups=4096)
+                    .agg(m.df.sum_("amount").as_("rev")))
+        res = costed(jctx, tctx, q(J, jctx), q(T, tctx))
+        assert dict(res.strategy)["groupby"] == "sorted"
+        assert "vec.GroupAggSorted" in res.program.opcodes()
+        (out,) = res(tctx.sources("cpu"))
+        assert_tables_equal(out.to_numpy(), jctx.execute(q(J, jctx), target="interp"), ("k",))
+
     def test_direct_strategy_is_cache_keyed(self, sales):
         _, tctx = sales
         cache = PlanCache()
@@ -725,6 +771,27 @@ class TestJoinStrategy:
         assert any("hash_unavailable" in str(w.message) for w in caught)
         assert_tables_equal(got, jctx.execute(q(jctx), target="interp"), ("k", "x"))
 
+    def test_cost_huge_domain_selects_sorted(self):
+        """tests/test_join.py's costed half: the same ~2^21 raw span with
+        2048 distinct keys; dictionary ranks fit the cap, so the costed
+        search keeps the O(n) hash tier under ``encode=dict``."""
+        jctx, tctx = _sparse_join_ctxs()
+        res = costed(jctx, tctx, _probe_build(jctx), _probe_build(tctx))
+        chosen = dict(res.strategy)
+        assert chosen["join"] == "hash" and chosen["encode"] == "dict"
+        assert "vec.HashJoinDirect" in res.program.opcodes()
+        (out,) = res(tctx.sources("cpu"))
+        assert_tables_equal(out.to_numpy(), jctx.execute(_probe_build(jctx), target="interp"),
+                            ("k", "x"))
+
+    def test_cost_low_ndv_selects_hash(self, joins):
+        jctx, tctx = joins
+        res = costed(jctx, tctx, join_query(jctx), join_query(tctx))
+        assert dict(res.strategy)["join"] == "hash"
+        assert "vec.HashJoinDirect" in res.program.opcodes()
+        labels = [c.label() for c in res.decision.candidates]
+        assert any("join=sorted" in label for label in labels)
+
     def test_unbounded_keys_take_the_dynamic_join(self, joins):
         """The Motivation's fourth probe: a join whose keys have no catalog
         bounds (a computed key) emits the dynamic HashJoinDirect, which
@@ -770,6 +837,59 @@ class TestJoinStrategy:
         assert len(np.asarray(jctx.execute(q(J, jctx), target="interp")["price"]).ravel()) == 0
         for label in ("sorted", "hash"):
             assert len(q(T, tctx).collect(device="cpu", strategy={"join": label})["price"]) == 0
+
+
+def _sparse_join_ctxs(seed=13, m=2048):
+    rng = np.random.default_rng(seed)
+    n = 4096
+    return contexts(
+        512,
+        probe={"k": (rng.integers(0, m, n) * 1024).astype(np.int32),
+               "x": rng.normal(size=n).astype(np.float32)},
+        build={"bk": (np.arange(m) * 1024).astype(np.int32),
+               "y": rng.normal(size=m).astype(np.float32)})
+
+
+def _probe_build(ctx):
+    return ctx.table("probe").join(ctx.table("build"), left_on=("k",), right_on=("bk",))
+
+
+class TestJoinAdmission:
+    """tests/test_join.py's ``TestJoinAdmission``: join keys over a ~2^19
+    domain are admissible for lowering, but the ~2 MB direct table busts a
+    1 MB budget."""
+
+    BUDGET = 1_000_000
+
+    def test_direct_table_priced(self, joins):
+        jctx, tctx = joins
+        res = tctx.compile(join_query(tctx), strategy={"join": "hash"}, cache=False,
+                           guard=False)
+        est = estimate_peak_bytes(res.program)
+        assert est.peak_site == "vec.HashJoinDirect"
+        assert dict(est.breakdown)["vec.HashJoinDirect"] > 256 * 4
+        jres = jctx.compile(join_query(jctx), strategy={"join": "hash"}, cache=False,
+                            guard=False)
+        assert est.peak_bytes == jax_peak_bytes(jres.program).peak_bytes
+
+    def test_over_budget_rejected_without_guard(self):
+        _, tctx = _sparse_join_ctxs(seed=17, m=512)
+        with pytest.raises(AdmissionError, match="resource admission"):
+            tctx.compile(_probe_build(tctx), strategy={"join": "hash"}, cache=False,
+                         memory_budget=self.BUDGET, guard=False)
+
+    def test_over_budget_degrades_to_sorted_with_guard(self):
+        jctx, tctx = _sparse_join_ctxs(seed=17, m=512)
+        want = jctx.execute(_probe_build(jctx), target="interp")
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            res = tctx.compile(_probe_build(tctx), strategy={"join": "hash"},
+                               cache=PlanCache(), memory_budget=self.BUDGET, device="cpu")
+        assert ("join", "sorted") in res.strategy
+        assert res.degraded
+        assert "vec.MergeJoinSorted" in res.program.opcodes()
+        (out,) = res(tctx.sources("cpu"))
+        assert_tables_equal(out.to_numpy(), want, ("k", "x"))
 
 
 class TestFusedJoinGroupAgg:

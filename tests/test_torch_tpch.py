@@ -164,24 +164,41 @@ def test_sources_stay_on_the_device_per_session(tctx):
     ({"encode": "dict"}, "dict encode"),
     ({"fuse": "unfused"}, "fallback ladder"),
 ])
-def test_strategies_not_ported_name_the_roadmap(strategy, where, tctx):
-    """Every variant of the four choices compiles and gives Q6's answer;
-    the cost search over them is what still names its ROADMAP item."""
-    got = ttpch.q6(tctx).collect(device="cpu", strategy=strategy, cache=False)
+def test_strategies_not_ported_name_the_roadmap(strategy, where, jctx, tctx):
+    """Every variant of the four choices compiles and gives Q6's answer,
+    forced alone and under the cost search over the other choices; the
+    search's decision table is the JAX package's."""
     want = ttpch.q6(tctx).collect(device="cpu", cache=False)
+    got = ttpch.q6(tctx).collect(device="cpu", strategy=strategy, cache=False)
     np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-5, err_msg=where)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tctx.compile(ttpch.q6(tctx), strategy=strategy, optimize="cost")
+    got = ttpch.q6(tctx).collect(device="cpu", strategy=strategy, optimize="cost",
+                                 cache=False)
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-5, err_msg=where)
+    res = tctx.compile(ttpch.q6(tctx), strategy=strategy, optimize="cost", cache=False)
+    jres = jctx.compile(jtpch.q6(jctx), strategy=strategy, optimize="cost", cache=False)
+    assert _decision(res) == _decision(jres), where
 
 
-def test_parallel_and_cost_search_not_ported(tctx):
-    """parallel>1 is ported now (tests/test_torch_parallel.py holds it to
-    the JAX package); the cost search is not."""
+def test_parallel_and_cost_search_not_ported(jctx, tctx):
+    """parallel>1 and the cost search are both ported: Q6 under each, and
+    under both, gives the sequential answer, and the search's decision
+    table is the JAX package's (tests/test_torch_cost.py holds all six
+    queries)."""
     seq = ttpch.q6(tctx).collect(device="cpu")
     par = ttpch.q6(tctx).collect(device="cpu", parallel=4)
     np.testing.assert_allclose(par["revenue"], seq["revenue"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="cost search"):
-        ttpch.q6(tctx).collect(device="cpu", optimize="cost")
+    for parallel in (None, 4):
+        got = ttpch.q6(tctx).collect(device="cpu", optimize="cost", parallel=parallel)
+        np.testing.assert_allclose(got["revenue"], seq["revenue"], rtol=1e-5)
+        res = tctx.compile(ttpch.q6(tctx), optimize="cost", parallel=parallel, cache=False)
+        jres = jctx.compile(jtpch.q6(jctx), optimize="cost", parallel=parallel, cache=False)
+        assert _decision(res) == _decision(jres)
     with pytest.raises(ValueError):
         tcompiler.normalize_strategy({"groupby": "nope"})
+
+
+def _decision(res):
+    """A cost search's candidates (strategy, estimated cost) and winner."""
+    d = res.decision
+    return [(c.strategy, c.est_cost) for c in d.candidates], d.chosen, res.strategy
 
