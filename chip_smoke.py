@@ -102,7 +102,26 @@ Phases, each printing its own lines:
    ``collect()`` must raise ``KernelBuildError`` under ``guard=True``.
    Every other phase runs with ``DegradedWarning`` an error, so a step down
    the ladder anywhere else fails the run;
-16. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
+16. the stream target: lineitem at ``--sf`` from the host copy in
+   micro-batches of 65,536 rows (``microbatches``), orders and part static
+   on the card; Q1, Q6, Q12, Q14, Q19 and revenue per order (a
+   GroupAggDirect state of one group per order, 750,000 at sf=5), each
+   with its four segments, one counted fold (its kernel launched once a
+   batch plus ``init_state``'s, on its route: ``gsa_reg``, ``fsa_gen``,
+   ``gja_reg``, ``gsa_global``), the init, first and ragged last kernel
+   calls against their plain versions, the answer against numpy (the
+   revenue state against a numpy ``bincount`` in f64), fold rows/s
+   (median of ``--reps`` after a warm-up) beside the batch path's, and ms
+   per batch split into copy, batch segment and merge; Q1 under the
+   sorted tiers; Q4 must raise lower_stream's named error; Q1 and the
+   revenue state with snapshots every 16 batches (ms, bytes, the
+   checkpointed fold over the bare one); a ``stream.batch`` kill at batch
+   24 recovered by ``stream_loop`` and a second consumer restoring a dead
+   one's snapshots (Q1, Q6 and Q12 give the uninterrupted fold's bits,
+   the revenue state numpy's answer); a ``grouped_select_agg`` that
+   refuses mid-stream must raise ``KernelLaunchError`` out of
+   ``stream_loop`` with no restore;
+17. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
    layers at full width, bf16, parameters from ``model.init`` with seed 0)
    with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
    ``launch/serve.py`` makes them) in waves of 4, 32 greedy tokens each,
@@ -116,7 +135,7 @@ Phases, each printing its own lines:
    64 and 128, a non-default scale), each with its share of the bound and,
    in bf16, its distance from the tensor-core recipe
    (``ref.flash_attention_tiled``);
-17. each kernel against its plain version on the inputs the paths gave it,
+18. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -126,14 +145,16 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-18. per-query latency (median over ``--reps`` after a warm-up, each run
+19. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
    ``--profile``, device time by kernel and busy share, one serving wave
    included.
 
-Then the card's line, the ``kernels`` JSON line and, last,
+Then the card's line, the ``kernels`` JSON line (the relational kernels'
+launches count the TPC-H path's run and the stream phase's counted folds)
+and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -235,7 +256,7 @@ EXPECTED = {
     "grouped_join_agg": ("q4", "q12"),
 }
 GROUP_KEYS = {"q1": ("l_returnflag", "l_linestatus"), "q4": ("o_orderpriority",),
-              "q12": ("l_shipmode",)}
+              "q12": ("l_shipmode",), "revenue": ("l_orderkey",)}
 
 
 def log(*a) -> None:
@@ -2371,6 +2392,324 @@ def phase_fallback(tables, ctx, frames, dev: str = "cuda") -> None:
         f"{said[0]}; no rung walked")
 
 
+#: the stream phase: lineitem delivered in micro-batches of this many rows,
+#: the queries it folds (by name; "revenue" is the per-order state), the
+#: kernel and route each query's batches launch, and the snapshot cadence
+STREAM_BATCH = 65_536
+STREAM_QUERIES = ("q1", "q6", "q12", "q14", "q19", "revenue")
+STREAM_KERNEL = {"q1": ("grouped_select_agg", "gsa_reg"), "q6": ("fused_select_agg", "fsa_gen"),
+                 "q12": ("grouped_join_agg", "gja_reg"), "q14": ("fused_select_agg", "fsa_gen"),
+                 "q19": ("fused_select_agg", "fsa_gen"),
+                 "revenue": ("grouped_select_agg", "gsa_global")}
+STREAM_SNAPSHOT_EVERY = 16
+#: queries whose stream fold must give the same bits after a recovery (every
+#: kernel route and the merge fixed-order) and the batch the kill hits
+STREAM_SAME_BITS = ("q1", "q6", "q12")
+STREAM_KILL_AT = 24
+
+
+def revenue_query(ctx, n_orders: int):
+    """Revenue per order: a continuous per-key aggregate whose carried state
+    holds one group per order (GroupAggDirect on grouped_select_agg)."""
+    from repro_torch.core.expr import col
+    from repro_torch.frontends.dataflow import count_, max_, sum_
+
+    return (ctx.table("lineitem").group_by("l_orderkey", max_groups=n_orders)
+            .agg(sum_(col("l_extendedprice") * (1.0 - col("l_discount"))).as_("rev"),
+                 count_().as_("n"), max_("l_shipdate").as_("last")))
+
+
+def ref_revenue(tables) -> dict:
+    """numpy's per-order answer in f64 (bincount), the orders with lines."""
+    import numpy as np
+
+    li = tables["lineitem"]
+    k = li["l_orderkey"].astype(np.int64)
+    rev = np.bincount(k, li["l_extendedprice"].astype(np.float64)
+                      * (1.0 - li["l_discount"].astype(np.float64)))
+    n = np.bincount(k)
+    last = np.full(len(n), -np.inf)
+    np.maximum.at(last, k, li["l_shipdate"].astype(np.float64))
+    has = np.nonzero(n)[0]
+    return {"l_orderkey": has.astype(np.int32), "rev": rev[has], "n": n[has],
+            "last": last[has]}
+
+
+def check_stream_answer(q: str, got, tables) -> None:
+    if q == "revenue":
+        check_query(q, got, ref_revenue(tables))
+    else:
+        from repro_torch.relational import tpch
+
+        check_query(q, got, tpch.REFERENCES[q](tables))
+
+
+def _fold(res, srcs, batches, dev: str, **kw):
+    """A fresh StreamConsumer over ``batches`` (bind and init_state
+    included); returns it and the host seconds of the process loop, which
+    ends in a device synchronisation."""
+    from repro_torch.launch.serve import StreamConsumer
+
+    c = StreamConsumer(res, srcs, **kw)
+    sync(dev)
+    t0 = time.perf_counter()
+    for mb in batches:
+        c.process(mb)
+    sync(dev)
+    return c, time.perf_counter() - t0
+
+
+def _fold_s(res, srcs, batches, dev: str, reps: int, **kw) -> float:
+    """Median seconds of the process loop over ``reps`` folds, after one."""
+    _fold(res, srcs, batches, dev, **kw)
+    return statistics.median(_fold(res, srcs, batches, dev, **kw)[1] for _ in range(reps))
+
+
+def _split_batches(res, srcs, batches, dev: str):
+    """One pass of the fold split into its parts, the card synchronised
+    around each: median ms per batch of the host→device copy
+    (``as_batch``), the batch segment and the merge."""
+    ex = res.executable.bind(srcs)
+    state = ex.init_state()
+    copy, seg, merge = [], [], []
+    for mb in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        vt = ex.as_batch(mb.rows)
+        sync(dev)
+        t1 = time.perf_counter()
+        (delta,) = ex._batch({ex.stream_table: vt}, *ex._batch_args)
+        sync(dev)
+        t2 = time.perf_counter()
+        (state,) = ex._merge({}, state, delta)
+        sync(dev)
+        t3 = time.perf_counter()
+        copy.append((t1 - t0) * 1e3)
+        seg.append((t2 - t1) * 1e3)
+        merge.append((t3 - t2) * 1e3)
+    return {"copy_ms": statistics.median(copy), "batch_ms": statistics.median(seg),
+            "merge_ms": statistics.median(merge)}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def phase_stream(tables, ctx, frames, reps: int, dev: str = "cuda"):
+    """The stream target on the card: lineitem from the host copy in
+    micro-batches of STREAM_BATCH rows (``microbatches``), orders and part
+    static on the card.  Per query (Q1, Q6, Q12, Q14, Q19 under the port's
+    default strategy, and the per-order revenue state): its four segments,
+    one fold with the counts set to 0 just before and read just after (one
+    launch of its kernel per batch plus init_state's, on its route), the
+    init, first and ragged last kernel calls against their plain versions,
+    the answer against numpy; the fold's rows/s (median of ``reps`` after a
+    warm-up) beside the batch path's, and ms per batch split into copy,
+    batch segment and merge.  Q1 under the sorted tiers too; Q4 must raise
+    lower_stream's named error.  Q1 and the revenue state with a
+    ``CheckpointManager`` every STREAM_SNAPSHOT_EVERY batches: snapshot ms
+    and bytes, the checkpointed fold over the bare one.  Exactly-once on
+    Q1, Q6, Q12 and the revenue state: ``stream_loop`` with
+    ``stream.batch`` killed at batch STREAM_KILL_AT (recovery ms, batches
+    replayed) and a second consumer restoring a dead one's snapshots and
+    redelivered every batch (dedups restored + 1); Q1, Q6 and Q12 must give
+    the uninterrupted fold's bits, the revenue state numpy's answer.  Last,
+    ``grouped_select_agg`` refusing mid-stream: ``KernelLaunchError`` out
+    of ``stream_loop`` with no restore.  Returns the launches per kernel
+    of the counted folds."""
+    import tempfile
+
+    from repro_torch.compiler import PlanCache
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.errors import KernelLaunchError
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.serve import StreamConsumer, microbatches, stream_loop
+    from repro_torch.obs import tracing
+    from repro_torch.relational import tpch
+    from repro_torch.robust.inject import inject
+
+    srcs = ctx.sources(dev)
+    n_li = len(tables["lineitem"]["l_orderkey"])
+    n_orders = len(tables["orders"]["o_orderkey"])
+    batches = microbatches(ctx.tables["lineitem"], STREAM_BATCH)
+    n_b = len(batches)
+    frames = dict(frames, revenue=revenue_query(ctx, n_orders))
+    log(f"stream: lineitem {n_li} rows from the host in {n_b} micro-batches of {STREAM_BATCH} "
+        f"(last {batches[-1].n_rows}); orders and part static on the card; per-order state "
+        f"{n_orders} groups")
+
+    def compile_stream(q, **kw):
+        return ctx.compile(frames[q], target="stream", stream_table="lineitem",
+                           batch_rows=STREAM_BATCH, device=dev, cache=PlanCache(), **kw)
+
+    built0 = build.GEN_STATS["built"]
+    launches = {k: 0 for k in TPCH_KERNELS}
+    compiled, answers, summary = {}, {}, {}
+    for q in STREAM_QUERIES:
+        res = compiled[q] = compile_stream(q)
+        plan = res.executable.plan
+        segs = {s: (None if p is None else [i.opcode for i in p.body])
+                for s, p in (("static", plan.static_program), ("batch", plan.batch_program),
+                             ("merge", plan.merge_program),
+                             ("finalize", plan.finalize_program))}
+        kname, route = STREAM_KERNEL[q]
+        with recording(TPCH_KERNELS) as captured:
+            ops.reset_launches()
+            before = dict(ops.GEN_LAUNCHES)
+            c, _ = _fold(res, srcs, batches, dev, snapshot_every=10 ** 9)
+            counted_l = {k: v for k, v in ops.LAUNCHES.items() if v}
+            took = {r: ops.GEN_LAUNCHES[r] - before[r] for r in before
+                    if ops.GEN_LAUNCHES[r] != before[r]}
+        got = answers[q] = _to_numpy(c.results()[0])
+        check_stream_answer(q, got, tables)
+        if counted_l != {kname: n_b + 1} or took != {route: n_b + 1}:
+            raise AssertionError(f"stream {q}: launched {counted_l}, routes {took}; want "
+                                 f"{kname} on {route} {n_b + 1} times")
+        for k in TPCH_KERNELS:
+            launches[k] += counted_l.get(k, 0)
+        samples = {}
+        for label, (name, args, kw) in (("init", captured[0]), ("first", captured[1]),
+                                        ("last", captured[-1])):
+            kern, plain = getattr(ops, name), getattr(ref, name)
+            err = compare_outputs(f"stream {q} {name} {label}", kern(*args, **kw),
+                                  plain(*args, **kw))
+            samples[label] = {"valid_rows": int(args[0].valid.sum()), "max_abs_err": err,
+                              "ms": cuda_ms(lambda: kern(*args, **kw)),
+                              "plain_ms": cuda_ms(lambda: plain(*args, **kw))}
+        del captured
+        fold_s = _fold_s(res, srcs, batches, dev, reps, snapshot_every=10 ** 9)
+        parts = _split_batches(res, srcs, batches, dev)
+        batch_ms = run_ms(lambda: frames[q].collect(device=dev, cache=False), dev, reps)
+        summary[q] = {"segments": segs, "launches": counted_l, "routes": took,
+                      "samples": samples, "fold_ms": fold_s * 1e3,
+                      "rows_per_s": n_li / fold_s, "ms_per_batch": fold_s * 1e3 / n_b,
+                      **parts, "batch_path_ms": batch_ms,
+                      "batch_path_rows_per_s": n_li / (batch_ms / 1e3),
+                      "batch_path_over_stream": (n_li / (batch_ms / 1e3)) / (n_li / fold_s)}
+        log(f"stream {q}: segments {json.dumps(segs)}")
+        log(f"stream {q}: matches numpy; {kname} on {route} {n_b + 1} times (one a batch and "
+            f"init_state's); init/first/last calls match their plain versions "
+            f"{json.dumps(samples)}; fold {n_li / fold_s:.4g} rows/s "
+            f"({fold_s * 1e3 / n_b:.3f} ms a batch: copy {parts['copy_ms']:.3f}, batch "
+            f"{parts['batch_ms']:.3f}, merge {parts['merge_ms']:.3f}); batch path "
+            f"{n_li / (batch_ms / 1e3):.4g} rows/s, "
+            f"{summary[q]['batch_path_over_stream']:.3g}x the stream's")
+
+    got = _to_numpy(compile_stream("q1", strategy=SORTED)(srcs)[0])
+    check_stream_answer("q1", got, tables)
+    log(f"stream q1 under the sorted tiers ({json.dumps(SORTED)}): matches numpy")
+    try:
+        compile_stream("q4", guard=True)
+    except ValueError as e:
+        if "2 aggregations over the stream" not in str(e):
+            raise
+        log(f"stream q4: raised ValueError under guard=True ({str(e)[:140]})")
+    else:
+        raise AssertionError("stream q4 compiled")
+    built = build.GEN_STATS["built"] - built0
+    log(f"stream: {int(built)} generated kernel libraries built by this phase (the TPC-H "
+        "queries reuse the batch path's; the per-order query's is new)")
+
+    snaps = {}
+    with tempfile.TemporaryDirectory(prefix="stream-ckpt-") as tmp:
+        for q in ("q1", "revenue"):
+            res = compiled[q]
+            bare = summary[q]["fold_ms"] / 1e3
+            kw = dict(snapshot_every=STREAM_SNAPSHOT_EVERY)
+            ck_s = _fold_s(res, srcs, batches, dev, reps,
+                           checkpoint=CheckpointManager(Path(tmp) / q, n_shards=1, keep=2), **kw)
+            with tracing() as tr:
+                c, _ = _fold(res, srcs, batches, dev,
+                             checkpoint=CheckpointManager(Path(tmp) / f"{q}-t", n_shards=1,
+                                                          keep=2), **kw)
+            snap = tr.histogram_summary("stream.snapshot_s")
+            step = Path(tmp) / f"{q}-t" / f"step_{c.snapshot_seq:08d}"
+            snaps[q] = {"snapshots": c.stats.snapshots, "snapshot_ms_p50": snap["p50"] * 1e3,
+                        "snapshot_bytes": _dir_bytes(step), "checkpointed_fold_ms": ck_s * 1e3,
+                        "bare_fold_ms": bare * 1e3, "overhead": ck_s / bare}
+            log(f"stream checkpoint {q}: {c.stats.snapshots} snapshots of "
+                f"{snaps[q]['snapshot_bytes']} bytes, {snap['p50'] * 1e3:.3f} ms each (p50); "
+                f"checkpointed fold {ck_s * 1e3:.3f} ms over bare {bare * 1e3:.3f} ms = "
+                f"{ck_s / bare:.4f} (the JAX package's CI guard is < 1.10; reported only)")
+
+        exactly = {}
+        for q in STREAM_SAME_BITS + ("revenue",):
+            res = compiled[q]
+            with contextlib.ExitStack() as stack, tracing() as tr:
+                def armed(stack=stack):
+                    for i, mb in enumerate(batches):
+                        if i == STREAM_KILL_AT:
+                            stack.enter_context(inject("stream.batch", rate=1.0, times=1))
+                        yield mb
+                c = StreamConsumer(res, srcs, checkpoint=CheckpointManager(
+                    Path(tmp) / f"{q}-kill", n_shards=1, keep=2),
+                    snapshot_every=STREAM_SNAPSHOT_EVERY)
+                out = _to_numpy(stream_loop(armed(), c, max_recoveries=3)[0])
+                sync(dev)
+            rec = tr.histogram_summary("stream.recovery_s")
+            if c.stats.restores != 1 or c.stats.failures != 1:
+                raise AssertionError(f"stream kill {q}: {c.stats}")
+            first = StreamConsumer(res, srcs, checkpoint=CheckpointManager(
+                Path(tmp) / f"{q}-dead", n_shards=1, keep=2),
+                snapshot_every=STREAM_SNAPSHOT_EVERY)
+            for mb in batches[:STREAM_KILL_AT]:
+                first.process(mb)
+            second = StreamConsumer(res, srcs, checkpoint=CheckpointManager(
+                Path(tmp) / f"{q}-dead", n_shards=1, keep=2),
+                snapshot_every=STREAM_SNAPSHOT_EVERY)
+            restored = second.restore()
+            for mb in batches:
+                second.process(mb)
+            if second.stats.deduped != restored + 1 or second.stats.batches != n_b - restored - 1:
+                raise AssertionError(f"stream second consumer {q}: restored {restored}, "
+                                     f"{second.stats}")
+            again = _to_numpy(second.results()[0])
+            if q in STREAM_SAME_BITS:
+                same_result(f"stream {q} after a kill", out, answers[q])
+                same_result(f"stream {q} on a second consumer", again, answers[q])
+                kind = "the same bits as the uninterrupted fold"
+            else:
+                check_stream_answer(q, out, tables)
+                check_stream_answer(q, again, tables)
+                kind = "counts exact, floats within rtol 2e-4 of numpy (gsa_global's atomics)"
+            exactly[q] = {"recovery_ms": rec["p50"] * 1e3, "replayed": c.stats.replayed,
+                          "restored_seq": restored, "deduped": second.stats.deduped,
+                          "check": kind}
+            log(f"stream exactly-once {q}: stream.batch killed at batch {STREAM_KILL_AT}, "
+                f"recovered in {rec['p50'] * 1e3:.3f} ms replaying {c.stats.replayed} batches; "
+                f"a second consumer restored seq {restored} and deduped "
+                f"{second.stats.deduped} of {n_b} redelivered; both give {kind}")
+
+    real = ops.grouped_select_agg
+    calls = []
+
+    def refused(t, pred, keys, aggs, mg, domains, nb):
+        calls.append(1)
+        if len(calls) > STREAM_KILL_AT:  # mid-stream: the wrapper's bucket check refuses
+            nb += 1
+        return real(t, pred, keys, aggs, mg, domains, nb)
+
+    ops.grouped_select_agg = refused
+    try:
+        c = StreamConsumer(compiled["q1"], srcs, snapshot_every=STREAM_SNAPSHOT_EVERY)
+        stream_loop(batches, c, max_recoveries=3)
+    except KernelLaunchError as e:
+        if c.stats.restores != 0:
+            raise AssertionError(f"stream card fault: {c.stats.restores} restores walked")
+        log(f"stream card fault: grouped_select_agg refused at batch {len(calls) - 2}; "
+            f"KernelLaunchError out of stream_loop(max_recoveries=3) with "
+            f"{c.stats.restores} restores ({str(e).splitlines()[0][:120]})")
+    else:
+        raise AssertionError("stream card fault: stream_loop answered")
+    finally:
+        ops.grouped_select_agg = real
+    log("stream: " + json.dumps({"queries": summary, "checkpoint": snaps,
+                                 "exactly_once": exactly, "generated_built": built,
+                                 "batch_rows": STREAM_BATCH, "batches": n_b}))
+    return launches
+
+
 def phase_traced(tables, ctx, frames, reps: int, dev: str = "cuda") -> None:
     """The six queries under ``tracing()``: each profile has one
     observation per tapped operator of the plan, the scans measure the
@@ -2585,9 +2924,14 @@ def main() -> int:
         phase_fallback(tables, ctx, frames)
         driver_s["fallback"] = time.perf_counter() - t0
         log(f"driver phases took {sum(driver_s.values()):.1f} s: " + json.dumps(driver_s))
+        t0 = time.perf_counter()
+        stream_launches = phase_stream(tables, ctx, frames, a.reps)
+        log(f"stream phase took {time.perf_counter() - t0:.1f} s")
         fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches["flash_attention"])
+        for k, n in stream_launches.items():
+            launches[k] += n
         captured += km_captured + seg_captured + fa_captured
         kernels = phase_kernels(captured, launches, pool)
     phase_queries(tables, frames, a.reps)

@@ -255,6 +255,23 @@ def _fused_join_group_agg(ctx, ins, args):
     return [rt.fused_join_group_agg(left, right, **kw)]
 
 
+@emitter("vec.MergeGroupedState")
+def _merge_grouped_state(ctx, ins, args):
+    kd = ins.param("key_domains")
+    nb = ins.param("num_buckets")
+    return [rt.merge_grouped_partials(
+        args[0], args[1], tuple(ins.param("keys")), tuple(ins.param("aggs")),
+        int(ins.param("max_groups")),
+        key_domains=tuple(kd) if kd is not None else None,
+        num_buckets=int(nb) if nb is not None else None)]
+
+
+@emitter("vec.MergeScalarState")
+def _merge_scalar_state(ctx, ins, args):
+    return [rt.merge_scalar_partials(args[0], args[1],
+                                     tuple(ins.param("aggs")))]
+
+
 @emitter("vec.Compact")
 def _compact(ctx, ins, args):
     return [rt.compact(args[0], ins.param("max_count"))]

@@ -1,7 +1,7 @@
 """The compile driver of the torch port: one entry point for its targets.
 
-The port's copy of ``repro/compiler/driver.py`` for the ``local`` and
-``interp`` targets.  ``compile(program, catalog)`` looks up the registered
+The port's copy of ``repro/compiler/driver.py`` for the ``local``,
+``stream`` and ``interp`` targets.  ``compile(program, catalog)`` looks up the registered
 :class:`~repro_torch.compiler.targets.Target`, consults the plan cache
 (keyed by the target, the device as named, the alpha-invariant program
 fingerprint and the options), runs the target's lowering path with
@@ -539,12 +539,15 @@ def compile(program: Program, catalog: Any = None, *,
             store: Any = None,
             guard: bool = True,
             memory_budget: Optional[int] = None,
-            check: bool = True) -> CompileResult:
+            check: bool = True,
+            stream_table: Optional[str] = None,
+            batch_rows: Optional[int] = None) -> CompileResult:
     """Compile a frontend CVM program for a registered target.
 
     ``target``: ``"local"`` (the torch backend on ``device``, ``cuda``
-    unless given, resolved when the plan runs) or ``"interp"`` (the numpy
-    interpreter on the host).  ``parallel=n`` splits the sources into
+    unless given, resolved when the plan runs), ``"stream"`` (the local
+    path split for micro-batches, on ``device`` too) or ``"interp"`` (the
+    numpy interpreter on the host).  ``parallel=n`` splits the sources into
     ``n`` chunks (the paper's parallelization rewrite).
 
     ``cache``: ``None``/``True`` → the process-wide :data:`PLAN_CACHE`;
@@ -567,11 +570,17 @@ def compile(program: Program, catalog: Any = None, *,
     finally the interp target, emitting a ``DegradedWarning``.  Invalid
     inputs and faults of the card or a kernel (``repro_torch.errors``)
     still raise.
+
+    ``stream_table``/``batch_rows`` are for streaming targets
+    (``target="stream"``): the named table is delivered as micro-batches
+    of ``batch_rows`` rows and the executable folds them incrementally
+    (see docs/streaming.md).
     """
     tracer = get_tracer()
     kw = dict(target=target, use_kernels=use_kernels, parallel=parallel,
               optimize=optimize, strategy=strategy, device=device, cache=cache,
-              store=store, guard=guard, memory_budget=memory_budget, check=check)
+              store=store, guard=guard, memory_budget=memory_budget, check=check,
+              stream_table=stream_table, batch_rows=batch_rows)
     if not tracer.enabled:
         return _compile_impl(program, catalog, **kw)
     with tracer.span(f"compile:{program.name}", cat="compile",
@@ -606,12 +615,26 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
                   use_kernels: bool, parallel: Optional[int],
                   optimize: Optional[str], strategy: Any, device: Any,
                   cache: Union[None, bool, PlanCache], store: Any, guard: bool,
-                  memory_budget: Optional[int], check: bool) -> CompileResult:
+                  memory_budget: Optional[int], check: bool,
+                  stream_table: Optional[str],
+                  batch_rows: Optional[int]) -> CompileResult:
     if optimize not in (None, "cost"):
         raise ValueError(f"unknown optimize mode {optimize!r}; "
                          "expected None or 'cost'")
     tgt = get_target(target)
     strat = _normalize_strategy(strategy, tgt)
+    if tgt.streaming:
+        if not stream_table:
+            raise ValueError(
+                f"target {tgt.name!r} is streaming: pass stream_table=... "
+                "(the table delivered as micro-batches)")
+        batch_rows = int(batch_rows or 256)  # normalized → stable cache key
+        if batch_rows <= 0:
+            raise ValueError(f"batch_rows must be positive, got {batch_rows}")
+    elif stream_table is not None or batch_rows is not None:
+        raise ValueError(
+            f"stream_table/batch_rows only apply to streaming targets; "
+            f"{tgt.name!r} is not one")
     dev = None
     if tgt.source_kind == "vec":
         import torch
@@ -620,7 +643,7 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
         dev = str(torch.device("cuda" if device is None else device))
     opts = CompileOptions(parallel=parallel, use_kernels=use_kernels, catalog=catalog,
                           optimize=optimize, strategy=strat, memory_budget=memory_budget,
-                          device=dev)
+                          device=dev, stream_table=stream_table, batch_rows=batch_rows)
     _check_parallel_divides(program, opts)
 
     if cache is False:

@@ -2,8 +2,10 @@
 
 The port's copy of ``repro/compiler/targets.py``, cut to the targets this
 package runs: ``local`` (the eager torch backend, on the card unless the
-caller names a device) and ``interp`` (the numpy reference interpreter, on
-the host).  Each registers a :class:`Target` declaring
+caller names a device), ``stream`` (the local path split for micro-batched
+incremental execution, on the card too) and ``interp`` (the numpy
+reference interpreter, on the host).  Each registers a :class:`Target`
+declaring
 
   * its name,
   * the IR flavors its executables accept after lowering,
@@ -13,14 +15,14 @@ the host).  Each registers a :class:`Target` declaring
   * how to construct the backend object, and
   * what kind of source collections its executables consume.
 
-The JAX package's ``stream``, ``spmd``, ``multipod`` and ``pjit`` targets
-are not ported: :func:`get_target` raises ``NotImplementedError`` naming
+The JAX package's ``spmd``, ``multipod`` and ``pjit`` targets are not
+ported: :func:`get_target` raises ``NotImplementedError`` naming
 the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 from ..core.passes import (
@@ -72,6 +74,12 @@ class CompileOptions:
     #: the device the local backend runs on, as the caller named it
     #: (``cuda`` unless given; resolved at each call)
     device: Optional[str] = None
+    #: streaming target only: the source table delivered as micro-batches
+    stream_table: Optional[str] = None
+    #: streaming target only: micro-batch capacity (rows per batch); the
+    #: stream table is lowered at this capacity, so per-batch cost is
+    #: O(batch), not O(full table)
+    batch_rows: Optional[int] = None
 
     def stats(self):
         return self.catalog.stats if self.catalog is not None else None
@@ -85,7 +93,7 @@ class CompileOptions:
                    self.catalog.join_selectivity,
                    stats.cache_key() if stats is not None else None)
         return (self.parallel, self.use_kernels, cat, self.optimize, self.strategy,
-                self.memory_budget)
+                self.memory_budget, self.stream_table, self.batch_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -167,10 +175,28 @@ class Choice:
             f"known: {[l for l, _ in self.variants]}")
 
 
+def _effective_catalog(opts: CompileOptions) -> Catalog:
+    """The catalog the vec lowering sees.
+
+    For streaming compiles the stream table's capacity (and its observed
+    row count, when statistics are present) is rebound to the micro-batch
+    capacity: the per-batch segment of the split plan must size its
+    intermediates — and be costed — at O(batch), not O(full table)."""
+    cat = opts.catalog if opts.catalog is not None else Catalog()
+    if opts.stream_table is None:
+        return cat
+    rows = int(opts.batch_rows or 256)
+    caps = dict(cat.capacities)
+    caps[opts.stream_table] = rows
+    stats = cat.stats
+    if stats is not None:
+        stats = stats.with_observed_rows({opts.stream_table: rows})
+    return replace(cat, capacities=caps, stats=stats)
+
+
 def _lower_rel_to_vec_chosen(opts: CompileOptions,
                              chosen: Dict[str, str]) -> Sequence[Any]:
-    cat = opts.catalog if opts.catalog is not None else Catalog()
-    return [LowerRelToVec(cat,
+    return [LowerRelToVec(_effective_catalog(opts),
                           groupby=chosen.get("groupby", "sorted"),
                           join=chosen.get("join", "sorted"),
                           encode=chosen.get("encode", "raw"))]
@@ -243,6 +269,9 @@ class Target:
     lowering_path: Tuple[Any, ...]  # Stage | Choice
     make_backend: Callable[[CompileOptions], Any]
     source_kind: str = "vec"  # "vec" (VecTable sources) | "numpy" (raw columns)
+    #: the backend executes micro-batched incremental plans: compiles
+    #: require ``stream_table=`` and lower the stream scan at batch capacity
+    streaming: bool = False
 
     def choices(self) -> Tuple[Choice, ...]:
         return tuple(s for s in self.lowering_path if isinstance(s, Choice))
@@ -252,7 +281,6 @@ _TARGETS: Dict[str, Target] = {}
 
 #: the JAX package's other targets, and the ROADMAP item that brings each
 TARGETS_LATER = {
-    "stream": "ROADMAP Queue 1 item 6: the stream target",
     "spmd": "ROADMAP Queue 1 item 7: SPMD and multipod",
     "multipod": "ROADMAP Queue 1 item 7: SPMD and multipod",
     "pjit": "ROADMAP Queue 1 item 8: the LM substrate's training",
@@ -312,4 +340,26 @@ register_target(Target(
                    ENCODE_CHOICE, FUSE_CHOICE),
     make_backend=_make_local,
     source_kind="vec",
+))
+
+
+def _make_stream(opts: CompileOptions) -> Any:
+    from ..backends.stream import StreamBackend
+    return StreamBackend(opts)
+
+
+# The streaming target shares the local lowering path (same physical-tier
+# Choices, the port's defaults among them — the carried state *is* a
+# GroupAggDirect/GroupAggSorted accumulator), then StreamBackend splits the
+# lowered program into static / per-batch / merge / finalize segments
+# (core/passes/lower_stream) for checkpointed incremental execution.  No
+# Parallelize stage: the micro-batch is the unit of work.
+register_target(Target(
+    name="stream",
+    flavors=("vec", "cf", "rel", "df", "la"),
+    lowering_path=(CANONICALIZE, GROUPBY_CHOICE, JOIN_CHOICE,
+                   ENCODE_CHOICE, FUSE_CHOICE),
+    make_backend=_make_stream,
+    source_kind="vec",
+    streaming=True,
 ))

@@ -298,11 +298,14 @@ class Context:
                 use_kernels: bool = True, optimize: Optional[str] = None,
                 strategy: Any = None, device: Any = None, cache: Any = None,
                 target: str = "local", store: Any = None,
-                memory_budget: Optional[int] = None, guard: bool = True):
+                memory_budget: Optional[int] = None, guard: bool = True,
+                stream_table: Optional[str] = None,
+                batch_rows: Optional[int] = None):
         """Lower ``frame`` through this package's driver and its plan cache
         (``cache``: ``None`` the process-wide one, ``False`` none, or a
-        ``PlanCache``); ``optimize``, ``store``, ``memory_budget`` and
-        ``guard`` as ``repro_torch.compiler.compile`` takes them.
+        ``PlanCache``); ``optimize``, ``store``, ``memory_budget``,
+        ``guard`` and, for ``target="stream"``, ``stream_table`` and
+        ``batch_rows`` as ``repro_torch.compiler.compile`` takes them.
 
         Defaults: strategy ``groupby=direct, join=hash, encode=raw,
         fuse=fused``, sequential unless ``parallel`` > 1,
@@ -316,7 +319,7 @@ class Context:
                            use_kernels=use_kernels, parallel=parallel,
                            optimize=optimize, strategy=strategy, device=device,
                            cache=cache, store=store, memory_budget=memory_budget,
-                           guard=guard)
+                           guard=guard, stream_table=stream_table, batch_rows=batch_rows)
 
     def _physical_columns(self, name: str) -> Dict[str, np.ndarray]:
         """Columns in their physical dtypes: string columns become i32
@@ -353,13 +356,15 @@ class Context:
                 strategy: Any = None, device: Any = None,
                 cache: Any = None, target: str = "local", store: Any = None,
                 memory_budget: Optional[int] = None,
-                guard: bool = True) -> Dict[str, np.ndarray]:
+                guard: bool = True, stream_table: Optional[str] = None,
+                batch_rows: Optional[int] = None) -> Dict[str, np.ndarray]:
         from ..compiler import get_target
 
         compiled = self.compile(frame, parallel=parallel, use_kernels=use_kernels,
                                 optimize=optimize, strategy=strategy, device=device,
                                 cache=cache, target=target, store=store,
-                                memory_budget=memory_budget, guard=guard)
+                                memory_budget=memory_budget, guard=guard,
+                                stream_table=stream_table, batch_rows=batch_rows)
         src = (self.tables if get_target(target).source_kind == "numpy"
                else self.sources(device))
         (out,) = compiled(src)

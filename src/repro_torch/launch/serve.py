@@ -23,8 +23,12 @@ makes the model's.  It runs on the card unless ``--device cpu`` is given::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --reduced --device cpu --requests 8 --batch 4 --gen 4
 
-The stream half (micro-batches, ``StreamConsumer``, ``stream_loop``) waits
-for the stream target.
+The stream half grows the same loop into a stream consumer: sequenced
+micro-batches (:class:`MicroBatch`) from the host fold into a ``target="stream"``
+plan's state on the card (:class:`StreamConsumer`), with snapshots through
+:class:`~repro_torch.distributed.checkpoint.CheckpointManager` and
+exactly-once recovery, backpressure and watermark shedding in
+:func:`stream_loop`.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..errors import is_card_fault
 from ..obs.trace import Tracer, get_tracer, set_tracer
 from ..robust.inject import maybe_inject
 from ..robust.retry import Deadline, RetryPolicy, call_with_retry
@@ -190,6 +195,313 @@ def serve_loop(requests: Iterable[Request],
                                        else wave_t0))
         tracer.counter("serve.requests", len(got))
     return outputs
+
+
+# ---------------------------------------------------------------------------
+# streaming: checkpointed incremental consumption of micro-batches
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MicroBatch:
+    """One sequenced micro-batch of stream rows.
+
+    ``seq`` is the monotone sequence number the exactly-once protocol keys
+    on; ``rows`` are column arrays on the host (≤ the plan's batch
+    capacity, physical dtypes); ``watermark`` is the batch's event-time
+    high watermark (any monotone-ish clock), consulted by
+    ``stream_loop``'s lag shedding.
+    """
+
+    seq: int
+    rows: Any                      # Mapping[str, np.ndarray]
+    watermark: Optional[float] = None
+
+    @property
+    def n_rows(self) -> int:
+        cols = dict(self.rows)
+        return len(next(iter(cols.values()))) if cols else 0
+
+
+def microbatches(rows: Any, batch_rows: int, *, watermark_col: Optional[str] = None,
+                 start_seq: int = 0) -> List[MicroBatch]:
+    """Chop full columns into sequenced micro-batches (tests + benchmarks)."""
+    cols = {k: np.asarray(v) for k, v in dict(rows).items()}
+    n = len(next(iter(cols.values()))) if cols else 0
+    out: List[MicroBatch] = []
+    for i, lo in enumerate(range(0, n, batch_rows)):
+        chunk = {k: v[lo:lo + batch_rows] for k, v in cols.items()}
+        wm = (float(np.max(chunk[watermark_col]))
+              if watermark_col and len(chunk[watermark_col]) else None)
+        out.append(MicroBatch(seq=start_seq + i, rows=chunk, watermark=wm))
+    return out
+
+
+@dataclass
+class StreamStats:
+    """What the consumer did — and what it refused to do twice."""
+
+    batches: int = 0          # micro-batches folded into the state
+    rows: int = 0             # stream rows folded
+    deduped: int = 0          # re-delivered batches skipped by seq number
+    snapshots: int = 0
+    restores: int = 0
+    replayed: int = 0         # batches re-fed after a restore
+    failures: int = 0         # process() attempts that raised
+    shed_watermark: int = 0   # batches dropped by lag shedding
+    paused: int = 0           # intake pauses from backpressure
+
+
+class StreamConsumer:
+    """Drives a stream-target executable over sequenced micro-batches with
+    checkpointed exactly-once recovery.
+
+    The carried state is a pure fold: ``state_after(k)`` depends only on
+    the set of folded sequence numbers ≤ k.  Exactly-once therefore needs
+    (1) **atomic commit** — ``process`` assigns ``self.state`` and
+    ``self.committed_seq`` only after the (functional) step succeeds, so a
+    mid-batch crash never leaves a half-folded batch; (2) **durable
+    snapshots** — every ``snapshot_every`` folded batches the state tree
+    goes through :class:`~repro_torch.distributed.checkpoint.CheckpointManager`
+    (atomic tmp→rename) with the committed sequence number and watermark in
+    the manifest's ``extra``; (3) **dedup on replay** — ``process`` is a
+    counted no-op for ``seq ≤ committed_seq``, so re-delivering the suffix
+    after :meth:`restore` can never double-count a batch.
+
+    The state stays on the executable's device between batches; a
+    snapshot copies it to the host.  A fault of the card or of a kernel
+    (:func:`repro_torch.errors.is_card_fault`) propagates out of
+    ``process`` and ``restore`` untouched, and ``stream_loop`` does not
+    recover from it: a CUDA error poisons the context, so a replay on it
+    cannot succeed.
+
+    The three ``stream.*`` fault-injection points bracket exactly these
+    transitions, which is what the chaos suite kills.
+    """
+
+    def __init__(self, compiled: Any, sources: Any, *,
+                 checkpoint: Any = None, snapshot_every: int = 8,
+                 strict_restore: bool = False) -> None:
+        # accept a driver CompileResult or a bare StreamExecutable
+        ex = getattr(compiled, "executable", compiled)
+        if not hasattr(ex, "init_state"):
+            raise TypeError(
+                f"StreamConsumer needs a stream-target executable "
+                f"(compile(..., target='stream')), got {type(ex).__name__}")
+        self.exec = ex
+        self.exec.bind(dict(sources))
+        self.ckpt = checkpoint
+        self.snapshot_every = int(snapshot_every)
+        self.strict_restore = strict_restore
+        self.stats = StreamStats()
+        self.state = self.exec.init_state()
+        #: highest sequence number folded into the in-memory state
+        self.committed_seq = -1
+        #: highest sequence number covered by a durable snapshot
+        self.snapshot_seq = -1
+        self.watermark: Optional[float] = None
+
+    def inflight(self) -> int:
+        """Batches folded but not yet durable — the in-flight window."""
+        return self.committed_seq - self.snapshot_seq
+
+    def process(self, batch: MicroBatch) -> bool:
+        """Fold one micro-batch; returns False for a deduped redelivery."""
+        tracer = get_tracer()
+        if batch.seq <= self.committed_seq:
+            self.stats.deduped += 1
+            tracer.counter("stream.deduped")
+            return False
+        t0 = time.perf_counter()
+        with tracer.span("stream.batch", cat="stream", seq=batch.seq,
+                         rows=batch.n_rows):
+            # the mid-batch kill: fires before the fold commits, so the
+            # batch stays uncommitted and must be re-delivered
+            maybe_inject("stream.batch", seq=batch.seq)
+            state = self.exec.step(self.state, batch.rows)
+            # -- commit point: all-or-nothing from here down ---------------
+            self.state = state
+            self.committed_seq = batch.seq
+            if batch.watermark is not None:
+                self.watermark = (batch.watermark if self.watermark is None
+                                  else max(self.watermark, batch.watermark))
+        self.stats.batches += 1
+        self.stats.rows += batch.n_rows
+        tracer.counter("stream.batches")
+        tracer.counter("stream.rows", batch.n_rows)
+        tracer.observe("stream.batch_s", time.perf_counter() - t0)
+        tracer.observe("stream.lag_batches", float(self.inflight()))
+        if self.inflight() >= self.snapshot_every:
+            self.snapshot()
+        return True
+
+    def snapshot(self) -> Optional[int]:
+        """Publish the state atomically; returns the covered seq (or None)."""
+        if self.committed_seq < 0 or self.committed_seq == self.snapshot_seq:
+            return None
+        tracer = get_tracer()
+        t0 = time.perf_counter()
+        with tracer.span("stream.snapshot", cat="stream",
+                         seq=self.committed_seq):
+            # the mid-snapshot kill: fires before the save, and the
+            # CheckpointManager's tmp→rename publish means a kill *during*
+            # the save leaves the previous snapshot intact either way
+            maybe_inject("stream.snapshot", seq=self.committed_seq)
+            if self.ckpt is not None:
+                self.ckpt.save(self.committed_seq,
+                               self.exec.state_to_tree(self.state),
+                               extra={"seq": self.committed_seq,
+                                      "watermark": self.watermark,
+                                      "program": self.exec.program.name})
+        self.snapshot_seq = self.committed_seq
+        self.stats.snapshots += 1
+        tracer.counter("stream.snapshots")
+        tracer.observe("stream.snapshot_s", time.perf_counter() - t0)
+        return self.snapshot_seq
+
+    def restore(self) -> int:
+        """Roll back to the last durable snapshot (or the initial state).
+
+        Returns the restored sequence number; the caller owns re-delivering
+        every batch with a higher seq (``process`` dedups the rest).
+        """
+        tracer = get_tracer()
+        with tracer.span("stream.restore", cat="stream"):
+            maybe_inject("stream.restore", seq=self.snapshot_seq)
+            if self.ckpt is not None and self.ckpt.latest_step() is not None:
+                tree, extra = self.ckpt.restore(
+                    self.exec.state_to_tree(self.exec.init_state()),
+                    strict=self.strict_restore)
+                self.state = self.exec.state_from_tree(tree)
+                self.committed_seq = int(extra.get("seq", -1))
+                wm = extra.get("watermark")
+                self.watermark = None if wm is None else float(wm)
+            else:
+                self.state = self.exec.init_state()
+                self.committed_seq = -1
+                self.watermark = None
+        self.snapshot_seq = self.committed_seq
+        self.stats.restores += 1
+        tracer.counter("stream.restores")
+        return self.committed_seq
+
+    def results(self) -> List[Any]:
+        """Finalize the current state (decode, avg arithmetic, order/limit)."""
+        return self.exec.finalize(self.state)
+
+
+def stream_loop(batches: Iterable[MicroBatch], consumer: StreamConsumer, *,
+                queue_cap: Optional[int] = None,
+                inflight_cap: Optional[int] = None,
+                max_lag_s: Optional[float] = None,
+                max_recoveries: int = 3) -> List[Any]:
+    """`serve_loop` grown into a continuously-running stream consumer.
+
+    Per arriving micro-batch: admission through the same bounded
+    :class:`AdmissionQueue`, **backpressure** (when the consumer's
+    un-snapshotted window reaches ``inflight_cap``, intake pauses and a
+    snapshot drains the window — bounded lag by construction), **watermark
+    shedding** (a batch whose event-time watermark lags the consumer's by
+    more than ``max_lag_s`` is shed, counted, and never folded), and
+    **crash recovery** (a failed fold restores the last snapshot and
+    replays the retained uncommitted suffix; dedup-by-seq makes the replay
+    idempotent).  Recovery is bounded by ``max_recoveries``; exhaustion
+    re-raises — a permanently poisoned stream must not spin forever.  A
+    fault of the card or of a kernel re-raises at once, with no restore
+    walked (counted as ``stream.card_fault``).
+
+    Returns ``consumer.results()`` — the finalized query answer over every
+    batch folded exactly once.
+    """
+    tracer = get_tracer()
+    queue = AdmissionQueue(queue_cap)
+    #: delivered but not yet snapshot-durable — the replay suffix.  In a
+    #: real deployment this is the upstream log's unacknowledged tail; the
+    #: loop retains it so recovery needs nothing beyond the last snapshot.
+    pending: Dict[int, MicroBatch] = {}
+    recoveries = 0
+    source = iter(batches)
+    intake_open = True
+
+    def recover(error: BaseException) -> None:
+        nonlocal recoveries
+        t0 = time.perf_counter()
+        while True:
+            consumer.stats.failures += 1
+            tracer.counter("stream.failures")
+            if is_card_fault(error):
+                tracer.counter("stream.card_fault")
+                raise error
+            if recoveries >= max_recoveries:
+                raise error
+            recoveries += 1
+            try:
+                restored = consumer.restore()
+                for seq in sorted(pending):
+                    if consumer.process(pending[seq]):
+                        consumer.stats.replayed += 1
+                        tracer.counter("stream.replayed")
+            except Exception as e:
+                # a recovery that itself fails (stream.restore injection, or
+                # the armed fault firing again mid-replay) — go around,
+                # bounded by max_recoveries
+                error = e
+                continue
+            tracer.event("stream.recovered", restored_seq=restored,
+                         replayed=len([s for s in pending if s > restored]))
+            tracer.observe("stream.recovery_s", time.perf_counter() - t0)
+            return
+
+    while True:
+        if intake_open:
+            if (inflight_cap is not None
+                    and consumer.inflight() >= inflight_cap):
+                # backpressure: pause intake, drain the window durably
+                consumer.stats.paused += 1
+                tracer.counter("stream.backpressure.paused")
+                try:
+                    consumer.snapshot()
+                except Exception as e:
+                    recover(e)
+                continue
+            try:
+                nb = next(source)
+            except StopIteration:
+                intake_open = False
+            else:
+                queue.offer(Request(rid=nb.seq, prompt=nb))
+        wave = queue.take(1)
+        if not wave:
+            if not intake_open:
+                break
+            continue
+        mb: MicroBatch = wave[0].prompt
+        if (max_lag_s is not None and mb.watermark is not None
+                and consumer.watermark is not None
+                and mb.watermark < consumer.watermark - max_lag_s):
+            consumer.stats.shed_watermark += 1
+            tracer.counter("stream.shed.watermark")
+            tracer.event("stream.shed.watermark", seq=mb.seq,
+                         watermark=mb.watermark, high=consumer.watermark)
+            continue
+        pending[mb.seq] = mb
+        try:
+            consumer.process(mb)
+        except Exception as e:
+            recover(e)
+        if wave[0].offered_at is not None:
+            # intake-to-fold latency, the streaming sibling of the serve
+            # loop's queue-wait-inclusive request latency
+            tracer.observe("stream.queue_wait_s",
+                           time.perf_counter() - wave[0].offered_at)
+        for seq in [s for s in pending if s <= consumer.snapshot_seq]:
+            del pending[seq]
+    try:
+        consumer.snapshot()   # final barrier: everything folded is durable
+    except Exception as e:
+        recover(e)
+        consumer.snapshot()
+    return consumer.results()
 
 
 # ---------------------------------------------------------------------------

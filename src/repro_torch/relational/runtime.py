@@ -779,3 +779,72 @@ def topk(t: VecTable, keys: Sequence[str], ascending: Sequence[bool], k: int) ->
 def limit(t: VecTable, k: int) -> VecTable:
     c = compact(t)
     return VecTable(c.cols, c.valid & (torch.arange(t.capacity, device=t.device) < k))
+
+
+# ---------------------------------------------------------------------------
+# incremental (streaming) state: init / merge across micro-batches
+# ---------------------------------------------------------------------------
+#
+# The streaming target (core/passes/lower_stream.py) splits a lowered plan
+# at its terminal aggregation: each micro-batch produces a *partial*
+# aggregate (the batch segment reuses the ordinary grouped/scalar operators
+# above, the kernels among them), and the running state is folded forward
+# with the functions below, in plain torch on the state's device.  Every
+# AggSpec is self-decomposable (count combines with sum), so
+# merge-of-partials is itself a grouped aggregation over the concatenated
+# (state, delta) block.  On the direct tier each bucket of that block holds
+# at most two valid rows, the state's and the delta's, and a sum of two f32
+# values does not depend on their order: the merge gives the same bits run
+# to run, on the card too.
+
+
+def _merge_aggs(aggs: Sequence[AggSpec]) -> List[AggSpec]:
+    """The partial-combining AggSpecs: ``fn=combine_fn`` over the partial
+    column itself (sum-of-sums, min-of-mins, sum-of-counts)."""
+    from ..core.expr import Col
+
+    return [AggSpec(a.combine_fn, Col(a.name), a.name) for a in aggs]
+
+
+def empty_grouped_state(template: VecTable) -> VecTable:
+    """The identity element for grouped merge: same schema/capacity as a
+    partial-aggregate block, zero valid rows."""
+    return VecTable({k: torch.zeros_like(v) for k, v in template.cols.items()},
+                    torch.zeros_like(template.valid))
+
+
+def merge_grouped_partials(state: VecTable, delta: VecTable,
+                           keys: Sequence[str], aggs: Sequence[AggSpec],
+                           max_groups: int,
+                           key_domains: Optional[Sequence[Tuple[int, int]]] = None,
+                           num_buckets: Optional[int] = None) -> VecTable:
+    """Fold one micro-batch's grouped partial aggregate into the running
+    state (both capacity ``max_groups``) — the streaming step/merge op.
+
+    With catalog ``key_domains`` the merge is the sort-free dense-bucket
+    tier (O(state+delta), the carried GroupAggDirect accumulator); without
+    them it falls back to sort + segment reduction.  Aggregate columns are
+    cast back to the delta's dtypes so integer counts stay integers across
+    arbitrarily many merges.
+    """
+    both = concat([state, delta])
+    merge_aggs = _merge_aggs(aggs)
+    if key_domains is not None and num_buckets is not None:
+        merged = group_agg_direct(both, keys, merge_aggs, max_groups,
+                                  key_domains, int(num_buckets))
+    else:
+        merged = group_agg_sorted(sort_by_key(both, keys), keys, merge_aggs,
+                                  max_groups)
+    cols = {k: merged.cols[k].to(delta.cols[k].dtype) for k in merged.cols}
+    return VecTable(cols, merged.valid)
+
+
+_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def merge_scalar_partials(state: Dict[str, torch.Tensor],
+                          delta: Dict[str, torch.Tensor],
+                          aggs: Sequence[AggSpec]) -> Dict[str, torch.Tensor]:
+    """Fold one micro-batch's scalar partial aggregate (Single) into the
+    running state, dtype-preserving (counts stay integral)."""
+    return {a.name: _COMBINE[a.combine_fn](state[a.name], delta[a.name]) for a in aggs}

@@ -2,11 +2,13 @@
 ``repro/robust``:
 
 * ``inject`` — seeded fault injection at the wired points (the driver's
-  pass loop, PlanStore I/O, backend compile/execute, the serve step);
+  pass loop, PlanStore I/O, backend compile/execute, the serve step, the
+  stream consumer's batch, snapshot and restore);
 * ``fallback`` — the ladder the driver walks when a chosen plan fails
   (safer strategy variants, then the numpy interpreter);
 * ``admission`` — a plan's estimated peak bytes against a byte budget;
-* ``retry`` — bounded retries with backoff, and deadlines.
+* ``retry`` — bounded retries with backoff, straggler detection, and
+  deadlines.
 """
 
 from .admission import (  # noqa: F401
@@ -27,4 +29,5 @@ from .inject import (  # noqa: F401
     register_point,
     registered_points,
 )
-from .retry import Deadline, RetryPolicy, call_with_retry  # noqa: F401
+from .retry import (  # noqa: F401
+    Deadline, Ewma, RetryPolicy, StragglerDetector, call_with_retry)

@@ -2,9 +2,10 @@
 
 The port's copy of ``repro/robust/inject.py``.  A small registry of *named
 injection points* is wired into the port where its failures surface: the
-driver's pass loop, PlanStore I/O, backend compile, (first) execution, and
-the serve wave step.  The JAX package's ``spmd.shard`` and ``stream.*``
-points wait for the targets that own them (ROADMAP Queue 1 items 6–7).
+driver's pass loop, PlanStore I/O, backend compile, (first) execution,
+the serve wave step, and the stream consumer's batch, snapshot and
+restore.  The JAX package's ``spmd.shard`` point waits for the target that
+owns it (ROADMAP Queue 1 item 7).
 Each wired site costs one module-level list check when no fault is armed —
 the hot path stays free.
 
@@ -102,6 +103,19 @@ register_point(
     "serve.step", ("raise", "delay"),
     "launch/serve.py serve_loop: before each decode wave (slow-step / "
     "load-shedding simulation)")
+register_point(
+    "stream.batch", ("raise", "delay"),
+    "launch/serve.py StreamConsumer.process: before a micro-batch is folded "
+    "into the incremental state (kills the consumer mid-batch)")
+register_point(
+    "stream.snapshot", ("raise", "delay"),
+    "launch/serve.py StreamConsumer.snapshot: before the CheckpointManager "
+    "save (kills the consumer mid-snapshot; the atomic rename means the "
+    "previous snapshot survives)")
+register_point(
+    "stream.restore", ("raise", "delay"),
+    "launch/serve.py StreamConsumer.restore: before the checkpoint load "
+    "(a recovery that itself fails)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Retry, backoff and deadline primitives (the port's copy of the part of
-``repro/robust/retry.py`` that ``launch/serve.py`` uses):
+"""Retry, backoff, straggler and deadline primitives (the port's copy of
+the part of ``repro/robust/retry.py`` that ``launch/serve.py`` and
+``distributed/fault.py`` use):
 
 * :class:`RetryPolicy` / :func:`call_with_retry` — bounded retries with
   exponential backoff around a flaky effect (a serve wave).  Every retry
   bumps ``robust.retry.<name>``.
+* :class:`Ewma` / :class:`StragglerDetector` — flags steps slower than
+  ``factor``× the running average (``robust.straggler``).
 * :class:`Deadline` — absolute per-request deadlines on the monotonic
   clock, the primitive behind load shedding in ``launch/serve.py``.
 """
@@ -11,13 +14,13 @@
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, TypeVar
 
 from ..obs.trace import get_tracer
 
 __all__ = [
-    "RetryPolicy", "call_with_retry", "Deadline",
+    "RetryPolicy", "call_with_retry", "Ewma", "StragglerDetector", "Deadline",
 ]
 
 T = TypeVar("T")
@@ -60,6 +63,53 @@ def call_with_retry(fn: Callable[[], T], policy: Optional[RetryPolicy] = None,
                 raise
             sleep(policy.backoff(attempt))
     raise AssertionError("unreachable")  # pragma: no cover
+
+
+# ---------------------------------------------------------------------------
+# EWMA / stragglers
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Ewma:
+    """Exponential moving average (first observation seeds the value)."""
+
+    alpha: float = 0.2
+    value: Optional[float] = None
+    n: int = 0
+
+    def update(self, x: float) -> float:
+        self.value = (x if self.value is None
+                      else (1 - self.alpha) * self.value + self.alpha * x)
+        self.n += 1
+        return self.value
+
+
+@dataclass
+class StragglerDetector:
+    """Flags observations slower than ``factor``× the running EWMA.
+
+    The detector *observes first, updates second*: a straggler is judged
+    against the history that preceded it, and still folds into the
+    average (one slow step raises the bar rather than being forgotten).
+    """
+
+    factor: float = 3.0
+    alpha: float = 0.2
+    ewma: Ewma = field(default_factory=Ewma)
+    stragglers: int = 0
+
+    def __post_init__(self) -> None:
+        self.ewma.alpha = self.alpha
+
+    def observe(self, seconds: float) -> bool:
+        straggler = (self.ewma.value is not None
+                     and seconds > self.factor * self.ewma.value)
+        if straggler:
+            self.stragglers += 1
+            get_tracer().counter("robust.straggler")
+        self.ewma.update(seconds)
+        return straggler
 
 
 # ---------------------------------------------------------------------------

@@ -753,3 +753,39 @@ def test_kernel_path_failure_raises_on_card(card, fault, monkeypatch):
         warnings.simplefilter("error", DegradedWarning)
         with pytest.raises(KernelLaunchError):
             tpch.q1(ctx).collect(device=card, cache=PlanCache(), guard=True)
+
+
+# ---------------------------------------------------------------------------
+# the stream target on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q", ["q1", "q6"])
+def test_stream_fold_on_card_matches_cpu(card, q):
+    """Q1 and Q6 streamed in 4,096-row batches from the host through a
+    StreamConsumer on the card (one kernel launch a batch plus
+    init_state's) answer as the same fold on the CPU."""
+    from repro_torch.compiler import PlanCache
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.launch.serve import StreamConsumer, microbatches
+
+    ctx = tpch.make_context(tpch.generate(sf=0.05, seed=1))
+    batches = microbatches(ctx.tables["lineitem"], 4096)
+    outs = {}
+    for dev in (card, "cpu"):
+        res = ctx.compile(tpch.QUERIES[q](ctx), target="stream", stream_table="lineitem",
+                          batch_rows=4096, device=dev, cache=PlanCache())
+        before = dict(ops.LAUNCHES)
+        c = StreamConsumer(res, ctx.sources(dev))
+        for mb in batches:
+            c.process(mb)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]}
+        outs[dev] = _by_keys(_to_numpy(c.results()[0]))
+        if dev == card:
+            kname = "grouped_select_agg" if q == "q1" else "fused_select_agg"
+            assert launched == {kname: len(batches) + 1}
+    for k, want in outs["cpu"].items():
+        if want.dtype.kind == "f":
+            np.testing.assert_allclose(outs[card][k], want, rtol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_array_equal(outs[card][k], want, err_msg=k)

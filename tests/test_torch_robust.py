@@ -104,7 +104,8 @@ class TestInjectionRegistry:
         points = registered_points()
         assert sorted(points) == sorted(["driver.pass", "store.load", "store.save",
                                          "backend.compile", "backend.execute",
-                                         "serve.step"])
+                                         "serve.step", "stream.batch",
+                                         "stream.snapshot", "stream.restore"])
 
     def test_unknown_point_and_mode_rejected(self):
         with pytest.raises(KeyError, match="unknown injection point"):

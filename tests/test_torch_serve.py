@@ -103,10 +103,14 @@ def test_request_latency_is_observed_per_served_request():
 
 
 def test_only_the_serve_step_point_is_registered():
-    """The serve step and the compile driver's five points are wired; the
-    JAX package's spmd and stream points wait for their targets."""
+    """The serve step, the compile driver's five points and the stream
+    consumer's three are wired; the JAX package's spmd point waits for its
+    target."""
     points = {name: p.modes for name, p in registered_points().items()}
     assert points == {"serve.step": ("raise", "delay"),
+                      "stream.batch": ("raise", "delay"),
+                      "stream.snapshot": ("raise", "delay"),
+                      "stream.restore": ("raise", "delay"),
                       "driver.pass": ("raise", "corrupt", "delay"),
                       "store.load": ("raise", "corrupt", "delay"),
                       "store.save": ("raise", "delay"),
