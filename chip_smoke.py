@@ -121,7 +121,27 @@ Phases, each printing its own lines:
    the revenue state numpy's answer); a ``grouped_select_agg`` that
    refuses mid-stream must raise ``KernelLaunchError`` out of
    ``stream_loop`` with no restore;
-17. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
+17. the spmd and multipod targets: four rank processes (spawned) sharing
+   the card over a gloo group (a ``file://`` store, a 120 s timeout), each
+   reading the tables the parent wrote as ``.npy`` files; first each
+   collective probed on CUDA tensors (gloo must take all four, as
+   ``backends/spmd.py`` hands them over unstaged); then on every rank the
+   six queries with ``target="spmd"``, ``parallel=4`` (the counts set to 0
+   just before and read just after; each rank launches its kernels on its
+   chunk, checked against its routes), ``collectives=False`` (the local
+   run's bits), Q1 and Q4 under ``grouped-recombine=exchange``, Q4 under
+   ``optimize="cost"``, Q6 through ``ElasticExecutor`` at 4 → 2 → 4
+   workers (the return a plan-cache hit), Q6 under an injected
+   ``spmd.shard`` fault (a rung answers) and a k-means step at the
+   k-means path's shape; every answer against numpy, the local run at
+   ``parallel=4`` (rtol 1e-5) and the other ranks' (one digest), the
+   k-means step against the local one by the tie-margin rule, rank 0's
+   kernel calls against their plain versions; ms per query (median of 5
+   calls, the card synchronised on every rank, then a barrier) beside the
+   local run's, the collectives a query issues and ms per collective at the
+   sizes the queries gave it, each labelled with the ranks, the card and
+   gloo (none of it is multi-GPU scaling);
+18. the serving path: Qwen2-1.5B (``configs/qwen2_1_5b.py`` ``CONFIG``, 28
    layers at full width, bf16, parameters from ``model.init`` with seed 0)
    with ``attn_mode="pallas"``, 8 requests of 2048 prompt tokens (made as
    ``launch/serve.py`` makes them) in waves of 4, 32 greedy tokens each,
@@ -135,7 +155,7 @@ Phases, each printing its own lines:
    64 and 128, a non-default scale), each with its share of the bound and,
    in bf16, its distance from the tensor-core recipe
    (``ref.flash_attention_tiled``);
-18. each kernel against its plain version on the inputs the paths gave it,
+19. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -145,7 +165,7 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-19. per-query latency (median over ``--reps`` after a warm-up, each run
+20. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -153,8 +173,9 @@ Phases, each printing its own lines:
    included.
 
 Then the card's line, the ``kernels`` JSON line (the relational kernels'
-launches count the TPC-H path's run and the stream phase's counted folds)
-and, last,
+launches count the TPC-H path's run, the stream phase's counted folds and
+the spmd ranks' main runs; ``kmeans_step``'s the k-means path's and the
+spmd ranks' steps) and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -2009,22 +2030,38 @@ KMS_TENSOR_CORE, KMS_CUDA_CORE = "kms_tc", "kms_main"
 
 
 #: profiler windows a measurement may take: the first warms the profiler
-#: up, and a window can come back with none of its device launches (seen
-#: on the H100's machine, now and then), so the next one is taken
+#: up, and a window can come back with none of its device launches, so the
+#: next one is taken
 PROFILE_WINDOWS = 6
+#: idle seconds inside each window before and after the work.  On the
+#: H100's machine, once a process has been up for a minute or so (sooner
+#: after spawned processes used the card), a window of a few ms loses all
+#: of its device kernels about every other time, and 6 in a row can come
+#: back empty; with 2 s on both sides 7 windows of 8 kept them, with 2 s
+#: on one side 3 or 5 (tools/profiler_windows.py)
+PROFILE_PAD_S = 2.0
 
 
 def _profiled(fn, activities):
-    """torch.profiler over ``fn()`` (which ends in a synchronise): the
-    first window after the warm-up that recorded a device kernel (or the
-    last one)."""
+    """torch.profiler over ``fn()`` (which ends in a synchronise), padded
+    with PROFILE_PAD_S idle seconds at both ends: the first window after
+    the warm-up that recorded a device kernel (or the last one).  Windows
+    that recorded none are logged."""
     from torch.profiler import profile
 
+    empty = []
     for window in range(PROFILE_WINDOWS):
         with profile(activities=activities) as prof:
+            time.sleep(PROFILE_PAD_S)
             fn()
-        if window and _device_events(prof):
-            break
+            time.sleep(PROFILE_PAD_S)
+        if _device_events(prof):
+            if window:
+                break
+        else:
+            empty.append(window)
+    if empty:
+        log(f"profiler: windows {empty} of {window + 1} recorded no device kernel")
     return prof
 
 
@@ -2873,6 +2910,433 @@ def phase_control_flow(dev: str = "cuda", n: int = KMEANS_N) -> None:
     log("control flow on the card: " + ", ".join(c[0] for c in cases) + " match the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the spmd and multipod targets: four ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+#: rank processes of the spmd phase; all compute on cuda:0 (one card)
+SPMD_RANKS = 4
+#: the gloo group's timeout: a rank that faults fails the phase, not hangs it
+SPMD_GROUP_TIMEOUT_S = 120
+#: how long the parent waits for the ranks
+SPMD_JOIN_S = 600
+#: the collective plans against the local run at parallel=4 (the ranks'
+#: partials added in gloo's order)
+SPMD_RTOL = 1e-5
+#: the elastic executor's worker counts; the return to 4 must be a plan-cache hit
+SPMD_ELASTIC = (4, 2, 4)
+#: the grouped queries run again under grouped-recombine=exchange
+SPMD_EXCHANGE = ("q1", "q4")
+#: timed calls of each compiled spmd plan (the median is reported)
+SPMD_REPS = 5
+
+
+def _gloo_probe(world: int) -> dict:
+    """Which collectives this gloo group runs on CUDA tensors (f32, i32 and
+    bool; min and max too for all_reduce): ``"ok"`` or the error.  A
+    refusal raises on every rank before any byte moves."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for op in ("all_reduce", "all_gather", "all_to_all", "broadcast"):
+        for dt in (torch.float32, torch.int32, torch.bool):
+            t = (torch.arange(4 * world, device=dev) % 2).to(dt)
+            try:
+                if op == "all_reduce":
+                    if dt == torch.bool:
+                        continue
+                    for red in (dist.ReduceOp.SUM, dist.ReduceOp.MIN, dist.ReduceOp.MAX):
+                        dist.all_reduce(t.clone(), op=red)
+                elif op == "all_gather":
+                    dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
+                elif op == "all_to_all":
+                    dist.all_to_all_single(torch.empty_like(t), t)
+                else:
+                    dist.broadcast(t.clone(), src=0)
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # the probe's answer, not a fallback
+                out[op] = f"{type(e).__name__}: {str(e)[:200]}"
+            dist.barrier()
+        out.setdefault(op, "ok")
+    return out
+
+
+def _spmd_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``phase_spmd`` (a spawned process): every case on the
+    same full tables; its answers, counts and times go to rank<r>.pkl."""
+    import datetime
+    import os
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SPMD_GROUP_TIMEOUT_S))
+    try:
+        out = _spmd_cases(rank, world, Path(workdir))
+        with open(Path(workdir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spmd_cases(rank: int, world: int, workdir: Path) -> dict:
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kmeans
+    from repro_torch.backends import spmd
+    from repro_torch.backends.multipod import ElasticExecutor
+    from repro_torch.compiler import PlanCache
+    from repro_torch.frontends.dataflow import _to_numpy
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import DegradedWarning
+    from repro_torch.relational import tpch
+    from repro_torch.robust.inject import inject
+
+    warnings.simplefilter("error", DegradedWarning)
+    # the tables are read-only maps of the parent's files; each is copied
+    # onto the card once
+    warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    out = {"probe": _gloo_probe(world)}
+    columns = json.loads((workdir / "columns.json").read_text())
+    tables = {t: {c: np.load(workdir / f"{t}.{c}.npy", mmap_mode="r") for c in cols}
+              for t, cols in columns.items()}
+    ctx = tpch.make_context(tables)
+    ctx.statistics()
+    mesh = make_mesh((world,), ("workers",))
+    srcs = ctx.sources(mesh.device)
+    frames = {q: f(ctx) for q, f in tpch.QUERIES.items()}
+    torch.cuda.synchronize()
+    dist.barrier()
+    out["device"] = str(mesh.device)
+    out["setup_s"] = time.perf_counter() - t_start
+
+    def run(frame, **kw):
+        return frame.collect(device="cuda", target="spmd", parallel=world, **kw)
+
+    # the main path: the six queries, the counts set to 0 just before and
+    # read just after; spmd.SIZES goes on recording the collectives'
+    # sizes through the exchange and k-means cases
+    with recording(TPCH_KERNELS) as captured:
+        ops.reset_launches()
+        spmd.reset_calls()
+        res, routes, per_query, calls = {}, {}, {}, {}
+        for q, frame in frames.items():
+            before, called = dict(ops.LAUNCHES), dict(spmd.CALLS)
+            res[q], routes[q] = routed(run, frame)
+            per_query[q] = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            calls[q] = {k: n - called.get(k, 0) for k, n in spmd.CALLS.items()
+                        if n != called.get(k, 0)}
+        out.update(default=res, routes=routes, per_query=per_query, calls=calls,
+                   launches=dict(ops.LAUNCHES), gen_launches=dict(ops.GEN_LAUNCHES))
+    t_main = time.perf_counter()
+    out["nocoll"] = {q: run(f, collectives=False) for q, f in frames.items()}
+    out["exchange"], out["exchange_calls"] = {}, {}
+    with recording(TPCH_KERNELS) as captured_x:
+        for q in SPMD_EXCHANGE:
+            called = dict(spmd.CALLS)
+            out["exchange"][q] = routed(run, frames[q],
+                                        strategy={"grouped-recombine": "exchange"})
+            out["exchange_calls"][q] = {k: n - called.get(k, 0)
+                                        for k, n in spmd.CALLS.items()
+                                        if n != called.get(k, 0)}
+    plan = ctx.compile(frames["q4"], target="spmd", parallel=world, device="cuda",
+                       optimize="cost", cache=PlanCache())
+    out["cost"] = {"strategy": dict(plan.strategy), "candidates": len(plan.decision.candidates),
+                   "result": _to_numpy(plan(srcs)[0])}
+
+    ex = ElasticExecutor(program_builder=lambda: frames["q6"].program("q6"),
+                         catalog=ctx.catalog(), cache=PlanCache())
+    out["elastic"] = []
+    for workers in SPMD_ELASTIC:
+        ex.on_resize(workers)
+        got = ex.run(srcs)
+        out["elastic"].append({"workers": workers, "target": ex._current[1].target,
+                               "hit": ex._current[1].cache_hit,
+                               "result": _to_numpy(got[0])})
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with inject("spmd.shard", times=1):
+            plan = ctx.compile(frames["q6"], target="spmd", parallel=world, device="cuda",
+                               cache=PlanCache())
+            got = plan(srcs)
+    out["fault"] = {"degraded": list(plan.degraded), "result": _to_numpy(got[0]),
+                    "warned": sum(issubclass(w.category, DegradedWarning) for w in caught)}
+
+    x = torch.from_numpy(np.load(workdir / "kmeans_x.npy")).to(mesh.device)
+    c = torch.from_numpy(np.load(workdir / "kmeans_c.npy")).to(mesh.device)
+    step = spmd.SpmdBackend(mesh).compile(
+        kmeans.program(KMEANS_N, KMEANS_D, KMEANS_K, parallel=world))
+    ops.reset_launches()
+    sums, counts = step({}, x, c)
+    out["kmeans"] = {"sums": sums.cpu().numpy(), "counts": counts.cpu().numpy(),
+                     "launches": ops.LAUNCHES["kmeans_step"],
+                     "routes": dict(ops.KMEANS_LAUNCHES)}
+    del x, c
+    sizes = list(spmd.SIZES)
+
+    # per query: the median of SPMD_REPS calls of the compiled plan, the
+    # card synchronised on every rank, then a barrier
+    out["ms"] = {}
+    for q, frame in frames.items():
+        plan = ctx.compile(frame, target="spmd", parallel=world, device="cuda")
+        plan(srcs)
+        times = []
+        for _ in range(SPMD_REPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            plan(srcs)
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["ms"][q] = statistics.median(times)
+
+    # each collective at the sizes the queries, the exchange and the k-means
+    # step gave it, once per (op, bytes): the median of 5, the card
+    # synchronised before each, a barrier between
+    comm = spmd.Collectives(mesh)
+    timed, out["collective_ms"] = set(), []
+    for op, shape, dtype, nbytes in sizes:
+        if (op, nbytes) in timed:
+            continue
+        timed.add((op, nbytes))
+        t = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
+        fn = {"all_reduce": lambda: comm.all_reduce(t, "sum"),
+              "all_gather": lambda: comm.all_gather(t),
+              "all_to_all": lambda: comm.all_to_all(t),
+              "broadcast": lambda: comm.broadcast(t, 0)}[op]
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["collective_ms"].append({"op": op, "shape": list(shape), "dtype": dtype,
+                                     "bytes": nbytes, "ms": statistics.median(times)})
+    out["cases_s"] = time.perf_counter() - t_main
+    dist.barrier()
+
+    # after the last collective: each kernel call of the path and of the
+    # exchange runs against its plain version (replays, not counted)
+    if rank == 0:
+        worst = {}
+        for i, (name, args, kw) in enumerate(captured + captured_x):
+            err = compare_outputs(f"spmd {name}#{i}", getattr(ops, name)(*args, **kw),
+                                  getattr(ref, name)(*args, **kw))
+            worst[name] = max(worst.get(name, 0.0), err)
+        out["replayed"] = {"calls": len(captured) + len(captured_x), "max_abs_err": worst}
+    out["rank_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _digest(result: dict) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(result):
+        a = np.ascontiguousarray(result[k])
+        h.update(k.encode() + str(a.dtype).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+def _close_to(what: str, got, want, rtol: float, keys=()) -> None:
+    """Integers exact, floats within ``rtol``, after ordering by ``keys``."""
+    import numpy as np
+
+    def order(d):
+        d = {k: np.asarray(v).ravel() for k, v in d.items()}
+        if not keys:
+            return d
+        o = np.lexsort([d[k] for k in reversed(keys)])
+        return {k: v[o] for k, v in d.items()}
+
+    got, want = order(got), order(want)
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what}.{k}: {g.dtype}{g.shape} vs {w.dtype}{w.shape}")
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=rtol, err_msg=f"{what}.{k}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}.{k}")
+
+
+def phase_spmd(tables, frames, reps: int, pool, smi: str) -> dict:
+    """The spmd and multipod targets: SPMD_RANKS rank processes (spawned)
+    sharing the card over a gloo group, each running the six queries with
+    ``target="spmd"`` and ``parallel=4`` (its kernels launched on its
+    chunk), then ``collectives=False``, Q1 and Q4 under the exchange, Q4
+    costed, Q6 through ``ElasticExecutor`` at 4 → 2 → 4 workers, Q6 under
+    an injected ``spmd.shard`` fault, and a k-means step.  Each answer is
+    held against numpy, the local run at ``parallel=4`` and the other
+    ranks'; each rank's launches against their routes.  Returns the ranks'
+    launches, to be added to the kernels line."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch import kmeans
+    from repro_torch.backends import spmd
+    from repro_torch.backends.local import LocalBackend
+    from repro_torch.relational import tpch
+
+    t_phase = time.perf_counter()
+    label = f"{SPMD_RANKS} ranks on one {smi}, gloo"
+    local, local_ms = {}, {}
+    for q, frame in frames.items():
+        local[q] = frame.collect(device="cuda", parallel=SPMD_RANKS)
+        plan = frame._ctx.compile(frame, parallel=SPMD_RANKS, device="cuda")
+        srcs = frame._ctx.sources("cuda")
+        local_ms[q] = run_ms(lambda: plan(srcs), "cuda", reps)
+    x, c = kmeans.make_data(KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_SEED)
+    local_step = LocalBackend(use_kernels=True, device="cuda").compile(
+        kmeans.program(KMEANS_N, KMEANS_D, KMEANS_K, parallel=SPMD_RANKS))({}, x, c)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        for t, cols in tables.items():
+            for name, v in cols.items():
+                np.save(work / f"{t}.{name}.npy", v)
+        (work / "columns.json").write_text(json.dumps({t: list(cols) for t, cols in tables.items()}))
+        np.save(work / "kmeans_x.npy", x)
+        np.save(work / "kmeans_c.npy", c)
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=_spmd_rank, args=(r, SPMD_RANKS, tmp))
+                 for r in range(SPMD_RANKS)]
+        t_ranks = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SPMD_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or any(codes):
+            raise AssertionError(f"spmd ranks exited {codes} ({len(hung)} killed)")
+        ranks_s = time.perf_counter() - t_ranks
+        ranks = [pickle.loads((work / f"rank{r}.pkl").read_bytes()) for r in range(SPMD_RANKS)]
+    r0 = ranks[0]
+
+    refused = sorted(op for op, ok in r0["probe"].items() if ok != "ok")
+    if refused:
+        raise AssertionError(f"gloo refuses {refused} on CUDA tensors, which backends/spmd.py "
+                             f"hands it as they are: {r0['probe']}")
+    log(f"spmd ({label}): gloo runs every collective on CUDA tensors "
+        f"{json.dumps(r0['probe'])}; host-staged by the backend: none (gloo copies "
+        "through the host itself)")
+
+    digests = set()
+    for r, rk in enumerate(ranks):
+        if rk["device"] != "cuda:0":
+            raise AssertionError(f"rank {r} computed on {rk['device']}")
+        for q in frames:
+            want = tpch.REFERENCES[q](tables)
+            check_query(f"spmd {q} rank {r}", rk["default"][q], want)
+            _close_to(f"spmd {q} rank {r} vs local", rk["default"][q], local[q], SPMD_RTOL,
+                      GROUP_KEYS.get(q, ()))
+            for k, v in local[q].items():  # folded in rank order: local's bits
+                if not np.array_equal(np.asarray(rk["nocoll"][q][k]), np.asarray(v)):
+                    raise AssertionError(f"spmd {q} collectives=False rank {r}: {k} differs "
+                                         "from local parallel=4")
+        for q, (got, took) in rk["exchange"].items():
+            check_query(f"spmd {q} exchange rank {r}", got, tpch.REFERENCES[q](tables))
+            _close_to(f"spmd {q} exchange rank {r} vs local", got, local[q], SPMD_RTOL,
+                      GROUP_KEYS.get(q, ()))
+            if "gsa_reg" not in took and "gsa_smem" not in took and "gsa_global" not in took:
+                raise AssertionError(f"spmd {q} exchange rank {r} ran no grouped kernel: {took}")
+        check_routes(f"spmd rank {r}", rk["launches"], rk["gen_launches"], rk["routes"])
+        for kname, queries in EXPECTED.items():
+            for q in queries:
+                if rk["per_query"][q][kname] < 1:
+                    raise AssertionError(f"spmd rank {r}: {q} did not launch {kname}")
+        digests.add(_digest({f"{part}/{q}/{k}": v for part in ("default", "nocoll")
+                             for q, d in rk[part].items() for k, v in d.items()}))
+        for e in rk["elastic"]:
+            check_query(f"elastic q6 at {e['workers']} rank {r}", e["result"],
+                        tpch.REFERENCES["q6"](tables))
+        if [(e["target"], e["hit"]) for e in rk["elastic"]] != [
+                ("multipod", False), ("multipod", False), ("multipod", True)]:
+            raise AssertionError(f"elastic rank {r}: {rk['elastic']}")
+        if not rk["fault"]["degraded"] or rk["fault"]["warned"] < 1:
+            raise AssertionError(f"spmd.shard rank {r}: {rk['fault']}")
+        check_query(f"spmd q6 after spmd.shard rank {r}", rk["fault"]["result"],
+                    tpch.REFERENCES["q6"](tables))
+        check_query(f"spmd q4 costed rank {r}", rk["cost"]["result"], tpch.REFERENCES["q4"](tables))
+        if rk["kmeans"]["routes"]["kms_tc"] != rk["kmeans"]["launches"] or not rk["kmeans"]["launches"]:
+            raise AssertionError(f"spmd k-means rank {r}: {rk['kmeans']}")
+    if len(digests) != 1:
+        raise AssertionError(f"the ranks' answers differ: {digests}")
+    ref = kmeans.reference_step(x, c, pool.map)
+    for r, rk in enumerate(ranks):
+        kmeans.check_step(f"spmd k-means step rank {r}", (rk["kmeans"]["sums"],
+                          rk["kmeans"]["counts"]), local_step, ref, STEP_RTOL)
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in TPCH_KERNELS}
+    launches["kmeans_step"] = sum(rk["kmeans"]["launches"] for rk in ranks)
+    log(f"spmd ({label}): six queries on every rank match numpy, the local run at "
+        f"parallel={SPMD_RANKS} (rtol {SPMD_RTOL}) and each other (one digest); "
+        f"collectives=False gives the local run's bits; Q1/Q4 under the exchange, Q4 costed "
+        f"({r0['cost']['strategy']} of {r0['cost']['candidates']}), Q6 elastic "
+        f"{[(e['workers'], e['target'], e['hit']) for e in r0['elastic']]}, Q6 after "
+        f"spmd.shard via {r0['fault']['degraded']} and the k-means step (tie-margin rule "
+        f"against the local step) hold")
+    log(f"spmd ({label}): launches per rank {json.dumps([rk['launches'] for rk in ranks])}; "
+        f"routes {json.dumps(r0['routes'])}; k-means {launches['kmeans_step']} launches on "
+        f"kms_tc; rank 0 replayed {r0['replayed']['calls']} kernel calls against their plain "
+        f"versions, max abs error {json.dumps(r0['replayed']['max_abs_err'])}")
+    for q in frames:
+        log(f"spmd {q} ({label}): median {r0['ms'][q]:.3f} ms over {SPMD_REPS} calls of the "
+            f"compiled plan (rank 0; ranks {[round(rk['ms'][q], 3) for rk in ranks]}); local "
+            f"parallel={SPMD_RANKS} {local_ms[q]:.3f} ms on the card alone; collectives a call "
+            f"{json.dumps(r0['calls'][q])}")
+    for q, called in r0["exchange_calls"].items():
+        log(f"spmd {q} under grouped-recombine=exchange ({label}): collectives a call "
+            f"{json.dumps(called)}")
+    by_op = {op: [] for op in spmd.OPS}
+    for row in r0["collective_ms"]:
+        by_op[row["op"]].append(row)
+    for op, rows in by_op.items():
+        rows.sort(key=lambda row: row["bytes"])
+        log(f"spmd collective {op} ({label}; median of 5 at each size the queries, the "
+            f"exchange and the k-means step gave it): " + ("; ".join(
+                f"{row['bytes']} B {row['dtype']}{tuple(row['shape'])} {row['ms']:.3f} ms"
+                for row in rows) or "issued by none of them"))
+    summary = {"label": label, "ms": {q: r0["ms"][q] for q in frames}, "local_ms": local_ms,
+               "calls": r0["calls"], "exchange_calls": r0["exchange_calls"],
+               "collective_ms": r0["collective_ms"],
+               "host_staged": [],
+               "setup_s": [rk["setup_s"] for rk in ranks],
+               "cases_s": [rk["cases_s"] for rk in ranks], "ranks_s": ranks_s,
+               "phase_s": time.perf_counter() - t_phase}
+    log("spmd: " + json.dumps(summary))
+    log(f"spmd phase took {summary['phase_s']:.1f} s (ranks {ranks_s:.1f} s: set-up "
+        f"{max(summary['setup_s']):.1f} s, cases {max(summary['cases_s']):.1f} s)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0)
@@ -2927,10 +3391,11 @@ def main() -> int:
         t0 = time.perf_counter()
         stream_launches = phase_stream(tables, ctx, frames, a.reps)
         log(f"stream phase took {time.perf_counter() - t0:.1f} s")
+        spmd_launches = phase_spmd(tables, frames, a.reps, pool, smi)
         fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches["flash_attention"])
-        for k, n in stream_launches.items():
+        for k, n in list(stream_launches.items()) + list(spmd_launches.items()):
             launches[k] += n
         captured += km_captured + seg_captured + fa_captured
         kernels = phase_kernels(captured, launches, pool)

@@ -48,6 +48,10 @@ class EvalCtx:
     #: ``key → [occurrences, rows_in, rows_out]``, the rows as 0-dim device
     #: tensors where they depend on the data (read back once, at the end)
     taps: Optional[Dict[str, List[Any]]] = None
+    #: the spmd backend's mesh (``launch.mesh.Mesh``) and the axis name of
+    #: the MeshExecute being run; ``None`` outside a mesh
+    mesh: Any = None
+    axis: Optional[str] = None
 
 
 def _on_device(ctx: EvalCtx, arr: Any) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The compile driver of the torch port, copied from ``repro.compiler``.
 
-* :mod:`~repro_torch.compiler.targets` — the ``local`` and ``interp``
-  targets, their lowering paths and the strategy ``Choice`` points
-  (``groupby`` direct | sorted, ``join`` hash | sorted, ``encode`` raw |
-  dict, ``fuse`` fused | unfused);
+* :mod:`~repro_torch.compiler.targets` — the ``local``, ``stream``,
+  ``spmd``, ``multipod`` and ``interp`` targets, their lowering paths and
+  the strategy ``Choice`` points (``groupby`` direct | sorted, ``join``
+  hash | sorted, ``encode`` raw | dict, ``fuse`` fused | unfused, and on
+  the mesh targets ``grouped-recombine`` gather | exchange);
 * :mod:`~repro_torch.compiler.driver` — ``compile()`` with per-pass
   records, the plan cache (``PlanCache``, ``PLAN_CACHE``), the
   ``optimize="cost"`` search, admission, the fallback ladder and the
@@ -25,7 +26,10 @@ The ``local`` target's fixed path runs, under ``DEFAULT_STRATEGY``
     → FuseSelectAgg, FuseSelectGroupAgg, FuseJoinGroupAgg, DeadCodeElimination
                                                    (fuse=fused only)
 
-and hands the program to the eager torch backend.
+and hands the program to the eager torch backend.  The ``spmd`` and
+``multipod`` targets add ``LowerToMesh`` (+ ``PushCombineIntoMesh`` under
+``collectives``) and the ``grouped-recombine`` choice, and hand the program
+to ``backends/spmd.py`` on a mesh of ``torch.distributed`` ranks.
 """
 
 from .cost import (  # noqa: F401

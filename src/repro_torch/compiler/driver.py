@@ -1,7 +1,8 @@
 """The compile driver of the torch port: one entry point for its targets.
 
 The port's copy of ``repro/compiler/driver.py`` for the ``local``,
-``stream`` and ``interp`` targets.  ``compile(program, catalog)`` looks up the registered
+``stream``, ``spmd``, ``multipod`` and ``interp`` targets.
+``compile(program, catalog)`` looks up the registered
 :class:`~repro_torch.compiler.targets.Target`, consults the plan cache
 (keyed by the target, the device as named, the alpha-invariant program
 fingerprint and the options), runs the target's lowering path with
@@ -541,14 +542,26 @@ def compile(program: Program, catalog: Any = None, *,
             memory_budget: Optional[int] = None,
             check: bool = True,
             stream_table: Optional[str] = None,
-            batch_rows: Optional[int] = None) -> CompileResult:
+            batch_rows: Optional[int] = None,
+            mesh: Any = None,
+            axis: str = "workers",
+            collectives: bool = True) -> CompileResult:
     """Compile a frontend CVM program for a registered target.
 
     ``target``: ``"local"`` (the torch backend on ``device``, ``cuda``
     unless given, resolved when the plan runs), ``"stream"`` (the local
-    path split for micro-batches, on ``device`` too) or ``"interp"`` (the
+    path split for micro-batches, on ``device`` too), ``"spmd"`` or
+    ``"multipod"`` (the local path lowered to the mesh flavor: call the plan
+    on every rank of ``mesh`` with the same sources) or ``"interp"`` (the
     numpy interpreter on the host).  ``parallel=n`` splits the sources into
     ``n`` chunks (the paper's parallelization rewrite).
+
+    ``mesh`` (a ``launch.mesh.Mesh``) is where an spmd plan runs; ``None``
+    builds one of ``parallel`` ranks over the initialised default process
+    group on ``device`` (none is needed for ``parallel`` None or 1), and a
+    shortfall of ranks raises ``ValueError`` here.  ``axis`` names the mesh
+    axis; ``collectives=False`` leaves every combine outside the mesh body
+    (gathered, then folded as ``local`` folds).
 
     ``cache``: ``None``/``True`` → the process-wide :data:`PLAN_CACHE`;
     ``False`` → no caching; a :class:`PlanCache` → that cache.
@@ -580,7 +593,8 @@ def compile(program: Program, catalog: Any = None, *,
     kw = dict(target=target, use_kernels=use_kernels, parallel=parallel,
               optimize=optimize, strategy=strategy, device=device, cache=cache,
               store=store, guard=guard, memory_budget=memory_budget, check=check,
-              stream_table=stream_table, batch_rows=batch_rows)
+              stream_table=stream_table, batch_rows=batch_rows, mesh=mesh, axis=axis,
+              collectives=collectives)
     if not tracer.enabled:
         return _compile_impl(program, catalog, **kw)
     with tracer.span(f"compile:{program.name}", cat="compile",
@@ -617,7 +631,8 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
                   cache: Union[None, bool, PlanCache], store: Any, guard: bool,
                   memory_budget: Optional[int], check: bool,
                   stream_table: Optional[str],
-                  batch_rows: Optional[int]) -> CompileResult:
+                  batch_rows: Optional[int], mesh: Any, axis: str,
+                  collectives: bool) -> CompileResult:
     if optimize not in (None, "cost"):
         raise ValueError(f"unknown optimize mode {optimize!r}; "
                          "expected None or 'cost'")
@@ -643,8 +658,16 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
         dev = str(torch.device("cuda" if device is None else device))
     opts = CompileOptions(parallel=parallel, use_kernels=use_kernels, catalog=catalog,
                           optimize=optimize, strategy=strat, memory_budget=memory_budget,
-                          device=dev, stream_table=stream_table, batch_rows=batch_rows)
+                          device=dev, stream_table=stream_table, batch_rows=batch_rows,
+                          axis=axis, collectives=collectives, mesh=mesh)
     _check_parallel_divides(program, opts)
+    _check_mesh_available(tgt, opts)
+    if tgt.needs_mesh and mesh is None:
+        # built here, not in the backend, so the plan-cache key holds its
+        # ranks, backend and device
+        from ..launch.mesh import make_mesh
+
+        opts = replace(opts, mesh=make_mesh((parallel or 1,), (axis,), device=dev))
 
     if cache is False:
         plan_cache: Optional[PlanCache] = None
@@ -1025,6 +1048,23 @@ def _check_parallel_divides(program: Program, opts: CompileOptions) -> None:
             f"parallel={opts.parallel} does not divide the padded capacity of "
             f"{listing}; pick a worker count that divides the capacities or "
             "adjust Context(pad_to=...)")
+
+
+def _check_mesh_available(tgt: Any, opts: CompileOptions) -> None:
+    """Mesh-backed targets fail at the driver, naming the shortfall, rather
+    than waiting in a rendezvous for ranks that never come."""
+    if not tgt.needs_mesh or opts.mesh is not None:
+        return
+    from ..launch.mesh import world_size
+
+    needed = opts.parallel or 1
+    available = world_size()
+    if needed > available:
+        raise ValueError(
+            f"target {tgt.name!r} needs a {needed}-rank mesh (one device process "
+            f"per rank) but only {available} rank(s) are running; pass mesh=... "
+            f"or start {needed} ranks (torchrun --nproc-per-node {needed}) and "
+            "init_process_group before compiling")
 
 
 def _check_flavors(program: Program, tgt: Any) -> None:

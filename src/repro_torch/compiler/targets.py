@@ -3,9 +3,11 @@
 The port's copy of ``repro/compiler/targets.py``, cut to the targets this
 package runs: ``local`` (the eager torch backend, on the card unless the
 caller names a device), ``stream`` (the local path split for micro-batched
-incremental execution, on the card too) and ``interp`` (the numpy
-reference interpreter, on the host).  Each registers a :class:`Target`
-declaring
+incremental execution, on the card too), ``spmd`` and ``multipod`` (the
+local path lowered to the mesh flavor, each rank of a
+``torch.distributed`` mesh running it on its chunk) and ``interp`` (the
+numpy reference interpreter, on the host).  Each registers a
+:class:`Target` declaring
 
   * its name,
   * the IR flavors its executables accept after lowering,
@@ -15,9 +17,8 @@ declaring
   * how to construct the backend object, and
   * what kind of source collections its executables consume.
 
-The JAX package's ``spmd``, ``multipod`` and ``pjit`` targets are not
-ported: :func:`get_target` raises ``NotImplementedError`` naming
-the ROADMAP item that brings each.
+The JAX package's ``pjit`` target is not ported: :func:`get_target`
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -31,15 +32,19 @@ from ..core.passes import (
     FuseJoinGroupAgg,
     FuseSelectAgg,
     FuseSelectGroupAgg,
+    LowerToMesh,
     Parallelize,
+    PushCombineIntoMesh,
+    PushGroupedCombineIntoMesh,
 )
 from ..core.passes.lower_vec import Catalog, LowerRelToVec
 
 __all__ = [
     "CompileOptions", "Stage", "StrategyStage", "Choice", "Target",
     "register_target", "get_target", "available_targets",
-    "CANONICALIZE", "PARALLELIZE", "FUSE", "FUSE_CHOICE", "GROUPBY_CHOICE",
-    "JOIN_CHOICE", "ENCODE_CHOICE", "DEFAULT_STRATEGY", "TARGETS_LATER",
+    "CANONICALIZE", "PARALLELIZE", "FUSE", "LOWER_TO_MESH", "FUSE_CHOICE",
+    "GROUPED_RECOMBINE", "GROUPBY_CHOICE", "JOIN_CHOICE", "ENCODE_CHOICE",
+    "DEFAULT_STRATEGY", "TARGETS_LATER",
 ]
 
 #: the strategy the ``local`` target binds where the caller names none (the
@@ -60,7 +65,13 @@ class CompileOptions:
 
     parallel: Optional[int] = None
     use_kernels: bool = True
+    #: the mesh axis the spmd targets lower ``cf.ConcurrentExecute`` onto
+    axis: str = "workers"
+    #: spmd targets: pull combines into the mesh body as collectives
+    collectives: bool = True
     catalog: Optional[Catalog] = None
+    #: spmd targets: the ``launch.mesh.Mesh`` of ranks the plan runs on
+    mesh: Any = None
     #: None → fixed default lowering path; "cost" → enumerate the target's
     #: Choice points and pick the cheapest candidate under the cost model
     optimize: Optional[str] = None
@@ -92,8 +103,12 @@ class CompileOptions:
                    self.catalog.default_max_groups,
                    self.catalog.join_selectivity,
                    stats.cache_key() if stats is not None else None)
-        return (self.parallel, self.use_kernels, cat, self.optimize, self.strategy,
-                self.memory_budget, self.stream_table, self.batch_rows)
+        # the mesh's ranks, backend and device are part of the plan: an
+        # equally shaped mesh over other ranks must not reuse it
+        mesh_key = self.mesh.key() if self.mesh is not None else None
+        return (self.parallel, self.use_kernels, self.axis, self.collectives, cat,
+                mesh_key, self.optimize, self.strategy, self.memory_budget,
+                self.stream_table, self.batch_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +151,17 @@ def _fuse(opts: CompileOptions) -> Sequence[Any]:
     return [FuseSelectAgg(), FuseSelectGroupAgg(), FuseJoinGroupAgg(), DeadCodeElimination()]
 
 
+def _lower_to_mesh(opts: CompileOptions) -> Sequence[Any]:
+    rules: list = [LowerToMesh(opts.axis)]
+    if opts.collectives:
+        rules.append(PushCombineIntoMesh())
+    return rules
+
+
 CANONICALIZE = Stage("canonicalize", _canonicalize)
 PARALLELIZE = Stage("parallelize", _parallelize)
 FUSE = Stage("fuse", _fuse)
+LOWER_TO_MESH = Stage("lower-to-mesh", _lower_to_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +277,21 @@ FUSE_CHOICE = Choice(
     default=DEFAULT_STRATEGY["fuse"],
 )
 
+_GROUPED_GATHER = Stage("grouped-gather", lambda opts: [])
+_GROUPED_EXCHANGE = Stage(
+    "grouped-exchange", lambda opts: [PushGroupedCombineIntoMesh()])
+
+#: grouped recombine after a MeshExecute: gather-then-aggregate (cheap at
+#: low group cardinality) vs mesh.ExchangeByKey + per-rank aggregation
+#: (wins when the partial-aggregate gather would swamp one rank)
+GROUPED_RECOMBINE = Choice(
+    name="grouped-recombine",
+    variants=(("gather", _GROUPED_GATHER), ("exchange", _GROUPED_EXCHANGE)),
+    default="gather",
+    available=lambda opts: (("gather", "exchange") if opts.collectives
+                            else ("gather",)),
+)
+
 
 # ---------------------------------------------------------------------------
 # targets
@@ -269,6 +307,8 @@ class Target:
     lowering_path: Tuple[Any, ...]  # Stage | Choice
     make_backend: Callable[[CompileOptions], Any]
     source_kind: str = "vec"  # "vec" (VecTable sources) | "numpy" (raw columns)
+    #: the backend runs on a mesh of ranks (``CompileOptions.mesh``)
+    needs_mesh: bool = False
     #: the backend executes micro-batched incremental plans: compiles
     #: require ``stream_table=`` and lower the stream scan at batch capacity
     streaming: bool = False
@@ -281,8 +321,6 @@ _TARGETS: Dict[str, Target] = {}
 
 #: the JAX package's other targets, and the ROADMAP item that brings each
 TARGETS_LATER = {
-    "spmd": "ROADMAP Queue 1 item 7: SPMD and multipod",
-    "multipod": "ROADMAP Queue 1 item 7: SPMD and multipod",
     "pjit": "ROADMAP Queue 1 item 8: the LM substrate's training",
 }
 
@@ -362,4 +400,40 @@ register_target(Target(
     make_backend=_make_stream,
     source_kind="vec",
     streaming=True,
+))
+
+
+def _make_spmd(opts: CompileOptions) -> Any:
+    from ..backends.spmd import SpmdBackend
+    # the driver built the mesh (from ``parallel`` where none was given);
+    # rewrite=False: it also ran LowerToMesh/PushCombineIntoMesh as
+    # registered pipeline stages
+    return SpmdBackend(opts.mesh, axis=opts.axis, use_kernels=opts.use_kernels,
+                       collectives=opts.collectives, rewrite=False)
+
+
+# The SPMD (Modularis-analogue) target: the local lowering path — its
+# Choices at the port's defaults — then the mesh rules; every rank of the
+# mesh runs the plan on its chunk.
+register_target(Target(
+    name="spmd",
+    flavors=("vec", "cf", "rel", "la", "mesh"),
+    lowering_path=(CANONICALIZE, PARALLELIZE, GROUPBY_CHOICE, JOIN_CHOICE,
+                   ENCODE_CHOICE, FUSE_CHOICE, LOWER_TO_MESH, GROUPED_RECOMBINE),
+    make_backend=_make_spmd,
+    source_kind="vec",
+    needs_mesh=True,
+))
+
+# The multipod (Lambada-analogue) target shares the SPMD lowering path; the
+# elastic facade (ElasticExecutor) re-enters the driver per worker count and
+# relies on the structural plan cache instead of its own plan table.
+register_target(Target(
+    name="multipod",
+    flavors=("vec", "cf", "rel", "la", "mesh"),
+    lowering_path=(CANONICALIZE, PARALLELIZE, GROUPBY_CHOICE, JOIN_CHOICE,
+                   ENCODE_CHOICE, FUSE_CHOICE, LOWER_TO_MESH, GROUPED_RECOMBINE),
+    make_backend=_make_spmd,
+    source_kind="vec",
+    needs_mesh=True,
 ))

@@ -5,6 +5,7 @@
   * ``rel.*``  relational flavor (Select/Proj/ExProj/Aggr/Join/...)
   * ``vec.*``  physical vector flavor (ScanVec/GroupAggDirect/...)
   * ``la.*``   linear-algebra flavor (CDist2/ArgMinRow/SegSum/KMeansStep/...)
+  * ``mesh.*`` SPMD mesh backend flavor (MeshExecute/AllReduce/Exchange/...)
 """
 
-from . import controlflow, dataflow, linalg, relational, vec  # noqa: F401
+from . import controlflow, dataflow, linalg, mesh, relational, vec  # noqa: F401

@@ -14,3 +14,6 @@ from .fusion import (  # noqa: F401
 )
 from .parallelize import Parallelize  # noqa: F401
 from .lower_vec import Catalog, LowerRelToVec  # noqa: F401
+from .mesh_lower import (  # noqa: F401
+    LowerToMesh, PushCombineIntoMesh, PushGroupedCombineIntoMesh,
+)

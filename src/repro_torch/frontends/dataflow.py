@@ -177,19 +177,23 @@ class Frame:
                 optimize: Optional[str] = None, strategy: Any = None,
                 device: Any = None, cache: Any = None, target: str = "local",
                 store: Any = None, memory_budget: Optional[int] = None,
-                guard: bool = True) -> Dict[str, np.ndarray]:
+                guard: bool = True, mesh: Any = None,
+                collectives: bool = True) -> Dict[str, np.ndarray]:
         """Compile (through the plan cache) and run on ``device`` (``cuda``
         unless given; ``"cpu"`` runs the kernels' plain versions).
         Defaults: ``use_kernels=True`` and the strategy ``groupby=direct,
         join=hash, encode=raw, fuse=fused`` (the JAX package defaults to
         the sorted tiers and no kernels); ``parallel=n`` splits the tables
         into ``n`` chunks; ``optimize="cost"`` picks the strategy by cost.
-        ``target="interp"`` runs the numpy interpreter on the host."""
+        ``target="interp"`` runs the numpy interpreter on the host;
+        ``target="spmd"`` (or ``"multipod"``) runs on every rank of ``mesh``
+        (by default ``parallel`` ranks of the default process group), each
+        rank calling ``collect`` alike and receiving the whole answer."""
         return self._ctx.execute(self, parallel=parallel, use_kernels=use_kernels,
                                  optimize=optimize, strategy=strategy,
                                  device=device, cache=cache, target=target,
                                  store=store, memory_budget=memory_budget,
-                                 guard=guard)
+                                 guard=guard, mesh=mesh, collectives=collectives)
 
 
 class GroupBy:
@@ -300,12 +304,14 @@ class Context:
                 target: str = "local", store: Any = None,
                 memory_budget: Optional[int] = None, guard: bool = True,
                 stream_table: Optional[str] = None,
-                batch_rows: Optional[int] = None):
+                batch_rows: Optional[int] = None, mesh: Any = None,
+                collectives: bool = True):
         """Lower ``frame`` through this package's driver and its plan cache
         (``cache``: ``None`` the process-wide one, ``False`` none, or a
         ``PlanCache``); ``optimize``, ``store``, ``memory_budget``,
-        ``guard`` and, for ``target="stream"``, ``stream_table`` and
-        ``batch_rows`` as ``repro_torch.compiler.compile`` takes them.
+        ``guard``, for ``target="stream"`` ``stream_table`` and
+        ``batch_rows``, and for ``target="spmd"``/``"multipod"`` ``mesh`` and
+        ``collectives`` as ``repro_torch.compiler.compile`` takes them.
 
         Defaults: strategy ``groupby=direct, join=hash, encode=raw,
         fuse=fused``, sequential unless ``parallel`` > 1,
@@ -319,7 +325,8 @@ class Context:
                            use_kernels=use_kernels, parallel=parallel,
                            optimize=optimize, strategy=strategy, device=device,
                            cache=cache, store=store, memory_budget=memory_budget,
-                           guard=guard, stream_table=stream_table, batch_rows=batch_rows)
+                           guard=guard, stream_table=stream_table, batch_rows=batch_rows,
+                           mesh=mesh, collectives=collectives)
 
     def _physical_columns(self, name: str) -> Dict[str, np.ndarray]:
         """Columns in their physical dtypes: string columns become i32
@@ -357,16 +364,27 @@ class Context:
                 cache: Any = None, target: str = "local", store: Any = None,
                 memory_budget: Optional[int] = None,
                 guard: bool = True, stream_table: Optional[str] = None,
-                batch_rows: Optional[int] = None) -> Dict[str, np.ndarray]:
+                batch_rows: Optional[int] = None, mesh: Any = None,
+                collectives: bool = True) -> Dict[str, np.ndarray]:
         from ..compiler import get_target
 
         compiled = self.compile(frame, parallel=parallel, use_kernels=use_kernels,
                                 optimize=optimize, strategy=strategy, device=device,
                                 cache=cache, target=target, store=store,
                                 memory_budget=memory_budget, guard=guard,
-                                stream_table=stream_table, batch_rows=batch_rows)
-        src = (self.tables if get_target(target).source_kind == "numpy"
-               else self.sources(device))
+                                stream_table=stream_table, batch_rows=batch_rows,
+                                mesh=mesh, collectives=collectives)
+        tgt = get_target(target)
+        if tgt.source_kind == "numpy":
+            src = self.tables
+        elif tgt.needs_mesh:
+            # this rank's device (cuda:LOCAL_RANK on a host of several cards)
+            from ..launch.mesh import resolve_rank_device
+
+            src = self.sources(mesh.device if mesh is not None
+                               else resolve_rank_device(device))
+        else:
+            src = self.sources(device)
         (out,) = compiled(src)
         return self._decode_output(frame, _to_numpy(out))
 

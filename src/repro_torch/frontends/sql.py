@@ -248,10 +248,11 @@ def query(ctx: Context, sql: str, target: str = "local",
           parallel: Optional[int] = None, optimize: Optional[str] = None,
           device: Any = None):
     """Parse + execute through the port's compile driver: ``target``
-    ``"local"`` on ``device`` (``cuda`` unless given) or ``"interp"`` (the
-    numpy interpreter on the host); ``optimize="cost"`` lets the driver
-    choose between the target's physical lowerings by the context's table
-    statistics.  The JAX package's other targets raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    ``"local"`` on ``device`` (``cuda`` unless given), ``"spmd"`` or
+    ``"multipod"`` (on every rank of a mesh of ``parallel`` ranks) or
+    ``"interp"`` (the numpy interpreter on the host); ``optimize="cost"``
+    lets the driver choose between the target's physical lowerings by the
+    context's table statistics.  ``"pjit"`` raises
+    ``NotImplementedError`` naming its ROADMAP item."""
     return parse(sql, ctx).collect(target=target, parallel=parallel,
                                    optimize=optimize, device=device)

@@ -3,9 +3,8 @@
 The port's copy of ``repro/robust/inject.py``.  A small registry of *named
 injection points* is wired into the port where its failures surface: the
 driver's pass loop, PlanStore I/O, backend compile, (first) execution,
-the serve wave step, and the stream consumer's batch, snapshot and
-restore.  The JAX package's ``spmd.shard`` point waits for the target that
-owns it (ROADMAP Queue 1 item 7).
+the serve wave step, the stream consumer's batch, snapshot and restore,
+and each rank's program evaluation in the spmd backend.
 Each wired site costs one module-level list check when no fault is armed —
 the hot path stays free.
 
@@ -98,7 +97,12 @@ register_point(
 register_point(
     "backend.execute", ("raise", "delay"),
     "compiler/driver.py CompileResult.__call__: executable dispatch (the "
-    "local and interp backends route through it)")
+    "local, stream, spmd and interp backends route through it)")
+register_point(
+    "spmd.shard", ("raise", "delay"),
+    "backends/spmd.py evaluate_spmd_program: each rank's evaluation of the "
+    "plan and of each MeshExecute body (fires at the first call's start, "
+    "before any collective)")
 register_point(
     "serve.step", ("raise", "delay"),
     "launch/serve.py serve_loop: before each decode wave (slow-step / "

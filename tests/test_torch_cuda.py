@@ -789,3 +789,116 @@ def test_stream_fold_on_card_matches_cpu(card, q):
             np.testing.assert_allclose(outs[card][k], want, rtol=1e-4, err_msg=k)
         else:
             np.testing.assert_array_equal(outs[card][k], want, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the spmd target: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: two ranks on ``cuda:0`` over gloo: Q1 and Q6 at sf=0.01 under both
+#: grouped recombines, and one ``mesh.ExchangeByKey`` of a seeded table
+#: against the numpy partition (each rank checks its own block)
+SPMD_CARD_SCRIPT = '''
+import datetime, json, os
+import numpy as np
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method="file://" + os.environ["INIT_FILE"],
+                        rank=int(os.environ["RANK"]),
+                        world_size=int(os.environ["WORLD_SIZE"]),
+                        timeout=datetime.timedelta(seconds=120))
+
+from repro_torch.backends import spmd
+from repro_torch.convert import vectable_from_arrays
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.relational import tpch
+
+rank, n_ranks = dist.get_rank(), dist.get_world_size()
+ctx = tpch.make_context(tpch.generate(sf=0.01, seed=0))
+out = {"launches": {}}
+for q in ("q1", "q6"):
+    for label in ("gather", "exchange"):
+        ops.reset_launches()
+        got = tpch.QUERIES[q](ctx).collect(target="spmd", parallel=n_ranks,
+                                           strategy={"grouped-recombine": label})
+        out[q + "/" + label] = {k: np.asarray(v).ravel().tolist() for k, v in got.items()}
+        out["launches"][q + "/" + label] = dict(ops.LAUNCHES)
+
+mesh = make_mesh((n_ranks,), ("workers",))
+rng = np.random.default_rng(3)
+n = 4096
+keys = [rng.integers(-50, 1000, n).astype(np.int32) for _ in range(n_ranks)]
+xs = [rng.normal(size=n).astype(np.float32) for _ in range(n_ranks)]
+valid = [rng.random(n) < 0.8 for _ in range(n_ranks)]
+got = spmd.exchange_by_key(spmd.Collectives(mesh), vectable_from_arrays(
+    {"k": keys[rank], "x": xs[rank]}, valid[rank], device=mesh.device), "k", n_ranks, 2.0)
+per = n
+want_k, want_x, want_v = [], [], []
+for j in range(n_ranks):
+    mine = valid[j] & ((keys[j].astype(np.int64) & 0xFFFFFFFF) % n_ranks == rank)
+    k, x = keys[j][mine][:per], xs[j][mine][:per]
+    pad = per - len(k)
+    want_k.append(np.concatenate([k, np.zeros(pad, np.int32)]))
+    want_x.append(np.concatenate([x, np.zeros(pad, np.float32)]))
+    want_v.append(np.arange(per) < len(k))
+out["exchange_device"] = str(got.valid.device)
+out["exchange_ok"] = bool(
+    np.array_equal(got.cols["k"].cpu().numpy(), np.concatenate(want_k))
+    and np.array_equal(got.cols["x"].cpu().numpy(), np.concatenate(want_x))
+    and np.array_equal(got.valid.cpu().numpy(), np.concatenate(want_v)))
+out["calls"] = dict(spmd.CALLS)
+print("RESULTS" + json.dumps(out))
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def spmd_on_card(tmp_path_factory):
+    """Two rank processes sharing the card over gloo, once per module."""
+    import json
+    import os
+    from pathlib import Path
+
+    from repro_torch.launch.hermetic import run_ranks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (no CUDA device is visible)")
+    root = Path(__file__).resolve().parents[1]
+    passed = {k: os.environ[k] for k in ("CUDA_HOME", "LD_LIBRARY_PATH",
+                                         "REPRO_TORCH_BUILD_DIR") if k in os.environ}
+    ranks = run_ranks(SPMD_CARD_SCRIPT, 2, tmp_path_factory.mktemp("spmd_card"), root,
+                      timeout=600, **passed)
+    for r, (rc, _, err) in enumerate(ranks):
+        assert rc == 0, f"rank {r} exited {rc}:\n{err[-4000:]}"
+    line = [ln for ln in ranks[0][1].splitlines() if ln.startswith("RESULTS")][0]
+    return json.loads(line[len("RESULTS"):])
+
+
+@pytest.mark.parametrize("label", ["gather", "exchange"])
+@pytest.mark.parametrize("q", ["q1", "q6"])
+def test_spmd_two_ranks_on_one_card_match_numpy(spmd_on_card, q, label):
+    """Q1 and Q6 at sf=0.01 across two ranks on ``cuda:0`` answer as numpy
+    does, each rank launching its query's kernel on its chunk."""
+    keys = ("l_returnflag", "l_linestatus") if q == "q1" else ()
+    got = spmd_on_card[f"{q}/{label}"]
+    want = tpch.REFERENCES[q](tpch.generate(sf=0.01, seed=0))
+    order_g = np.lexsort([np.asarray(got[k]) for k in reversed(keys)]) if keys else [0]
+    order_w = np.lexsort([want[k] for k in reversed(keys)]) if keys else [0]
+    for k, w in want.items():
+        g, w = np.asarray(got[k])[order_g], np.asarray(w).ravel()[order_w]
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=2e-4, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+    kname = "grouped_select_agg" if q == "q1" else "fused_select_agg"
+    assert spmd_on_card["launches"][f"{q}/{label}"][kname] >= 1
+
+
+def test_exchange_by_key_on_card_matches_numpy_partition(spmd_on_card):
+    """Each rank's block of an exchange on the card is the numpy partition:
+    key mod 2 as uint32, the rows of each source rank in their order."""
+    assert spmd_on_card["exchange_device"].startswith("cuda")
+    assert spmd_on_card["exchange_ok"]
+    assert spmd_on_card["calls"]["all_to_all"] >= 2

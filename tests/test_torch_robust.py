@@ -105,11 +105,12 @@ class TestInjectionRegistry:
         assert sorted(points) == sorted(["driver.pass", "store.load", "store.save",
                                          "backend.compile", "backend.execute",
                                          "serve.step", "stream.batch",
-                                         "stream.snapshot", "stream.restore"])
+                                         "stream.snapshot", "stream.restore",
+                                         "spmd.shard"])
 
     def test_unknown_point_and_mode_rejected(self):
         with pytest.raises(KeyError, match="unknown injection point"):
-            with inject("spmd.shard"):
+            with inject("pjit.step"):
                 pass
         with pytest.raises(ValueError, match="modes"):
             with inject("backend.compile", mode="corrupt"):

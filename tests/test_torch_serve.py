@@ -103,11 +103,12 @@ def test_request_latency_is_observed_per_served_request():
 
 
 def test_only_the_serve_step_point_is_registered():
-    """The serve step, the compile driver's five points and the stream
-    consumer's three are wired; the JAX package's spmd point waits for its
-    target."""
+    """The serve step, the compile driver's five points, the stream
+    consumer's three and the spmd backend's one are wired, as in the JAX
+    package."""
     points = {name: p.modes for name, p in registered_points().items()}
     assert points == {"serve.step": ("raise", "delay"),
+                      "spmd.shard": ("raise", "delay"),
                       "stream.batch": ("raise", "delay"),
                       "stream.snapshot": ("raise", "delay"),
                       "stream.restore": ("raise", "delay"),
@@ -117,7 +118,7 @@ def test_only_the_serve_step_point_is_registered():
                       "backend.compile": ("raise", "delay"),
                       "backend.execute": ("raise", "delay")}
     with pytest.raises(KeyError):
-        with inject("spmd.shard"):
+        with inject("pjit.step"):
             pass
     with pytest.raises(ValueError):
         with inject("serve.step", mode="corrupt"):
