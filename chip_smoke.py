@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the torch port: TPC-H, k-means and serving Qwen2-1.5B
-through ``repro_torch`` on one GPU.
+"""On-card check of the torch port: TPC-H, k-means, serving and training
+Qwen2-1.5B through ``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -155,7 +155,28 @@ Phases, each printing its own lines:
    64 and 128, a non-default scale), each with its share of the bound and,
    in bf16, its distance from the tensor-core recipe
    (``ref.flash_attention_tiled``);
-19. each kernel against its plain version on the inputs the paths gave it,
+19. the training path (``models.api.make_train_step``: ``lm_loss`` with
+   the chunked CE loss, autograd through ``chunked_attention`` with remat,
+   AdamW): ``attention(mode="pallas")`` must refuse under grad; Qwen2-1.5B's
+   widths at depth 2 in f32 on the card against the same code in f64 on
+   the host (B = 1, S = 512: the loss to rtol 1e-5, each gradient leaf by
+   ‖Δ‖/‖g‖ ≤ 1e-3, TF32 off), ``remat=False`` against ``remat=True``
+   (1e-6) and ``microbatch=2`` against 1 on B = 2 (loss 1e-5, gradients
+   1e-4); then Qwen2-1.5B at full depth in bf16 (``model.init`` from seed
+   0, AdamW lr 3e-3, B = 4, S = 2048, ``loss_chunk`` 512, the batch
+   ``TokenPipeline(seed=0).batch_at(0)``), a warm-up step and 4 steps with
+   the launch counts set to 0 just before and read just after (training
+   launches none of the six kernels, as JAX's trainer launches no Pallas
+   kernel): the loss finite and below the first step's, every parameter
+   finite, step ms (median, synchronised), tokens/s, peak allocated GB
+   (above what earlier phases hold; then one more step's loss-and-gradient
+   part and AdamW update apart) and model-FLOPs share (6·N·tokens over
+   989 TFLOP/s), with the card's name
+   and power limit, and with ``--profile`` one step's device ms by the
+   top operators; last ``launch/train.py`` at depth 2 in bf16: 3 steps
+   with a checkpoint, the restored step-3 state the saved one bit for bit,
+   3 resumed steps whose losses are the uninterrupted run's (rtol 2^-7);
+20. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -165,7 +186,7 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-20. per-query latency (median over ``--reps`` after a warm-up, each run
+21. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -221,6 +242,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -255,6 +277,20 @@ PARALLEL = 4
 #: the serving path: Qwen2-1.5B at full width and depth, its traffic
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_CAP = 8, 4, 2048, 32, 2080
+#: the training path: Qwen2-1.5B at full width and depth, bf16, AdamW at the
+#: JAX launcher's lr, batches of tests/test_models_smoke.py's shape from
+#: TokenPipeline(seed=0).batch_at(0); a warm-up step, then TRAIN_STEPS
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 4, 2048, 3e-3, 4
+#: the card against the host: full width at depth 2 in f32 on the card and
+#: f64 on the host, one sequence of 512; loss rtol, gradient ‖Δ‖/‖g‖ (f32
+#: rounding gives about 2e-6; a TF32 or bf16 product gives 1e-4 or more)
+TRAIN_CHECK_DEPTH, TRAIN_CHECK_S = 2, 512
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-5
+#: on the card: remat off against on; microbatch 2 against 1 on B = 2
+REMAT_RTOL, MICRO_LOSS_RTOL, MICRO_GRAD_REL = 1e-6, 1e-5, 1e-4
+#: the launcher's bf16 resume against the uninterrupted run: loss rtol of
+#: two bf16 roundings (the embedding's gradient is added by atomics)
+RESUME_LOSS_RTOL = 2.0 ** -7
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -2135,6 +2171,234 @@ def phase_profile(workloads, captured) -> None:
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _rel_gap(got, want) -> float:
+    """‖got − want‖ / ‖want‖ of two tensors, in f64 on the host."""
+    from torch.linalg import vector_norm
+
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(vector_norm(g - w) / max(float(vector_norm(w)), 1e-300))
+
+
+def _grads_of(model, params, batch, microbatch: int = 1):
+    """(loss, gradient tree) of one ``make_train_step`` call: its optimizer
+    hands the gradients back as the new parameters."""
+    from repro_torch.models.api import make_train_step
+    from repro_torch.train.optimizer import Optimizer
+
+    step, opt = make_train_step(model, Optimizer(lambda p: {}, lambda g, st, p: (g, st)),
+                                microbatch=microbatch)
+    grads, _, met = step(params, {}, batch)
+    return met["loss"], grads
+
+
+def _gap_report(what: str, got, want, loss_rtol: float, grad_rel: float) -> dict:
+    """Hold a (loss, gradient tree) against another: the loss to
+    ``loss_rtol``, each leaf by ‖Δ‖/‖g‖ ≤ ``grad_rel``."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    (l1, g1), (l0, g0) = got, want
+    loss_gap = abs(float(l1) - float(l0)) / abs(float(l0))
+    gaps = [_rel_gap(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g0))]
+    log(f"train check {what}: loss {float(l1):.9g} against {float(l0):.9g} (rel "
+        f"{loss_gap:.3g}, rtol {loss_rtol:g}); gradients' largest ‖Δ‖/‖g‖ over "
+        f"{len(gaps)} leaves {max(gaps):.3g} (bound {grad_rel:g})")
+    if loss_gap > loss_rtol or max(gaps) > grad_rel:
+        raise AssertionError(f"train check {what} failed: loss rel {loss_gap:.3g}, "
+                             f"gradients {gaps}")
+    return {"loss_rel": loss_gap, "grad_rel_max": max(gaps)}
+
+
+def phase_train(smi: str, profile: bool) -> dict:
+    """The training path (``models.api.make_train_step``: ``lm_loss`` with
+    the chunked CE loss, autograd through ``chunked_attention`` with remat,
+    AdamW) on the card: the refusal of the kernel under grad; full width at
+    depth 2 against the same code in f64 on the host, remat and microbatch
+    equalities; Qwen2-1.5B at full depth in bf16 for a warm-up and
+    TRAIN_STEPS steps with the launch counts set to 0 just before and read
+    just after (training launches none of the six kernels, as JAX's trainer
+    launches no Pallas kernel); the launcher's bf16 resume."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.api import build_model, make_train_step, value_and_grad
+    from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    report: dict = {"card": smi}
+    # 1. the kernel is forward-only: under grad it refuses, on the card too
+    q = torch.randn(1, 2, 64, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    try:
+        ops.attention(q, q, q, mode="pallas")
+    except ValueError as e:
+        log(f"train: attention(mode=\"pallas\") under grad refuses on the card: {e}")
+    else:
+        raise AssertionError("attention(mode='pallas') under grad did not refuse on the card")
+
+    # 2. full width at depth 2: the card in f32 against the host in f64
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 card check needs full-f32 products")
+    base = get_config(SERVE_ARCH)
+    cfg2 = replace(base, n_layers=TRAIN_CHECK_DEPTH, dtype="float32")
+    model2 = build_model(cfg2)
+    p2 = model2.init(torch.Generator("cuda").manual_seed(0))
+
+    def batch_of(b, s, device):
+        got = TokenPipeline(vocab=base.vocab, seq_len=s, global_batch=b, seed=0).batch_at(0)
+        return {k: torch.from_numpy(v).to(device) for k, v in got.items()}
+
+    t0 = time.perf_counter()
+    card = _grads_of(model2, p2, batch_of(1, TRAIN_CHECK_S, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _grads_of(build_model(replace(cfg2, dtype="float64")),
+                     tree_map(lambda t: t.detach().double().cpu(), p2),
+                     batch_of(1, TRAIN_CHECK_S, "cpu"))
+    t_host = time.perf_counter() - t0
+    report["card_vs_host_f64"] = _gap_report(
+        f"card f32 vs host f64 ({cfg2.n_layers} layers at full width, B=1, "
+        f"S={TRAIN_CHECK_S}; card {t_card:.2f} s, host {t_host:.1f} s)",
+        card, host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL)
+    del host
+    report["remat"] = _gap_report(
+        "remat=False vs remat=True on the card",
+        _grads_of(build_model(replace(cfg2, remat=False)), p2,
+                  batch_of(1, TRAIN_CHECK_S, "cuda")),
+        card, REMAT_RTOL, REMAT_RTOL)
+    b2 = batch_of(2, TRAIN_CHECK_S, "cuda")
+    report["microbatch"] = _gap_report(
+        "microbatch=2 vs 1 on the card (B=2)", _grads_of(model2, p2, b2, microbatch=2),
+        _grads_of(model2, p2, b2, microbatch=1), MICRO_LOSS_RTOL, MICRO_GRAD_REL)
+    del card, p2, b2
+
+    # 3. Qwen2-1.5B at full depth, bf16; memory is counted above what the
+    # script already holds (earlier phases' tables, served parameters)
+    held = torch.cuda.memory_allocated()
+    model = build_model(base)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    step, opt = make_train_step(model, AdamW(lr=TRAIN_LR), microbatch=1)
+    state = opt.init(params)
+    batch = batch_of(TRAIN_B, TRAIN_S, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state_gb = sum(_bytes(t) for t in tree_leaves((params, state))) / 1e9
+    log(f"training {base.arch}: {n_params / 1e9:.4f} B parameters ({base.dtype}), "
+        f"parameters and AdamW state {state_gb:.3f} GB; B={TRAIN_B}, S={TRAIN_S}, "
+        f"loss_chunk {base.loss_chunk}, remat {base.remat}, lr {TRAIN_LR}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)  # warm-up: the first step
+    losses = [float(met["loss"])]
+    warm_s = time.perf_counter() - t0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if launches:
+        raise AssertionError(f"the training path launched {launches}")
+    log("train: the training path launched none of the six kernels (JAX's trainer runs "
+        "chunked_attention in plain jnp and no Pallas kernel)")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite or not below the first")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError("a parameter is not finite after training")
+    # one more step in its two parts, each part's peak apart
+    parts = {}
+
+    def part_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    (_, grads), parts["loss and gradients"] = part_peak(
+        lambda: value_and_grad(model.loss, params, batch))
+    _, parts["AdamW update"] = part_peak(lambda: opt.update(grads, state, params))
+    del grads, _
+    step_s = statistics.median(times)
+    tokens = TRAIN_B * TRAIN_S
+    model_flops = 6 * base.n_params() * tokens
+    report["qwen2_1_5b"] = {
+        "losses": losses, "warmup_s": warm_s, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_allocated_gb": peak / 1e9, "peak_gb_by_part": parts,
+        "held_by_earlier_phases_gb": held / 1e9, "model_flops": model_flops,
+        "model_flops_share": model_flops / step_s / PEAK_BF16_TC}
+    log(f"train ({smi}): {base.arch} {base.n_layers} layers bf16, B={TRAIN_B}×S={TRAIN_S}: "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms median of "
+        f"{TRAIN_STEPS} (synchronised; warm-up {warm_s:.2f} s), {tokens / step_s:.0f} tokens/s, "
+        f"peak allocated {peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB earlier phases hold "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in parts.items())}), model-FLOPs share "
+        f"{model_flops / step_s / PEAK_BF16_TC:.4f} (6·N·tokens = {model_flops:.4g} over "
+        f"989 TFLOP/s dense bf16)")
+    if profile:
+        from torch.profiler import ProfilerActivity
+
+        prof = _profiled(lambda: (step(params, state, batch), torch.cuda.synchronize()),
+                         [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        events = _device_events(prof)
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+        log(f"profile: one train step, device kernels {dev_ms:.3f} ms; top: " + json.dumps([
+            {"name": e.key[:70], "calls": e.count,
+             "device_ms": e.self_device_time_total / 1e3} for e in top]))
+    del params, state, batch, met
+
+    # 4. the launcher's resume in bf16, full width at depth 2
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--arch", base.arch, "--layers", str(TRAIN_CHECK_DEPTH), "--device", "cuda",
+                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_CHECK_S), "--lr", str(TRAIN_LR)]
+        t0 = time.perf_counter()
+        _, whole = train_mod.run(train_mod.parse_args(
+            common + ["--steps", "6", "--ckpt-every", "100", "--ckpt-dir", f"{tmp}/whole"]))
+        state3, first = train_mod.run(train_mod.parse_args(
+            common + ["--steps", "3", "--ckpt-every", "3", "--ckpt-dir", f"{tmp}/cut"]))
+        restored, extra = CheckpointManager(f"{tmp}/cut").restore(state3)
+        for a, b in zip(tree_leaves(restored), tree_leaves(state3)):
+            if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"the step-3 restore differs from the saved state "
+                                     f"({a.dtype} on {a.device} vs {b.dtype} on {b.device})")
+        dtypes = sorted({str(t.dtype) for t in tree_leaves(restored)})
+        del restored, state3
+        _, rest = train_mod.run(train_mod.parse_args(
+            common + ["--steps", "3", "--ckpt-every", "100", "--resume",
+                      "--ckpt-dir", f"{tmp}/cut"]))
+        gap = max(abs(a - b) / abs(b) for a, b in zip(first + rest, whole))
+        if extra != {"step": 3} or gap > RESUME_LOSS_RTOL:
+            raise AssertionError(f"resume: extra {extra}, losses {first + rest} against "
+                                 f"{whole}")
+        report["resume"] = {"losses": first + rest, "uninterrupted": whole, "max_rel_gap": gap}
+        log(f"train resume: {base.arch} at {TRAIN_CHECK_DEPTH} layers, bf16: the step-3 "
+            f"restore is the saved state bit for bit ({dtypes}); losses of 3 + 3 resumed "
+            f"steps {[round(x, 5) for x in first + rest]} against the uninterrupted "
+            f"{[round(x, 5) for x in whole]}, largest relative gap {gap:.3g} (rtol "
+            f"{RESUME_LOSS_RTOL:g}); {time.perf_counter() - t0:.1f} s")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"train phase took {report['phase_s']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # the compile driver: cost search, plan store, admission, the fallback
 # ladder, taps and feedback, control flow
 # ---------------------------------------------------------------------------
@@ -3393,6 +3657,7 @@ def main() -> int:
         log(f"stream phase took {time.perf_counter() - t0:.1f} s")
         spmd_launches = phase_spmd(tables, frames, a.reps, pool, smi)
         fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
+        train_report = phase_train(smi, a.profile)
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches["flash_attention"])
         for k, n in list(stream_launches.items()) + list(spmd_launches.items()):
@@ -3402,6 +3667,7 @@ def main() -> int:
     phase_queries(tables, frames, a.reps)
     report_kmeans(km_times)
     report_serve(serve_report)
+    log("training: " + json.dumps(train_report))
     if a.profile:
         phase_profile({
             "one pass over the six queries": lambda: [f.collect(device="cuda")

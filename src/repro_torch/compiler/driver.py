@@ -545,7 +545,9 @@ def compile(program: Program, catalog: Any = None, *,
             batch_rows: Optional[int] = None,
             mesh: Any = None,
             axis: str = "workers",
-            collectives: bool = True) -> CompileResult:
+            collectives: bool = True,
+            parallelize_targets: Optional[Sequence[str]] = None,
+            backend: Any = None) -> CompileResult:
     """Compile a frontend CVM program for a registered target.
 
     ``target``: ``"local"`` (the torch backend on ``device``, ``cuda``
@@ -588,13 +590,20 @@ def compile(program: Program, catalog: Any = None, *,
     (``target="stream"``): the named table is delivered as micro-batches
     of ``batch_rows`` rows and the executable folds them incrementally
     (see docs/streaming.md).
+
+    ``parallelize_targets`` names the registers the parallelization
+    rewrite splits (every absorbable source when ``None``); ``backend``
+    replaces the target's own backend object (the ``pjit`` target's
+    model-bound ``PjitBackend``), and such a compile bypasses the plan
+    cache.
     """
     tracer = get_tracer()
     kw = dict(target=target, use_kernels=use_kernels, parallel=parallel,
               optimize=optimize, strategy=strategy, device=device, cache=cache,
               store=store, guard=guard, memory_budget=memory_budget, check=check,
               stream_table=stream_table, batch_rows=batch_rows, mesh=mesh, axis=axis,
-              collectives=collectives)
+              collectives=collectives, parallelize_targets=parallelize_targets,
+              backend=backend)
     if not tracer.enabled:
         return _compile_impl(program, catalog, **kw)
     with tracer.span(f"compile:{program.name}", cat="compile",
@@ -632,7 +641,8 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
                   memory_budget: Optional[int], check: bool,
                   stream_table: Optional[str],
                   batch_rows: Optional[int], mesh: Any, axis: str,
-                  collectives: bool) -> CompileResult:
+                  collectives: bool, parallelize_targets: Optional[Sequence[str]],
+                  backend: Any) -> CompileResult:
     if optimize not in (None, "cost"):
         raise ValueError(f"unknown optimize mode {optimize!r}; "
                          "expected None or 'cost'")
@@ -659,7 +669,9 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
     opts = CompileOptions(parallel=parallel, use_kernels=use_kernels, catalog=catalog,
                           optimize=optimize, strategy=strat, memory_budget=memory_budget,
                           device=dev, stream_table=stream_table, batch_rows=batch_rows,
-                          axis=axis, collectives=collectives, mesh=mesh)
+                          axis=axis, collectives=collectives, mesh=mesh,
+                          parallelize_targets=(tuple(sorted(parallelize_targets))
+                                               if parallelize_targets else None))
     _check_parallel_divides(program, opts)
     _check_mesh_available(tgt, opts)
     if tgt.needs_mesh and mesh is None:
@@ -669,7 +681,9 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
 
         opts = replace(opts, mesh=make_mesh((parallel or 1,), (axis,), device=dev))
 
-    if cache is False:
+    # a compile with a caller's backend is never cached, as in the JAX
+    # driver (its ``use_cache``): the key does not hold the backend
+    if cache is False or backend is not None:
         plan_cache: Optional[PlanCache] = None
     elif cache is None or cache is True:
         plan_cache = PLAN_CACHE
@@ -696,18 +710,18 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
     attempt: Dict[str, Any] = {}
     try:
         result = _build_plan(program, tgt, opts, check, fp, stored,
-                             poison, plan_store, store_key, attempt)
+                             poison, plan_store, store_key, attempt, backend)
     except Exception as e:
         if not guard or not _walks(e, opts):
             raise
         result = _fallback_compile(program, tgt, opts, check, fp, e,
-                                   attempt, plan_store, store_key, poison)
+                                   attempt, plan_store, store_key, poison, backend)
     if plan_cache is not None:
         plan_cache.store(key, result)
     if guard:
         result._guard = _make_exec_guard(
             program, tgt, opts, check, fp, plan_store, store_key,
-            plan_cache, key)
+            plan_cache, key, backend)
     result._replan = _make_replan(program, tgt, opts, check, fp, plan_cache, key)
     return result
 
@@ -715,7 +729,7 @@ def _compile_impl(program: Program, catalog: Any, *, target: str,
 def _build_plan(program: Program, tgt: Any, opts: CompileOptions, check: bool,
                 fp: str, stored: Optional[Dict[str, Any]],
                 poison: Any, plan_store: Any, store_key: Optional[str],
-                attempt: Dict[str, Any]) -> CompileResult:
+                attempt: Dict[str, Any], backend: Any = None) -> CompileResult:
     """One compile attempt down a fixed or costed path.
 
     ``attempt`` is filled with the chosen strategy as soon as it is known,
@@ -750,7 +764,7 @@ def _build_plan(program: Program, tgt: Any, opts: CompileOptions, check: bool,
         # store replays are admitted here, before the backend allocates
         resources = admit(lowered, budget, name=program.name)
 
-    be = tgt.make_backend(opts)
+    be = backend if backend is not None else tgt.make_backend(opts)
     maybe_inject("backend.compile", target=tgt.name, program=program.name)
     t0 = time.perf_counter()
     with get_tracer().span(f"backend:{tgt.name}", cat="compile.backend"):
@@ -810,7 +824,7 @@ def _fallback_compile(program: Program, tgt: Any, opts: CompileOptions,
                       check: bool, fp: str,
                       error: BaseException, attempt: Dict[str, Any],
                       plan_store: Any, store_key: Optional[str],
-                      poison: Any) -> CompileResult:
+                      poison: Any, backend: Any = None) -> CompileResult:
     """Walk the fallback ladder after a compile-time plan failure."""
     chosen = dict(attempt.get("strategy") or ())
     if not chosen:
@@ -833,7 +847,7 @@ def _fallback_compile(program: Program, tgt: Any, opts: CompileOptions,
                 opts2 = replace(opts, strategy=tuple(sorted(forced.items())),
                                 optimize=None)
                 result = _build_plan(program, tgt, opts2, check, fp,
-                                     None, poison, plan_store, store_key, {})
+                                     None, poison, plan_store, store_key, {}, backend)
         except Exception as e:
             if not _walks(e, opts):
                 raise
@@ -851,7 +865,7 @@ def _fallback_compile(program: Program, tgt: Any, opts: CompileOptions,
 def _make_exec_guard(program: Program, tgt: Any, opts: CompileOptions,
                      check: bool, fp: str, plan_store: Any,
                      store_key: Optional[str],
-                     plan_cache: Optional[PlanCache], key: Tuple):
+                     plan_cache: Optional[PlanCache], key: Tuple, backend: Any = None):
     """The one-shot first-execution guard armed on guarded CompileResults.
 
     A plan that compiled fine can still die at its first call (a generated
@@ -886,7 +900,7 @@ def _make_exec_guard(program: Program, tgt: Any, opts: CompileOptions,
                                     strategy=tuple(sorted(forced.items())),
                                     optimize=None)
                     nxt = _build_plan(program, tgt, opts2, check,
-                                      fp, None, frozenset(), None, None, {})
+                                      fp, None, frozenset(), None, None, {}, backend)
                 out = nxt._dispatch(sources, *args)
             except Exception as e:
                 if not _walks(e, opts):

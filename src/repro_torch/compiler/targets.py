@@ -1,12 +1,15 @@
 """Backend target registry: declarative, flavor-aware lowering paths.
 
-The port's copy of ``repro/compiler/targets.py``, cut to the targets this
-package runs: ``local`` (the eager torch backend, on the card unless the
+The port's copy of ``repro/compiler/targets.py``, with all of its
+targets: ``local`` (the eager torch backend, on the card unless the
 caller names a device), ``stream`` (the local path split for micro-batched
 incremental execution, on the card too), ``spmd`` and ``multipod`` (the
 local path lowered to the mesh flavor, each rank of a
-``torch.distributed`` mesh running it on its chunk) and ``interp`` (the
-numpy reference interpreter, on the host).  Each registers a
+``torch.distributed`` mesh running it on its chunk), ``interp`` (the
+numpy reference interpreter, on the host) and ``pjit`` (the tensor
+frontend's train step: its plan, and with a model-bound
+``frontends.tensor.PjitBackend`` the step itself, on one device).  Each
+registers a
 :class:`Target` declaring
 
   * its name,
@@ -17,8 +20,9 @@ numpy reference interpreter, on the host).  Each registers a
   * how to construct the backend object, and
   * what kind of source collections its executables consume.
 
-The JAX package's ``pjit`` target is not ported: :func:`get_target`
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+A target of the JAX package listed in ``TARGETS_LATER`` would make
+:func:`get_target` raise ``NotImplementedError`` naming the ROADMAP item
+that brings it; none is left.
 """
 
 from __future__ import annotations
@@ -91,6 +95,9 @@ class CompileOptions:
     #: stream table is lowered at this capacity, so per-batch cost is
     #: O(batch), not O(full table)
     batch_rows: Optional[int] = None
+    #: the registers the parallelization rewrite seeds (None → every
+    #: absorbable source); the tensor frontend splits only the batch
+    parallelize_targets: Optional[Tuple[str, ...]] = None
 
     def stats(self):
         return self.catalog.stats if self.catalog is not None else None
@@ -108,7 +115,7 @@ class CompileOptions:
         mesh_key = self.mesh.key() if self.mesh is not None else None
         return (self.parallel, self.use_kernels, self.axis, self.collectives, cat,
                 mesh_key, self.optimize, self.strategy, self.memory_budget,
-                self.stream_table, self.batch_rows)
+                self.stream_table, self.batch_rows, self.parallelize_targets)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +150,8 @@ def _canonicalize(opts: CompileOptions) -> Sequence[Any]:
 
 def _parallelize(opts: CompileOptions) -> Sequence[Any]:
     if opts.parallel and opts.parallel > 1:
-        return [Parallelize(n=opts.parallel)]
+        targets = set(opts.parallelize_targets) if opts.parallelize_targets else None
+        return [Parallelize(n=opts.parallel, targets=targets)]
     return []
 
 
@@ -320,9 +328,7 @@ class Target:
 _TARGETS: Dict[str, Target] = {}
 
 #: the JAX package's other targets, and the ROADMAP item that brings each
-TARGETS_LATER = {
-    "pjit": "ROADMAP Queue 1 item 8: the LM substrate's training",
-}
+TARGETS_LATER: Dict[str, str] = {}
 
 
 def register_target(target: Target, overwrite: bool = False) -> Target:
@@ -436,4 +442,32 @@ register_target(Target(
     make_backend=_make_spmd,
     source_kind="vec",
     needs_mesh=True,
+))
+
+
+# The tensor frontend's pjit binding, as a registered target: the LM
+# trainer's planning rewrite (Alg. 1 → Alg. 2) is the parallelize stage of
+# an ordinary lowering path, and ``compile(plan, target="pjit")`` yields a
+# plan-summary executable; ``lower_to_pjit`` passes a model-bound
+# ``PjitBackend`` via ``backend=`` to get a runnable train step.
+
+def _tensor_parallelize(opts: CompileOptions) -> Sequence[Any]:
+    targets = set(opts.parallelize_targets) if opts.parallelize_targets else None
+    return [Parallelize(n=opts.parallel or 1, targets=targets)]
+
+
+TENSOR_PARALLELIZE = Stage("parallelize", _tensor_parallelize)
+
+
+def _make_pjit(opts: CompileOptions) -> Any:
+    from ..frontends.tensor import PjitBackend
+    return PjitBackend()  # plan-only unless a model binding is supplied
+
+
+register_target(Target(
+    name="pjit",
+    flavors=("tz", "cf", "mesh"),
+    lowering_path=(CANONICALIZE, TENSOR_PARALLELIZE),
+    make_backend=_make_pjit,
+    source_kind="numpy",
 ))

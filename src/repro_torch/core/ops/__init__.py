@@ -6,6 +6,7 @@
   * ``vec.*``  physical vector flavor (ScanVec/GroupAggDirect/...)
   * ``la.*``   linear-algebra flavor (CDist2/ArgMinRow/SegSum/KMeansStep/...)
   * ``mesh.*`` SPMD mesh backend flavor (MeshExecute/AllReduce/Exchange/...)
+  * ``tz.*``   tensor/step-pipeline flavor used by the LM stack
 """
 
-from . import controlflow, dataflow, linalg, mesh, relational, vec  # noqa: F401
+from . import controlflow, dataflow, linalg, mesh, relational, tensor, vec  # noqa: F401

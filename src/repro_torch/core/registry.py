@@ -112,4 +112,4 @@ def infer_output_types(
 
 def ensure_flavors_loaded() -> None:
     """Import the standard flavor modules (idempotent)."""
-    from .ops import controlflow, dataflow, linalg, mesh, relational, vec  # noqa: F401
+    from .ops import controlflow, dataflow, linalg, mesh, relational, tensor, vec  # noqa: F401

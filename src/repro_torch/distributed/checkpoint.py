@@ -21,7 +21,9 @@ Properties needed at 1000+ nodes:
   * **elastic reshard**: restore() takes the *target* tree structure and
     re-slices shards onto whatever shape the new job uses — a 2-shard
     checkpoint restores under a 1-shard manager and vice versa; a leaf
-    whose target is a torch tensor goes to that tensor's device;
+    whose target is a torch tensor goes to that tensor's device, a bf16
+    leaf as a bf16 tensor (the JAX package's restore hands back its raw
+    ``V2`` bits);
   * **integrity**: content hashes per shard, verified on load — a failed
     verification (or an unreadable manifest) quarantines the step directory
     (renamed ``step_<N>.corrupt``, matching the PlanStore idiom) and
@@ -89,20 +91,35 @@ def _unflatten(treedef: Any, leaves: List[Any]) -> Any:
     return build(treedef)
 
 
-def _host(leaf: Any) -> np.ndarray:
-    """A leaf as a host numpy array (torch tensors leave their device)."""
+def _host(leaf: Any) -> Tuple[np.ndarray, str]:
+    """A leaf as a host numpy array and the dtype name its manifest entry
+    records (torch tensors leave their device).  A bf16 tensor, which numpy
+    cannot hold without ``ml_dtypes``, is written as its 2-byte bits viewed
+    as ``V2``, named ``"bfloat16"``: the bytes and the name the JAX package
+    writes for a bf16 leaf."""
     if hasattr(leaf, "detach"):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        import torch
+
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _placed(arr: np.ndarray, target: Any) -> Any:
+def _placed(arr: np.ndarray, dtype: str, target: Any) -> Any:
     """A restored leaf where its target lives: on the target tensor's
-    device when the target is a torch tensor, else the numpy array."""
+    device when the target is a torch tensor (a ``"bfloat16"`` leaf's bits
+    as a bf16 tensor), else the numpy array as it was read."""
     if hasattr(target, "detach") and hasattr(target, "device"):
         import torch
 
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(target.device)
+        arr = np.asarray(arr, order="C")  # ascontiguousarray would make a 0-d leaf 1-d
+        if dtype == "bfloat16":
+            return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(target.device)
+        return torch.from_numpy(arr).to(target.device)
     return arr
 
 
@@ -126,9 +143,8 @@ class CheckpointManager:
                                     "n_shards": self.n_shards}
         shards: List[Dict[str, np.ndarray]] = [dict() for _ in range(self.n_shards)]
         for name, leaf in items:
-            arr = _host(leaf)
-            manifest["leaves"][name] = {"shape": list(arr.shape),
-                                        "dtype": str(arr.dtype)}
+            arr, dtype = _host(leaf)
+            manifest["leaves"][name] = {"shape": list(arr.shape), "dtype": dtype}
             if arr.ndim == 0 or arr.shape[0] < self.n_shards:
                 shards[0][name] = arr
                 manifest["leaves"][name]["shards"] = [0]
@@ -227,7 +243,7 @@ class CheckpointManager:
             want_shape = tuple(getattr(leaf, "shape", arr.shape))
             if tuple(arr.shape) != want_shape:
                 raise ValueError(f"{name}: checkpoint shape {arr.shape} != target {want_shape}")
-            leaves.append(_placed(arr, leaf))
+            leaves.append(_placed(arr, info["dtype"], leaf))
         return _unflatten(treedef, leaves), manifest["extra"]
 
     def _quarantine(self, d: Path, step: int, error: BaseException) -> None:

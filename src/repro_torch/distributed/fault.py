@@ -15,6 +15,12 @@ policy around them:
     from surviving hosts and the runner restores the last checkpoint onto
     the new topology (checkpointing is placement-agnostic; see
     ``checkpoint.CheckpointManager.restore``).
+
+A step on the card returns before the card has done its work, so a step's
+time is taken after its loss is read (or its device synchronised), and a
+fault of the card or of a kernel (:func:`repro_torch.errors.is_card_fault`)
+re-raises at once: a sticky CUDA error leaves the context unusable, so a
+restore would only fail again (the JAX runner retries every exception).
 """
 
 from __future__ import annotations
@@ -23,12 +29,21 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..errors import is_card_fault
 from ..robust.retry import StragglerDetector
 from .checkpoint import CheckpointManager
 
 
 class ElasticEvent(Exception):
     """Raised (by the platform layer) when the device set changed."""
+
+
+def _synchronize() -> None:
+    """Wait for the card, where this process has used one."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 @dataclass
@@ -69,7 +84,7 @@ class StepRunner:
                 retries += 1
                 if on_failure is not None:
                     on_failure(step, e)
-                if retries > self.max_retries:
+                if retries > self.max_retries or is_card_fault(e):
                     raise
                 latest = self.ckpt.latest_step()
                 if latest is not None:
@@ -77,13 +92,15 @@ class StepRunner:
                     step = int(extra.get("step", latest))
                 continue
             retries = 0
+            loss = None
+            if isinstance(metrics, dict) and "loss" in metrics:
+                loss = float(metrics["loss"])  # waits for the step's device
+            else:
+                _synchronize()
             dt = time.time() - t0
             straggler = detector.observe(dt)
             if straggler:
                 self.stragglers += 1
-            loss = None
-            if isinstance(metrics, dict) and "loss" in metrics:
-                loss = float(metrics["loss"])
             self.history.append(StepStats(step, dt, straggler, loss))
             state = tuple(new_state)
             step += 1

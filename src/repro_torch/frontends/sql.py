@@ -252,7 +252,6 @@ def query(ctx: Context, sql: str, target: str = "local",
     ``"multipod"`` (on every rank of a mesh of ``parallel`` ranks) or
     ``"interp"`` (the numpy interpreter on the host); ``optimize="cost"``
     lets the driver choose between the target's physical lowerings by the
-    context's table statistics.  ``"pjit"`` raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    context's table statistics."""
     return parse(sql, ctx).collect(target=target, parallel=parallel,
                                    optimize=optimize, device=device)

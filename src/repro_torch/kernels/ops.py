@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.expr import AggSpec, Expr
 from ..errors import DeviceMismatchError, KernelBuildError, KernelLaunchError, card_fault
@@ -626,7 +627,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D), k, v (B, Hkv, S, D), f32 or bf16 → (B, Hq, S, D) in q's dtype
     (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ {32, 64, 128}.  On the
     card bf16 runs on the tensor cores (its arithmetic is
-    ``ref.flash_attention_tiled``), f32 on the CUDA cores."""
+    ``ref.flash_attention_tiled``), f32 on the CUDA cores.  The kernel has
+    no backward, as the JAX kernel has none: under grad mode with q, k or
+    v requiring grad it raises on every device, rather than return an
+    output that carries no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention is forward-only, as the JAX kernel is (no "
+                         "backward): train with attn_mode=\"chunked\", or call it "
+                         "under torch.no_grad() / torch.inference_mode()")
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
     from .build import constant, entry
@@ -660,41 +668,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _attention_block(qf: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                     m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, k0: int,
+                     causal: bool, window: Optional[int]):
+    """One kv block of ``chunked_attention``'s online softmax: (m, l, acc)
+    after the keys ``ks`` and values ``vs`` that start at position ``k0``."""
+    s = qf.shape[-2]
+    s_blk = torch.matmul(qf, ks.float()[:, :, None].transpose(-1, -2))  # (b, hkv, g, s, bk)
+    qpos = torch.arange(s, device=qf.device)
+    kpos = torch.arange(k0, k0 + vs.shape[2], device=qf.device)
+    mask = torch.ones((s, kpos.shape[0]), dtype=torch.bool, device=qf.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s_blk = s_blk.masked_fill(~mask, ref.NEG)
+    m_new = torch.maximum(m, s_blk.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s_blk - m_new[..., None])
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.matmul(p.to(vs.dtype).float(),
+                                                    vs.float()[:, :, None])
+    return m_new, l_new, acc_new
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
-                      sm_scale: Optional[float] = None, block_k: int = 512) -> torch.Tensor:
-    """The JAX package's default attention in plain torch, forward only:
-    an online softmax over kv blocks of ``block_k`` (the last may be
-    shorter).  Products take the inputs as they are (q scaled in its own
-    dtype) and accumulate in f32, the weights go to v's dtype before the
-    second product, and m, l and acc stay f32."""
+                      sm_scale: Optional[float] = None, block_k: int = 512,
+                      policy: str = "remat") -> torch.Tensor:
+    """The JAX package's default attention in plain torch: an online
+    softmax over kv blocks of ``block_k`` (the last may be shorter).
+    Products take the inputs as they are (q scaled in its own dtype) and
+    accumulate in f32, the weights go to v's dtype before the second
+    product, and m, l and acc stay f32.  Differentiable by autograd; with
+    ``policy="remat"`` (JAX's default) each block runs under
+    ``torch.utils.checkpoint`` when a gradient is being recorded, so the
+    backward recomputes the block's logits and keeps O(S·D), not O(S²)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qf = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, hkv, group, s, d).float()
-    qpos = torch.arange(s, device=q.device)
     m = torch.full((b, hkv, group, s), ref.NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, group, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, group, s, d), dtype=torch.float32, device=q.device)
+    remat = (policy == "remat" and torch.is_grad_enabled()
+             and any(t.requires_grad for t in (q, k, v)))
     for k0 in range(0, s, min(block_k, s)):
-        ks = k[:, :, k0:k0 + block_k].float()[:, :, None]          # (b, hkv, 1, bk, d)
-        vs = v[:, :, k0:k0 + block_k]
-        s_blk = torch.matmul(qf, ks.transpose(-1, -2))              # (b, hkv, g, s, bk)
-        kpos = torch.arange(k0, k0 + vs.shape[2], device=q.device)
-        mask = torch.ones((s, kpos.shape[0]), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s_blk = s_blk.masked_fill(~mask, ref.NEG)
-        m_new = torch.maximum(m, s_blk.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s_blk - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.matmul(p.to(vs.dtype).float(),
-                                                    vs.float()[:, :, None])
-        m = m_new
+        blk = (qf, k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k], m, l, acc, k0,
+               causal, window)
+        if remat:
+            m, l, acc = checkpoint(_attention_block, *blk, use_reentrant=False)
+        else:
+            m, l, acc = _attention_block(*blk)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l[..., None]).reshape(b, hq, s, d).to(q.dtype)
 

@@ -1,19 +1,24 @@
 """Model API: config dataclass + family dispatch + step factories.
 
 The port's copy of ``repro/models/api.py``.  ``build_model(cfg)`` returns
-a ``Model`` facade with uniform entry points (init / prefill / decode /
-state init); the step factories make the functions the serve launcher
-calls.  Only the dense family is built; the loss and the train step
-(``Model.loss``, ``make_train_step``) wait for the training slice.
+a ``Model`` facade with uniform entry points (init / loss / prefill /
+decode / state init); the step factories make the functions the train and
+serve launchers call.  Only the dense family is built.
+
+``make_train_step`` takes gradients with ``torch.autograd.grad`` over
+detached copies of the parameter leaves and returns them as a tree (JAX's
+functional shape): nothing accumulates into ``.grad`` and the caller's
+tensors are left as they were.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..train.optimizer import AdamW, Optimizer, tree_leaves, tree_like, tree_map
 from . import lm
 
 
@@ -111,6 +116,7 @@ class ModelConfig:
 class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Any]
+    loss: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]
     prefill: Optional[Callable] = None
     decode: Optional[Callable] = None
     init_state: Optional[Callable] = None  # (batch, cap) → decode state
@@ -121,6 +127,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: lm.init_lm(cfg, gen),
+            loss=lambda p, b: lm.lm_loss(p, cfg, b),
             prefill=lambda p, b, cap: lm.prefill(
                 p, cfg, tokens=b.get("tokens"), embeds=b.get("embeds"),
                 cache_capacity=cap),
@@ -136,6 +143,68 @@ def build_model(cfg: ModelConfig) -> Model:
 # ---------------------------------------------------------------------------
 # step factories
 # ---------------------------------------------------------------------------
+
+
+def _microbatch_slices(batch: Dict[str, torch.Tensor], m: int) -> Dict[str, torch.Tensor]:
+    """Reshape each batch leaf to (m, b/m, ...); positions3 batches on dim 1."""
+    out = {}
+    for k, v in batch.items():
+        if k == "positions3":
+            b = v.shape[1]
+            out[k] = torch.movedim(v.reshape(3, m, b // m, *v.shape[2:]), 1, 0)
+        else:
+            out[k] = v.reshape(m, v.shape[0] // m, *v.shape[1:])
+    return out
+
+
+def value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor], params: Any, batch: Any):
+    """(loss, gradient tree) of ``loss_fn(params, batch)``, as
+    ``jax.value_and_grad`` gives them: each gradient in its parameter's
+    dtype, zeros where the loss does not reach a leaf."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_like(live, list(grads))
+
+
+def make_train_step(model: Model, optimizer: Optional[Optimizer] = None,
+                    microbatch: Optional[int] = None,
+                    grad_constraint: Optional[Callable[[Any], Any]] = None):
+    """Gradient-accumulation train step: ``(params, opt_state, batch) →
+    (params', opt_state', {"loss"})``.
+
+    ``microbatch`` m > 1 splits the global batch into m slices and
+    accumulates their gradients into f32 zeros, then divides by m, as JAX
+    does; with m ≤ 1 the gradients come in the parameters' dtype.
+    ``grad_constraint`` is JAX's sharding hook for the accumulator; the
+    port has no sharding yet, so only ``None`` is taken."""
+    if grad_constraint is not None:
+        raise NotImplementedError(
+            "grad_constraint shards the gradient accumulator: it waits for "
+            "models/sharding.py on torch.distributed (ROADMAP Queue 1 item 8.7)")
+    opt = optimizer or AdamW()
+    m = microbatch if microbatch is not None else model.cfg.microbatch
+
+    def train_step(params, opt_state, batch):
+        if m <= 1:
+            loss, grads = value_and_grad(model.loss, params, batch)
+        else:
+            slices = _microbatch_slices(batch, m)
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+            for i in range(m):
+                l, g = value_and_grad(model.loss, params, {k: v[i] for k, v in slices.items()})
+                tree_map(lambda acc, x: acc.add_(x), gsum, g)
+                lsum = lsum + l
+            grads = tree_map(lambda g: g / m, gsum)
+            loss = lsum / m
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, {"loss": loss}
+
+    return train_step, opt
 
 
 def make_serve_step(model: Model):

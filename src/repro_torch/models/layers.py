@@ -11,7 +11,7 @@ cross-attention wait for their families.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -175,8 +175,12 @@ def mlp_block(p: Params, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Ten
     return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
 
 
-def select_layer(tree: Union[Params, torch.Tensor], i: int):
-    """Layer ``i`` of a tree of stacked (L, ...) leaves, as views."""
+def unstack_layers(tree: Union[Params, torch.Tensor], n: int) -> List[Any]:
+    """The ``n`` layers of a tree of stacked (n, ...) leaves, as views made
+    by one ``torch.unbind`` per leaf.  Under autograd the backward of an
+    unbind stacks the layers' gradients once; indexing ``tree[i]`` per layer
+    would build a zero-filled gradient of the whole leaf for every layer."""
     if isinstance(tree, dict):
-        return {k: select_layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))

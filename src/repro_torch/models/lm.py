@@ -1,17 +1,22 @@
-"""Decoder-only transformer LM, dense family, forward and serving only.
+"""Decoder-only transformer LM, dense family: forward, loss and serving.
 
 The port's copy of ``repro/models/lm.py``.  Parameters are a dict shaped
 like the JAX tree, ``{"emb", "final_norm", "layers": {...}}``, with the
 per-layer leaves stacked on a leading ``L`` axis; the layer ``scan``
-becomes a Python loop over ``L`` that takes views of the stacked leaves.
-Remat has no counterpart in a forward pass (callers run under
-``torch.inference_mode()``).  The dense family has no auxiliary loss, so
-``forward`` returns the logits alone.  Decode carries an (L, B, Hkv, cap,
-D) KV cache and writes each step's keys and values into it in place (the
-JAX package returns a new cache; its serve step donates the old one).
+becomes a Python loop over ``L``.  The backbone takes the layers with one
+``torch.unbind`` per leaf (``layers.unstack_layers``); with ``cfg.remat``
+and a gradient being recorded, each layer (or each group of
+``cfg.remat_group`` layers, under JAX's conditions) runs under
+``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` around the scan
+body.  The dense family has no auxiliary loss, so ``forward`` returns the
+logits alone and ``lm_loss`` the chunked cross-entropy.  Decode carries
+an (L, B, Hkv, cap, D) KV cache and writes each step's keys and values
+into it in place (the JAX package returns a new cache; its serve step
+donates the old one).
 
 The logits are ``x.float() @ emb.float().T`` as in JAX: at Qwen2-1.5B's
-width that makes a 0.93 GB f32 copy of ``emb`` on every call.
+width that makes a 0.93 GB f32 copy of ``emb`` on every call (once per
+loss, shared by its chunks).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -54,10 +60,29 @@ def _layer_fwd(cfg, lp, x, positions):
     return h + L.mlp_block(lp["mlp"], z, cfg.mlp_type)
 
 
+def _layers_fwd(cfg, layers, x, positions):
+    for lp in layers:
+        x = _layer_fwd(cfg, lp, x, positions)
+    return x
+
+
 def backbone(params, cfg, x, positions):
-    """Run all layers. x: (B, S, D) → the final-normed hidden states."""
-    for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, L.select_layer(params["layers"], i), x, positions)
+    """Run all layers. x: (B, S, D) → the final-normed hidden states.
+
+    ``remat_group`` g > 1 checkpoints *groups* of g layers (when g divides
+    the depth and ``remat`` is on, as in JAX): only L/g boundary
+    activations are saved, each layer is still recomputed once."""
+    layers = L.unstack_layers(params["layers"], cfg.n_layers)
+    remat = cfg.remat and torch.is_grad_enabled()
+    g = cfg.remat_group
+    if g < 1 or cfg.n_layers % g or cfg.scan_unroll:
+        g = 1
+    for i in range(0, cfg.n_layers, g):
+        group = layers[i:i + g]
+        if remat:
+            x = checkpoint(_layers_fwd, cfg, group, x, positions, use_reentrant=False)
+        else:
+            x = _layers_fwd(cfg, group, x, positions)
     return L.rmsnorm(x, params["final_norm"])
 
 
@@ -79,6 +104,46 @@ def forward(params, cfg, tokens=None, embeds=None, positions=None):
         positions = _positions(b, s, x.device)
     x = backbone(params, cfg, x, positions)
     return x.float() @ params["emb"].float().T
+
+
+def _ce_chunk(emb32, xs, ls, ms):
+    logits = xs.float() @ emb32.T                                   # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * ms), torch.sum(ms)
+
+
+def chunked_ce_loss(params, cfg, x_final, labels, mask, chunk: int = 512):
+    """Next-token CE without materializing full logits.
+
+    x_final: (B, S, D); labels, mask: (B, S).  A loop over sequence chunks,
+    each checkpointed when a gradient is being recorded, so backward
+    recomputes each chunk's logits."""
+    b, s, d = x_final.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: sequence {s} is not a multiple of chunk {chunk}")
+    emb = params["emb"].float()
+    tot = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    remat = torch.is_grad_enabled()
+    for i in range(0, s, chunk):
+        args = (emb, x_final[:, i:i + chunk], labels[:, i:i + chunk], mask[:, i:i + chunk])
+        t, c = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                else _ce_chunk(*args))
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg, batch):
+    """batch: {tokens|embeds, labels, mask} → scalar f32 loss (the dense
+    family has no auxiliary loss)."""
+    x = embed(params, cfg, batch.get("tokens"), batch.get("embeds"))
+    b, s = x.shape[0], x.shape[1]
+    xf = backbone(params, cfg, x, _positions(b, s, x.device))
+    return chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
+                           chunk=cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +178,7 @@ def prefill(params, cfg, tokens=None, embeds=None, cache_capacity: Optional[int]
         raise ValueError(f"cache capacity {cap} below the prompt length {s}")
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, cap, x.device)
-    for i in range(cfg.n_layers):
-        lp = L.select_layer(params["layers"], i)
+    for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
         k, v = _layer_kv(cfg, lp, x, positions)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
@@ -130,8 +194,7 @@ def decode_step(params, cfg, cache, tokens):
     step's keys and values written in and ``len`` one more)."""
     x = embed(params, cfg, tokens)
     clen = cache["len"]
-    for i in range(cfg.n_layers):
-        lp = L.select_layer(params["layers"], i)
+    for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
         xn = L.rmsnorm(x, lp["attn_norm"])
         att, _, _ = L.decode_attention_block(
             lp["attn"], xn, cache["k"][i], cache["v"][i], clen,

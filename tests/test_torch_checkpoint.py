@@ -5,14 +5,19 @@ resharding, the keep-``N`` gc, the corruption quarantine with its
 previous-step fallback, restore-on-failure), then the format shared with
 the JAX package: the same leaf names in the same order as
 ``jax.tree_util.tree_flatten_with_path`` + ``keystr``, a snapshot written
-by either package restored bit-equal by the other, and a restore onto
-torch tensors placed on their device.
+by either package restored bit-equal by the other, a restore onto
+torch tensors placed on their device, and bf16 trees (a bf16 leaf is its
+2-byte bits viewed as ``V2`` with ``"dtype": "bfloat16"``, as JAX writes
+it) both ways.  ``StepRunner`` takes a step's time after its loss is read
+(on the card that is where the host waits) and re-raises a fault of the
+card at once, with no restore.
 """
 
 from __future__ import annotations
 
 import json
 import warnings
+import time
 from collections import namedtuple
 
 import numpy as np
@@ -21,10 +26,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
 
 from repro.distributed.checkpoint import CheckpointManager as JaxCheckpointManager  # noqa: E402
 from repro_torch.distributed.checkpoint import CheckpointManager, _flatten  # noqa: E402
 from repro_torch.distributed.fault import StepRunner  # noqa: E402
+from repro_torch.errors import KernelLaunchError  # noqa: E402
 from repro_torch.obs import tracing  # noqa: E402
 
 
@@ -216,6 +224,40 @@ class TestStepRunner:
             runner.run((np.zeros(4, np.float32),), self.constant_batches(),
                        num_steps=10)
 
+    def test_step_time_covers_the_wait_for_the_loss(self, tmp_path):
+        """A step on the card returns at once and its loss makes the host
+        wait for the device: the step's time must include that wait."""
+
+        class DeviceLoss:
+            def __float__(self):
+                time.sleep(0.05)  # the device finishing the step
+                return 1.0
+
+        runner = StepRunner(lambda acc, batch: (acc + batch, {"loss": DeviceLoss()}),
+                            CheckpointManager(tmp_path, n_shards=1), ckpt_every=100)
+        runner.run((np.zeros(4, np.float32),), self.constant_batches(), num_steps=3)
+        assert [h.loss for h in runner.history] == [1.0] * 3
+        assert min(h.seconds for h in runner.history) >= 0.05
+
+    @pytest.mark.parametrize("fault", [KernelLaunchError("launch failed"),
+                                       torch.OutOfMemoryError("out of memory")],
+                             ids=["kernel", "oom"])
+    def test_card_fault_reraises_with_no_restore(self, tmp_path, fault):
+        ckpt = CheckpointManager(tmp_path, n_shards=1, keep=3)
+        calls, failures = {"n": 0}, []
+
+        def step_fn(acc, batch):
+            calls["n"] += 1
+            if calls["n"] == 3:  # after the step-2 checkpoint
+                raise fault
+            return acc + batch, {"loss": 0.0}
+
+        runner = StepRunner(step_fn, ckpt, ckpt_every=2, max_retries=3)
+        with pytest.raises(type(fault)):
+            runner.run((np.zeros(4, np.float32),), self.constant_batches(), num_steps=10,
+                       on_failure=lambda step, e: failures.append(step))
+        assert calls["n"] == 3 and failures == [2] and len(runner.history) == 2
+
 
 # ---------------------------------------------------------------------------
 # the format shared with the JAX package
@@ -297,3 +339,93 @@ class TestFormat:
         CheckpointManager(tmp_path / "t", n_shards=1).save(1, got)
         back, _ = CheckpointManager(tmp_path / "t").restore(small_tree(0.0))
         assert_tree_equal(back, tree)
+
+
+# ---------------------------------------------------------------------------
+# bf16 trees
+# ---------------------------------------------------------------------------
+
+
+def bf16_bits(n: int, seed: int) -> np.ndarray:
+    """n bf16 values as their uint16 bits: normals, ±0, ±inf, a NaN and
+    subnormals among them."""
+    rng = np.random.default_rng(seed)
+    bits = rng.normal(0, 3, n).astype(ml_dtypes.bfloat16).view(np.uint16)
+    bits[:6] = [0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC1, 0x0001]
+    return bits
+
+
+def bf16_torch_tree():
+    t = lambda bits: torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return {"emb": t(bf16_bits(24, 1)).reshape(6, 4),
+            "layers": {"w": t(bf16_bits(40, 2)).reshape(2, 4, 5)},
+            "m": {"w": torch.arange(40, dtype=torch.float32).reshape(2, 4, 5)},
+            "step": torch.tensor(3, dtype=torch.int32)}
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 \
+        else t.numpy()
+
+
+class TestBf16:
+    def test_port_round_trip_is_bit_equal(self, tmp_path):
+        tree = bf16_torch_tree()
+        CheckpointManager(tmp_path, n_shards=2).save(1, tree)
+        target = {"emb": torch.zeros(6, 4, dtype=torch.bfloat16),
+                  "layers": {"w": torch.zeros(2, 4, 5, dtype=torch.bfloat16)},
+                  "m": {"w": torch.zeros(2, 4, 5)}, "step": torch.tensor(0, dtype=torch.int32)}
+        got, _ = CheckpointManager(tmp_path).restore(target)
+        for path, want in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            leaf = got
+            for k in path:
+                leaf = leaf[k.key]
+            assert leaf.dtype == want.dtype and leaf.shape == want.shape
+            np.testing.assert_array_equal(_bits(leaf), _bits(want))
+
+    def test_port_writes_what_jax_writes(self, tmp_path):
+        """The manifest (dtype "bfloat16") and the npz keys are the JAX
+        writer's, and JAX's ``np.load`` reads the port's bytes."""
+        tree = bf16_torch_tree()
+        jtree = {"emb": bf16_bits(24, 1).view(ml_dtypes.bfloat16).reshape(6, 4),
+                 "layers": {"w": bf16_bits(40, 2).view(ml_dtypes.bfloat16).reshape(2, 4, 5)},
+                 "m": {"w": np.arange(40, dtype=np.float32).reshape(2, 4, 5)},
+                 "step": jnp.asarray(3, jnp.int32)}
+        CheckpointManager(tmp_path / "port", n_shards=1).save(1, tree)
+        JaxCheckpointManager(tmp_path / "jax", n_shards=1).save(1, jtree)
+        step = "step_00000001"
+        manifests = [json.loads((tmp_path / d / step / "manifest.json").read_text())
+                     for d in ("port", "jax")]
+        for m in manifests:
+            del m["hashes"]
+        assert manifests[0] == manifests[1]
+        assert manifests[0]["leaves"]["['emb']"]["dtype"] == "bfloat16"
+        shards = [np.load(tmp_path / d / step / "shard_0.npz") for d in ("port", "jax")]
+        assert sorted(shards[0].files) == sorted(shards[1].files)
+        for key in shards[1].files:
+            a, b = shards[0][key], shards[1][key]
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+        assert shards[0]["['emb']"].dtype == np.dtype("V2")
+
+    def test_jax_snapshot_restores_bit_equal(self, tmp_path):
+        jtree = {"emb": bf16_bits(24, 1).view(ml_dtypes.bfloat16).reshape(6, 4),
+                 "step": jnp.asarray(7, jnp.int32)}
+        JaxCheckpointManager(tmp_path, n_shards=2).save(7, jtree, extra={"step": 7})
+        target = {"emb": torch.zeros(6, 4, dtype=torch.bfloat16),
+                  "step": torch.tensor(0, dtype=torch.int32)}
+        got, extra = CheckpointManager(tmp_path).restore(target)
+        assert extra == {"step": 7} and got["emb"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(got["emb"]), bf16_bits(24, 1).reshape(6, 4))
+        assert int(got["step"]) == 7
+
+    def test_jax_restore_hands_back_raw_bits(self, tmp_path):
+        """The reference's quirk (ROADMAP Queue 3): JAX's own restore of a
+        bf16 leaf returns the ``|V2`` array it read, not bf16 values."""
+        CheckpointManager(tmp_path, n_shards=1).save(1, bf16_torch_tree())
+        got, _ = JaxCheckpointManager(tmp_path).restore(
+            {"emb": np.zeros((6, 4), ml_dtypes.bfloat16),
+             "layers": {"w": np.zeros((2, 4, 5), ml_dtypes.bfloat16)},
+             "m": {"w": np.zeros((2, 4, 5), np.float32)}, "step": np.int32(0)})
+        assert got["emb"].dtype == np.dtype("V2")
+        np.testing.assert_array_equal(got["emb"].view(np.uint16),
+                                      bf16_bits(24, 1).reshape(6, 4))

@@ -659,6 +659,115 @@ def test_serve_wave_on_card_matches_plain_attention(card):
 
 
 # ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+def test_pallas_attention_refuses_grad_on_card(card):
+    """Under grad the kernel refuses on the card as on the CPU, rather than
+    return an output with no gradient; under no_grad it launches."""
+    q = torch.randn(1, 2, 64, 64, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.attention(q, q, q, mode="pallas")
+    before = ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        ops.attention(q, q, q, mode="pallas")
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+
+
+def _loss_and_grads(model, params, batch, microbatch=1):
+    from repro_torch.models.api import make_train_step
+    from repro_torch.train.optimizer import Optimizer
+
+    step, _ = make_train_step(model, Optimizer(lambda p: {}, lambda g, st, p: (g, st)),
+                              microbatch=microbatch)
+    grads, _, met = step(params, {}, batch)
+    return float(met["loss"]), grads
+
+
+def test_train_gradients_on_card_match_cpu(card):
+    """The reduced Qwen2 (f32, remat on) on the card against the same code
+    on the CPU: loss rtol 1e-5, each gradient leaf ‖Δ‖/‖g‖ ≤ 1e-4 (full-f32
+    products: TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = build_model(dataclasses.replace(get_reduced("qwen2-1.5b"), remat=True,
+                                                loss_chunk=32))
+        params = model.init(torch.Generator(card).manual_seed(0))
+        batch = TokenPipeline(vocab=model.cfg.vocab, seq_len=64, global_batch=4).batch_at(0)
+        got = _loss_and_grads(model, params, {k: torch.from_numpy(v).to(card)
+                                              for k, v in batch.items()}, microbatch=2)
+        want = _loss_and_grads(model, tree_map(lambda t: t.cpu(), params),
+                               {k: torch.from_numpy(v) for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
+    for g, w in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+        assert g.device.type == "cuda"
+        rel = torch.linalg.vector_norm(g.cpu() - w) / torch.linalg.vector_norm(w)
+        assert rel <= 1e-4
+
+
+def test_bf16_checkpoint_round_trip_on_card(card, tmp_path):
+    from repro_torch.distributed import CheckpointManager
+
+    tree = {"w": torch.randn(5, 7, device=card).to(torch.bfloat16),
+            "m": torch.randn(5, 7, device=card), "step": torch.tensor(4, device=card,
+                                                                      dtype=torch.int32)}
+    CheckpointManager(tmp_path, n_shards=2).save(4, tree, extra={"step": 4})
+    got, extra = CheckpointManager(tmp_path).restore(
+        {k: torch.zeros_like(v) for k, v in tree.items()})
+    assert extra == {"step": 4}
+    for k, v in tree.items():
+        assert got[k].device == v.device and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v), k
+
+
+def test_step_runner_times_the_device_on_card(card, tmp_path):
+    """A step's recorded seconds cover its device work (CUDA events), not
+    only the launches."""
+    from repro_torch.distributed import CheckpointManager, StepRunner
+
+    a = torch.randn(4096, 4096, device=card)
+
+    def step_fn(x, batch):
+        for _ in range(40):
+            x = torch.tanh(a @ x)
+        return x, {"loss": x.sum()}
+
+    step_fn(a, None)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    step_fn(a, None)
+    end.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(end) / 1e3
+    runner = StepRunner(step_fn, CheckpointManager(tmp_path, n_shards=1), ckpt_every=100)
+    runner.run((a,), iter(lambda: None, 1), num_steps=3)
+    assert min(h.seconds for h in runner.history) >= 0.8 * device_s
+
+
+def test_train_driver_on_card(card, tmp_path):
+    from repro_torch.launch import train as train_mod
+
+    common = ["--arch", "qwen2-1.5b", "--reduced", "--device", card, "--batch", "4",
+              "--seq", "32", "--ckpt-dir", str(tmp_path)]
+    losses = train_mod.main(common + ["--steps", "12", "--ckpt-every", "6"])
+    assert losses[-1] < losses[0]
+    losses2 = train_mod.main(common + ["--steps", "4", "--ckpt-every", "100", "--resume"])
+    assert losses2[0] < losses[0]
+
+
+# ---------------------------------------------------------------------------
 # the compile driver on the card: cost search, the fallback ladder, taps
 # ---------------------------------------------------------------------------
 
