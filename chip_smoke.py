@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the torch port: TPC-H, k-means, serving and training
-Qwen2-1.5B through ``repro_torch`` on one GPU.
+Qwen2-1.5B, serving Moonlight-16B-A3B, Mixtral-8x7B's widths and Qwen2-VL-7B
+through ``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -176,7 +177,40 @@ Phases, each printing its own lines:
    top operators; last ``launch/train.py`` at depth 2 in bf16: 3 steps
    with a checkpoint, the restored step-3 state the saved one bit for bit,
    3 resumed steps whose losses are the uninterrupted run's (rtol 2^-7);
-20. each kernel against its plain version on the inputs the paths gave it,
+20. the MoE family at full width and depth: Moonlight-16B-A3B
+   (``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 48 layers, 64 experts,
+   top-6, bf16, parameters from ``model.init`` with seed 0), after the
+   earlier phases' models are freed, served with ``attn_mode="pallas"``
+   as phase 18 serves Qwen2-1.5B (the same traffic, ``make_run_wave`` and
+   ``serve_loop``, a warm-up wave), ``flash_attention`` launched 48 times a
+   wave; the plain path (``ref``) and ``chunked`` as they run, each
+   path's (token, layer) routing flips against the plain path counted over
+   the prefill's tokens and the decode steps fed the same tokens, each flip
+   at a plain-path top-k margin p_(k) − p_(k+1) no larger than the two
+   runs' two largest |Δp| of that token (checked), and the logits the
+   flips move printed; then f64 attention, pallas and chunked with the
+   routing pinned to the plain path's (each call takes the plain run's
+   experts, places and kept choices, weighed by its own probabilities),
+   held by phase 18's rule; the share of choices dropped per layer in
+   prefill; the floors beside the times (a decode step reads every
+   weight; a prefill wave's expert products compute E·C slots); then
+   ``moe_block`` alone on layer 0's input (T = 8192): bf16 twice, the same
+   bits, timed; f32 against f64, both on the card;
+21. Mixtral-8x7B's full widths at 8 of its 32 layers (all 32 are 93.1 GB
+   in bf16): one wave of 4 × 2048 prompts and 8 decode steps, as phase 20
+   without ``chunked`` and without ``moe_block`` alone (``flash_attention``
+   8 times, with a window of 4096);
+22. the VLM family: Qwen2-VL-7B (``configs/qwen2_vl_7b.py`` ``CONFIG``, 28
+   layers, M-RoPE sections (16, 24, 24), bf16, seed 0): ``model.prefill``
+   on 4 × 2048 seeded stub embeddings with three position streams (a
+   32 × 32 patch image, t = 0, h = row, w = col, then text continuing from
+   the grid's largest position + 1), then 32 greedy decode steps from that
+   cache (JAX's 1-D RoPE decode); pallas (``flash_attention`` 28 times,
+   counted), the plain path, f64 attention and chunked, held by phase
+   18's rule; then ``serve_loop`` through ``make_run_wave``'s vlm branch,
+   which decodes from an empty cache with a zero token and no prefill, as
+   JAX's launcher does: every request the same tokens;
+23. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -185,8 +219,10 @@ Phases, each printing its own lines:
    each call's points (the card's achieved read rate, not a library call); each served attention call's distance from the
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
-   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``);
-21. per-query latency (median over ``--reps`` after a warm-up, each run
+   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``); the MoE
+   and VLM phases add the first and last layer's call of their counted
+   run;
+24. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -196,7 +232,8 @@ Phases, each printing its own lines:
 Then the card's line, the ``kernels`` JSON line (the relational kernels'
 launches count the TPC-H path's run, the stream phase's counted folds and
 the spmd ranks' main runs; ``kmeans_step``'s the k-means path's and the
-spmd ranks' steps) and, last,
+spmd ranks' steps; ``flash_attention``'s the served Qwen2-1.5B, Moonlight,
+Mixtral and Qwen2-VL runs) and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -234,13 +271,23 @@ check is what holds decode: a step's greedy tokens can differ only where
 the plain path's top-2 gap is under twice the logits' |Δ|, and random
 weights make gaps of that order, so the tokens are checked only to be
 their logits' argmax, and where each request's tokens first leave the
-plain path's is printed with the plain path's top-2 gap there.
+plain path's is printed with the plain path's top-2 gap there.  An MoE
+path's routing can flip where a token's k-th and (k+1)-th router
+probabilities sit within a rounding, and a flip moves that token by a
+whole expert's output (and, under the capacity, what other tokens keep):
+so flips are counted and each checked to sit at a margin the two runs'
+|Δp| can cross, and the rule above is applied with the routing pinned to
+the plain path's.  ``moe_block`` alone: bf16 twice the same bits; f32
+against f64 on the card, routing flips only at f64 margins ≤ 1e-5 (the
+f32 router moves a probability by about 1e-8), the agreeing tokens'
+outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -291,6 +338,22 @@ REMAT_RTOL, MICRO_LOSS_RTOL, MICRO_GRAD_REL = 1e-6, 1e-5, 1e-4
 #: the launcher's bf16 resume against the uninterrupted run: loss rtol of
 #: two bf16 roundings (the embedding's gradient is added by atomics)
 RESUME_LOSS_RTOL = 2.0 ** -7
+#: the MoE family: Moonlight-16B-A3B served at full width and depth with the
+#: serving path's traffic (SERVE_*); Mixtral-8x7B at full width and
+#: MIXTRAL_LAYERS of its 32 layers (all 32 are 93.1 GB in bf16), one wave
+#: of SERVE_BATCH prompts and MIXTRAL_GEN decode steps
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_GEN = "mixtral-8x7b", 8, 8
+#: moe_block alone, f32 against f64 on the card: the routing may differ
+#: only where the f64 top-k margin p_(k) − p_(k+1) is at most MOE_F64_MARGIN
+#: (the f32 router's rounding moves a probability by about 1e-8); the
+#: agreeing tokens' outputs within ‖Δ‖ ≤ MOE_F32_REL·‖y‖, aux within
+#: MOE_F32_REL
+MOE_F64_MARGIN, MOE_F32_REL = 1e-5, 1e-5
+#: the VLM family: Qwen2-VL-7B at full width and depth, SERVE_BATCH ×
+#: SERVE_PROMPT stub embeddings, a VLM_GRID × VLM_GRID image then text,
+#: VLM_GEN decode steps
+VLM_ARCH, VLM_GRID, VLM_GEN = "qwen2-vl-7b", 32, 32
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -438,18 +501,22 @@ def tiled_gap(got, args, kw) -> float:
 
 
 @contextlib.contextmanager
-def recording(names):
+def recording(names, keep=None):
     """Record each call of the ``ops`` wrappers ``names`` as (name, args,
     kw), to replay them against the plain versions afterwards (the emitters
-    look the wrappers up on the module)."""
+    look the wrappers up on the module); with ``keep``, only the calls
+    whose index i (counted over all of them) has ``keep(i)``."""
     from repro_torch.kernels import ops
 
     captured = []
     originals = {k: getattr(ops, k) for k in names}
+    seen = [0]
 
     def recorder(name):
         def call(*args, **kw):
-            captured.append((name, args, kw))
+            if keep is None or keep(seen[0]):
+                captured.append((name, args, kw))
+            seen[0] += 1
             return originals[name](*args, **kw)
         return call
 
@@ -1649,15 +1716,19 @@ def _watched(model):
         calls.append([logits])
         return logits, cache
 
+    def init_state(bsz, cap, device=None):  # a wave with no prefill (the vlm family's)
+        calls.append([])
+        return model.init_state(bsz, cap, device)
+
     def decode(p, cache, toks):
         logits, cache = model.decode(p, cache, toks)
         calls[-1].append(logits)
         return logits, cache
 
-    return replace(model, prefill=prefill, decode=decode), calls
+    return replace(model, prefill=prefill, decode=decode, init_state=init_state), calls
 
 
-def _serve_once(model, params, requests):
+def _serve_once(model, params, requests, gen: int = SERVE_GEN):
     """One traced ``serve_loop`` over ``requests`` through ``make_run_wave``;
     returns (outputs, the logits of each call per wave, tracer, wall s)."""
     import torch
@@ -1667,7 +1738,7 @@ def _serve_once(model, params, requests):
 
     watched, calls = _watched(model)
     run_wave = make_run_wave(watched, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                             gen=SERVE_GEN, cache_cap=SERVE_CAP, device="cuda")
+                             gen=gen, cache_cap=SERVE_CAP, device="cuda")
     with tracing() as tracer:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1675,6 +1746,25 @@ def _serve_once(model, params, requests):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return out, calls, tracer, wall
+
+
+def fed_same(glog, wlog):
+    """Per wave, per request: how many of the calls (the prefill, then each
+    decode step) two serving runs fed the same tokens: call t saw the
+    greedy tokens of calls < t, so the count ends one past the first call
+    whose tokens differ."""
+    import torch
+
+    out = []
+    for g, w in zip(glog, wlog):
+        gl, wl = torch.stack(g), torch.stack(w)                     # (steps, B, V)
+        differ = (gl.argmax(-1) != wl.argmax(-1)).cpu()             # (steps, B)
+        row = []
+        for j in range(gl.shape[1]):
+            bad = differ[:, j].nonzero()
+            row.append(int(bad[0]) + 1 if len(bad) else gl.shape[0])
+        out.append(row)
+    return out
 
 
 def path_gap(glog, wlog):
@@ -1687,15 +1777,12 @@ def path_gap(glog, wlog):
 
     pre = worst = 0.0
     same = 0
-    for g, w in zip(glog, wlog):
+    for g, w, fed in zip(glog, wlog, fed_same(glog, wlog)):
         gl, wl = torch.stack(g), torch.stack(w)                     # (steps, B, V)
         pre = max(pre, float((gl[0] - wl[0]).abs().max()))
-        differ = gl.argmax(-1) != wl.argmax(-1)                     # (steps, B)
-        for j in range(gl.shape[1]):
-            bad = differ[:, j].nonzero()
-            fed = int(bad[0]) + 1 if len(bad) else gl.shape[0]      # step t saw tokens < t
-            worst = max(worst, float((gl[:fed, j] - wl[:fed, j]).abs().max()))
-            same += fed
+        for j, n in enumerate(fed):
+            worst = max(worst, float((gl[:n, j] - wl[:n, j]).abs().max()))
+            same += n
     std = float(torch.cat([w[0].flatten() for w in wlog]).std())
     return pre, worst, same, std
 
@@ -1718,7 +1805,7 @@ def exact_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     return (p @ v.double().repeat_interleave(group, 1)).to(q.dtype)
 
 
-def compare_paths(label: str, got, want, exact, noise: float) -> dict:
+def compare_paths(label: str, got, want, exact, noise: float, gen: int = SERVE_GEN) -> dict:
     """One serving run (outputs, per-wave logits) against the plain path's:
     the logits of every step both were fed the same tokens within the
     larger of LOGIT_STD_SHARE of the prefill logits' std and NOISE_FACTOR ×
@@ -1751,7 +1838,7 @@ def compare_paths(label: str, got, want, exact, noise: float) -> dict:
             bad = (gseq[:, j] != wseq[:, j]).nonzero()
             if len(bad):
                 diverged.append((rid, int(bad[0]), round(float(gaps[int(bad[0]), j]), 6)))
-    steps = len(gout) * (SERVE_GEN + 1)
+    steps = len(gout) * (gen + 1)
     log(f"serving path {label}: logits max |Δ| {worst:.6g} over the {same} of {steps} steps fed "
         f"the same tokens (limit {limit:.6g}; std {std:.6g}, {worst / std:.4f} of it; noise "
         f"floor {noise:.6g}); prefill logits max |Δ| {pre:.6g}; from the exact run "
@@ -1762,13 +1849,26 @@ def compare_paths(label: str, got, want, exact, noise: float) -> dict:
             "same_token_steps_exact": exact_steps, "diverged": diverged}
 
 
-def phase_serve():
-    """The serving path at full width and depth with attn_mode="pallas",
-    after a warm-up wave, with the launch counts set to 0 just before and
-    read just after; then the plain path (``ref``) and ``chunked`` on the
-    same parameters and prompts, each held against the plain one.  Returns
-    (launches, the kernel's calls, the serving report, one wave to
-    profile)."""
+def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
+               requests_n: int = SERVE_REQUESTS, gen: int = SERVE_GEN, chunked: bool = True,
+               check_block: bool = False, sample_calls: bool = False):
+    """A config served at full width (depth cut to ``layers_cut`` where
+    given) with attn_mode="pallas" through ``make_run_wave`` and
+    ``serve_loop`` after a warm-up wave, the launch counts set to 0 just
+    before and read just after (``flash_attention`` once per layer per
+    wave; every call recorded, or with ``sample_calls`` the first wave's
+    first and last layer's); then the
+    same parameters and prompts with the plain attention (``ref``), with
+    ``chunked`` where asked, and with f64 attention (the noise floor), each
+    path held to the plain one by phase 18's rule.  For an MoE config the
+    plain and chunked paths first run as they fall: each path's routing
+    flips against the plain path are counted and checked, and the logits
+    they move printed; then f64 attention and each path run with the
+    routing pinned to the plain path's, and the rule holds those.  Also
+    the drop share per layer in prefill, the floors and, with
+    ``check_block``, ``moe_block`` alone on the layer-0 input.  Returns
+    (flash_attention's launches, the recorded kernel calls, the report, one
+    wave to profile)."""
     from dataclasses import replace
 
     import numpy as np
@@ -1779,63 +1879,133 @@ def phase_serve():
     from repro_torch.launch.serve import Request, make_run_wave
     from repro_torch.models.api import build_model
 
-    base = get_config(SERVE_ARCH)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = get_config(arch)
+    if layers_cut:
+        base = replace(base, n_layers=layers_cut)
     t0 = time.perf_counter()
     model = build_model(replace(base, attn_mode="pallas"))
     params = model.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = np.random.default_rng(0).integers(0, base.vocab, (SERVE_REQUESTS, SERVE_PROMPT))
+    prompts = np.random.default_rng(0).integers(0, base.vocab, (requests_n, SERVE_PROMPT))
 
     def requests():
-        return [Request(rid=i, prompt=prompts[i]) for i in range(SERVE_REQUESTS)]
+        return [Request(rid=i, prompt=prompts[i]) for i in range(requests_n)]
 
-    log(f"serving {base.arch}: {n_params / 1e9:.4f} B parameters ({base.dtype}, "
-        f"{sum(_bytes(t) for t in _leaves(params)) / 1e9:.3f} GB) on the card; "
-        f"{SERVE_REQUESTS} requests × {SERVE_PROMPT} prompt tokens, batch {SERVE_BATCH}, "
-        f"{SERVE_GEN} generated, cache {SERVE_CAP}; set-up {time.perf_counter() - t0:.1f} s")
-    wave = make_run_wave(model, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                         gen=SERVE_GEN, cache_cap=SERVE_CAP, device="cuda")
+    log(f"serving {arch}{f' at {layers_cut} layers' if layers_cut else ''}: "
+        f"{n_params / 1e9:.4f} B parameters (ModelConfig.n_params(), which counts no norm or "
+        f"bias: {base.n_params()}), {base.n_active_params() / 1e9:.4f} B active per token "
+        f"({base.dtype}, {sum(_bytes(t) for t in _leaves(params)) / 1e9:.3f} GB; "
+        f"{held / 1e9:.2f} GB held by earlier phases); {requests_n} requests × {SERVE_PROMPT} "
+        f"prompt tokens, batch {SERVE_BATCH}, {gen} generated, cache {SERVE_CAP}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    wave = make_run_wave(model, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=gen,
+                         cache_cap=SERVE_CAP, device="cuda")
     wave(requests()[:SERVE_BATCH])  # warm-up: library handles, the allocator, first launches
     torch.cuda.reset_peak_memory_stats()
-    with recording(("flash_attention",)) as captured:
+    n_l = base.n_layers
+    waves = -(-requests_n // SERVE_BATCH)
+    keep = (lambda i: i in (0, n_l - 1)) if sample_calls else None
+    with recording(("flash_attention",), keep=keep) as captured, routing() as rec:
         ops.reset_launches()
-        out, logits, tracer, wall = _serve_once(model, params, requests())
-        launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    waves = -(-SERVE_REQUESTS // SERVE_BATCH)
-    if sorted(out) != list(range(SERVE_REQUESTS)):
-        raise AssertionError(f"served {sorted(out)} of {SERVE_REQUESTS} requests")
+        out, logits, tracer, wall = _serve_once(model, params, requests(), gen)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if sorted(out) != list(range(requests_n)):
+        raise AssertionError(f"{arch}: served {sorted(out)} of {requests_n} requests")
     for rid, toks in out.items():
-        if toks.shape != (SERVE_GEN,) or not ((toks >= 0) & (toks < base.vocab)).all():
-            raise AssertionError(f"request {rid}: tokens {toks}")
+        if toks.shape != (gen,) or not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"{arch} request {rid}: tokens {toks}")
     if not all(bool(torch.isfinite(x).all()) for w in logits for x in w):
-        raise AssertionError("the serving path gave non-finite logits")
-    if launches["flash_attention"] != base.n_layers * waves or len(captured) != base.n_layers * waves:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times, "
-                             f"not {base.n_layers} per wave")
-    log(f"serving path (pallas): {len(out)} requests served, {waves} waves; launches "
-        f"{ {k: v for k, v in launches.items() if v} }; peak device memory {peak / 1e9:.3f} GB")
-
-    report = {"pallas": _serve_numbers(tracer, wall, len(out))}
-    plain_model = build_model(replace(base, attn_mode="ref"))
-    plain = _serve_once(plain_model, params, requests())
-    report["ref"] = _serve_numbers(plain[2], plain[3], len(plain[0]))
-    # the noise floor: the plain path against exactly rounded prefill attention
-    exact = _serve_once(build_model(replace(base, attn_mode=exact_attention)), params,
-                        requests())
-    _, noise, same, std = path_gap(plain[1], exact[1])
+        raise AssertionError(f"{arch}: the serving path gave non-finite logits")
+    if launches != {"flash_attention": n_l * waves} or (keep is None
+                                                         and len(captured) != n_l * waves):
+        raise AssertionError(f"{arch}: launched {launches}, not flash_attention {n_l} per wave")
+    if len(rec["calls"]) != (waves * (1 + gen) * n_l if base.is_moe else 0):
+        raise AssertionError(f"{arch}: {len(rec['calls'])} moe_route calls")
+    log(f"serving path {arch} (pallas): {len(out)} requests served, {waves} waves; launches "
+        f"{launches}; peak allocated {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held")
+    report = {"card": smi, "pallas": _serve_numbers(tracer, wall, len(out), gen),
+              "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9,
+              "n_params": n_params, "n_active_params": base.n_active_params()}
+    # the plain path and chunked as they run (for an MoE config: each
+    # path's routing flips against the plain path's, and the logits those
+    # flips move)
+    runs = {"pallas": (out, logits, rec)}
+    for name in ("ref", "chunked") if chunked else ("ref",):
+        with routing() as r:
+            res = _serve_once(build_model(replace(base, attn_mode=name)), params, requests(),
+                              gen)
+        runs[name] = (res[0], res[1], r)
+        report[name] = _serve_numbers(res[2], res[3], len(res[0]), gen)
+    plain = runs["ref"]
+    paths = [n for n in runs if n != "ref"]
+    if base.is_moe:
+        report["routing"], report["unpinned_vs_ref"] = {}, {}
+        for name in paths:
+            report["routing"][name] = routing_flips(
+                f"{arch} {name} vs ref", runs[name][2]["calls"], plain[2]["calls"],
+                fed_same(runs[name][1], plain[1]), n_l, base.top_k)
+            pre, worst, same, std = path_gap(runs[name][1], plain[1])
+            report["unpinned_vs_ref"][name] = {"prefill_max_abs": pre, "max_abs": worst,
+                                               "same_token_steps": same, "logit_std": std}
+            log(f"serving path {arch} {name} vs ref, routing as it falls: logits max |Δ| "
+                f"{worst:.6g} ({worst / std:.4f} of their std) over {same} steps fed the same "
+                f"tokens, prefill {pre:.6g}")
+    # phase 18's rule: f64 attention (the noise floor), then each path; an
+    # MoE config's runs with the routing pinned to the plain path's
+    held_to = {name: runs[name][:2] for name in paths}
+    pin = plain[2]["calls"] if base.is_moe else None
+    for name, mode in (("exact", exact_attention),
+                       *(((n, n) for n in paths) if base.is_moe else ())):
+        with routing(pin=pin):
+            res = _serve_once(build_model(replace(base, attn_mode=mode)), params, requests(),
+                              gen)
+        held_to[name] = res[:2]
+    pinned = " (routing pinned to the plain path's)" if base.is_moe else ""
+    _, noise, same, std = path_gap(plain[1], held_to["exact"][1])
     report["noise_floor"] = {"max_abs": noise, "same_token_steps": same, "logit_std": std}
-    log(f"serving path noise floor: the plain path's logits differ from those with exactly "
-        f"rounded (f64) prefill attention by up to {noise:.6g} ({noise / std:.4f} of their std "
-        f"{std:.6g}) over the {same} steps fed the same tokens")
-    report["pallas_vs_ref"] = compare_paths("pallas vs ref", (out, logits), plain[:2],
-                                            exact[1], noise)
-    chunked = _serve_once(build_model(replace(base, attn_mode="chunked")), params, requests())
-    report["chunked"] = _serve_numbers(chunked[2], chunked[3], len(chunked[0]))
-    report["chunked_vs_ref"] = compare_paths("chunked vs ref", chunked[:2], plain[:2],
-                                             exact[1], noise)
-    return launches, list(captured), report, lambda: wave(requests()[:SERVE_BATCH])
+    log(f"serving path {arch} noise floor{pinned}: the plain path's logits differ from those "
+        f"with exactly rounded (f64) prefill attention by up to {noise:.6g} ({noise / std:.4f} "
+        f"of their std {std:.6g}) over the {same} steps fed the same tokens")
+    for name in paths:
+        report[f"{name}_vs_ref"] = compare_paths(f"{arch} {name} vs ref{pinned}", held_to[name],
+                                                 plain[:2], held_to["exact"][1], noise, gen)
+    del held_to
+    if base.is_moe:
+        drops = drop_shares(rec, n_l, gen)
+        report["prefill_dropped_share_per_layer"] = drops
+        report["bounds"] = b = moe_bounds(base, params)
+        r = report["pallas"]
+        log(f"serving {arch} ({smi}): prefill {r['prefill_ms_per_wave']:.3f} ms per wave "
+            f"(expert products {b['prefill_expert_flop']:.4g} FLOP on {b['prefill_slots']} "
+            f"slots for {b['prefill_choices']} choices, C={b['prefill_capacity']}: floor "
+            f"{b['prefill_expert_floor_ms']:.3f} ms at 989 TFLOP/s); decode "
+            f"{r['decode_ms_per_step']:.3f} ms per step (reads "
+            f"{b['decode_weight_bytes'] / 1e9:.2f} GB of weights, C={b['decode_capacity']}: "
+            f"floor {b['decode_floor_ms']:.3f} ms at 3.35 TB/s); {r['tokens_per_s']:.6g} "
+            f"generated tokens/s; request latency p50 {r['latency_p50_s']:.4f} s, p99 "
+            f"{r['latency_p99_s']:.4f} s; peak {peak / 1e9:.3f} GB; prefill choices dropped per "
+            f"layer: mean {statistics.mean(drops):.4f}, max {max(drops):.4f}")
+        for name in paths[1:] + ["ref"]:
+            x = report[name]
+            log(f"serving {arch} ({name} attention): prefill {x['prefill_ms_per_wave']:.3f} ms "
+                f"per wave, decode {x['decode_ms_per_step']:.3f} ms per step, "
+                f"{x['tokens_per_s']:.6g} tokens/s")
+    if check_block:
+        x0 = rec["first"].reshape(SERVE_BATCH, SERVE_PROMPT, base.d_model)
+        lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        report["moe_block"] = check_moe_block(base, lp, x0)
+    del runs, rec, logits, out
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"{arch}: " + json.dumps(report))
+    log(f"serving phase {arch} took {report['phase_s']:.1f} s")
+    return (launches["flash_attention"], list(captured), report,
+            lambda: wave(requests()[:SERVE_BATCH]))
 
 
 def _leaves(tree):
@@ -1844,19 +2014,23 @@ def _leaves(tree):
     return [tree]
 
 
-def _serve_numbers(tracer, wall: float, served: int) -> dict:
+def _serve_numbers(tracer, wall: float, served: int, gen: int = SERVE_GEN) -> dict:
     """The serving numbers of one run from the port's tracer: medians over
-    the waves (prefill) and the steps (decode), latency percentiles."""
-    prefill = tracer.histograms["serve.prefill_s"]
+    the waves (prefill, where the family has one) and the steps (decode),
+    latency percentiles."""
+    prefill = tracer.histograms.get("serve.prefill_s", [])
     decode = tracer.histograms["serve.decode_step_s"]
     lat = tracer.histogram_summary("serve.request_latency_s")
-    return {"prefill_ms_per_wave": statistics.median(prefill) * 1e3,
-            "prefill_ms_all": [x * 1e3 for x in prefill],
-            "decode_ms_per_step": statistics.median(decode) * 1e3,
-            "decode_ms_min": min(decode) * 1e3, "decode_ms_max": max(decode) * 1e3,
-            "tokens_per_s": served * SERVE_GEN / wall,
-            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / statistics.median(prefill),
-            "wall_s": wall, "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"]}
+    out = {"decode_ms_per_step": statistics.median(decode) * 1e3,
+           "decode_ms_min": min(decode) * 1e3, "decode_ms_max": max(decode) * 1e3,
+           "tokens_per_s": served * gen / wall,
+           "wall_s": wall, "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"]}
+    if prefill:
+        out.update({"prefill_ms_per_wave": statistics.median(prefill) * 1e3,
+                    "prefill_ms_all": [x * 1e3 for x in prefill],
+                    "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+                    / statistics.median(prefill)})
+    return out
 
 
 def _library_ms(name: str, args: tuple, kw: dict):
@@ -2396,6 +2570,349 @@ def phase_train(smi: str, profile: bool) -> dict:
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"train phase took {report['phase_s']:.1f} s")
     return report
+
+
+# ---------------------------------------------------------------------------
+# the MoE and VLM families: Moonlight-16B-A3B served at full width and
+# depth, Mixtral-8x7B's widths at a cut depth, Qwen2-VL-7B prefilled
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routing(pin=None):
+    """Record every ``layers.moe_route`` call (the router and dispatch of
+    each MoE layer, in call order) as (probs (T, E), topi (T, K), pos
+    (T·K,), keep (T·K,)), holding the tensors ``moe_block`` makes anyway,
+    so no device work is added; ``first`` keeps the first call's input rows
+    (T, D).  With ``pin`` (another run's record, call for call), each call
+    takes that run's experts, places and kept choices, and weighs them by
+    its own probabilities: the run then differs from the pinned one only
+    by its arithmetic, not by a discrete routing decision."""
+    import torch
+
+    from repro_torch.models import layers
+
+    original = layers.moe_route
+    rec = {"calls": [], "first": None}
+
+    def moe_route(p, xf, **kw):
+        probs, topw, topi, pos, keep = original(p, xf, **kw)
+        if rec["first"] is None:
+            rec["first"] = xf
+        if pin is not None:
+            _, topi, pos, keep = pin[len(rec["calls"])]
+            topw = probs.gather(1, topi)
+            topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+        rec["calls"].append((probs, topi, pos, keep))
+        return probs, topw, topi, pos, keep
+
+    layers.moe_route = moe_route
+    try:
+        yield rec
+    finally:
+        layers.moe_route = original
+
+
+def topk_margin(probs, k: int):
+    """p_(k) − p_(k+1) per token: how far the k-th choice is from losing
+    its place."""
+    top = probs.topk(k + 1, dim=-1).values
+    return top[:, k - 1] - top[:, k]
+
+
+def routing_flips(label: str, got, want, fed, n_layers: int, top_k: int) -> dict:
+    """(token, layer) routing flips of one serving run against the plain
+    one, over every prefill token and the decode steps both runs were fed
+    the same tokens (``fed``): a flip is a token whose set of top-k experts
+    differs.  An expert leaves the top k only when another overtakes it,
+    so a flip needs the plain run's margin p_(k) − p_(k+1) to be at most
+    the sum of that token's two largest |Δp| between the runs; that is
+    checked at every flip (a different routing rule, not rounding, would
+    break it)."""
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} router calls against {len(want)}")
+    per_wave = len(want) // len(fed)
+    flips, compared, margins, per_layer = 0, 0, [], [0] * n_layers
+    worst = 0.0
+    for c, ((gp, gi, _, _), (wp, wi, _, _)) in enumerate(zip(got, want)):
+        wave, rest = divmod(c, per_wave)
+        step, layer = divmod(rest, n_layers)
+        rows = torch.ones(gp.shape[0], dtype=torch.bool, device=gp.device)
+        if step:  # a decode step: one token per request, only those fed the same
+            rows = torch.tensor([step < n for n in fed[wave]], device=gp.device)
+        diff = (gi.sort(-1).values != wi.sort(-1).values).any(-1) & rows
+        compared += int(rows.sum())
+        n = int(diff.sum())
+        if not n:
+            continue
+        m = topk_margin(wp[diff], top_k)
+        dp = (gp[diff] - wp[diff]).abs().topk(2, dim=-1).values.sum(-1)
+        if not bool((m <= dp + 1e-6).all()):
+            raise AssertionError(f"{label}: a routing flip at layer {layer}, step {step} where "
+                                 f"the plain margin {m.max():.3g} exceeds the runs' |Δp|")
+        worst = max(worst, float((m / dp.clamp(min=1e-30)).max()))
+        flips += n
+        per_layer[layer] += n
+        margins += m.tolist()
+    margins.sort()
+    out = {"flips": flips, "tokens_compared": compared, "min_margin": margins[0] if margins
+           else None, "max_margin": margins[-1] if margins else None,
+           "median_margin": statistics.median(margins) if margins else None,
+           "max_margin_over_dp": worst, "flips_per_layer": per_layer}
+    log(f"routing {label}: {flips} (token, layer) flips of {compared} compared (prefill tokens "
+        f"and decode steps fed the same tokens); plain top-{top_k} margin at a flip: min "
+        f"{out['min_margin']}, median {out['median_margin']}, max {out['max_margin']} (each at "
+        f"most the two runs' |Δp|: largest ratio {worst:.4f}); per layer {per_layer}")
+    return out
+
+
+def drop_shares(rec, n_layers: int, gen: int) -> list:
+    """The share of (token, k) choices dropped per layer in prefill, over
+    the run's waves."""
+    per_wave = (1 + gen) * n_layers
+    calls = rec["calls"]
+    out = []
+    for layer in range(n_layers):
+        keeps = [calls[w + layer][3] for w in range(0, len(calls), per_wave)]
+        out.append(float(1.0 - sum(float(k.float().mean()) for k in keeps) / len(keeps)))
+    return out
+
+
+def moe_bounds(cfg, params) -> dict:
+    """The two floors of the code's work: a decode step reads every
+    weight (the capacity dispatch runs all E experts on C = 4 slots) at
+    3.35 TB/s; a prefill wave's expert products compute E·C slots of
+    6·D·F operations per layer at 989 TFLOP/s."""
+    from repro_torch.models import layers
+
+    t = SERVE_BATCH * SERVE_PROMPT
+    cap = layers.moe_capacity(t, cfg.top_k, cfg.n_experts, cfg.moe_capacity_factor)
+    weight_bytes = sum(_bytes(x) for x in _leaves(params))
+    flop = cfg.n_layers * cfg.n_experts * cap * 6 * cfg.d_model * cfg.d_ff
+    return {"decode_weight_bytes": weight_bytes,
+            "decode_floor_ms": weight_bytes / PEAK_BYTES * 1e3,
+            "decode_capacity": layers.moe_capacity(SERVE_BATCH, cfg.top_k, cfg.n_experts,
+                                                   cfg.moe_capacity_factor),
+            "prefill_capacity": cap, "prefill_slots": cfg.n_experts * cap,
+            "prefill_choices": t * cfg.top_k, "prefill_expert_flop": flop,
+            "prefill_expert_floor_ms": flop / PEAK_BF16_TC * 1e3}
+
+
+def check_moe_block(cfg, lp, x) -> dict:
+    """``moe_block`` alone on the model's layer-0 input x (B, S, D) with
+    layer 0's weights: bf16 twice, the same bits; then f32 against f64,
+    both on the card (TF32 off): the routing may differ only where the f64
+    top-k margin is at most MOE_F64_MARGIN, the agreeing tokens' outputs
+    within ‖Δ‖ ≤ MOE_F32_REL·‖y‖, aux within MOE_F32_REL (plus what the
+    first choices that moved shift it)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor)
+    t, d = x.shape[0] * x.shape[1], x.shape[2]
+    cap = layers.moe_capacity(t, cfg.top_k, cfg.n_experts, cfg.moe_capacity_factor)
+    (y1, a1), (y2, a2) = layers.moe_block(lp, x, **kw), layers.moe_block(lp, x, **kw)
+    if not (torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+            and torch.equal(a1.view(torch.int32), a2.view(torch.int32))):
+        raise AssertionError("moe_block: two bf16 runs on the card give different bits")
+    ms = cuda_ms(lambda: layers.moe_block(lp, x, **kw), iters=5)
+    flop = cfg.n_experts * cap * 6 * d * cfg.d_ff
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 moe_block check needs full-f32 products")
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = {k: v.to(dt) for k, v in lp.items()}
+        xd = x.to(dt)
+        y, aux = layers.moe_block(p, xd, **kw)
+        route = layers.moe_route(p, xd.reshape(t, d), n_experts=cfg.n_experts,
+                                 top_k=cfg.top_k, capacity=cap)
+        out[dt] = (y.reshape(t, d), aux, route)
+        del p
+    (y32, a32, r32), (y64, a64, r64) = out[torch.float32], out[torch.float64]
+    same = (r32[2].sort(-1).values == r64[2].sort(-1).values).all(-1)
+    margin = topk_margin(r64[0], cfg.top_k)
+    flips = int((~same).sum())
+    if flips and not bool((margin[~same] <= MOE_F64_MARGIN).all()):
+        raise AssertionError(f"moe_block f32 vs f64: a routing flip at an f64 margin of "
+                             f"{float(margin[~same].max())}, over {MOE_F64_MARGIN}")
+    k32 = r32[4].view(t, -1).gather(1, r32[2].sort(-1).indices)
+    k64 = r64[4].view(t, -1).gather(1, r64[2].sort(-1).indices)
+    agree = same & (k32 == k64).all(-1)
+    a, b = y32[agree].double(), y64[agree]
+    rel = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    first = int((r32[2][:, 0] != r64[2][:, 0]).sum())
+    aux_bound = MOE_F32_REL * abs(float(a64)) + 2 * cfg.n_experts * first / t * float(
+        r64[0].mean(0).max())
+    if rel > MOE_F32_REL or abs(float(a32) - float(a64)) > aux_bound:
+        raise AssertionError(f"moe_block f32 vs f64: ‖Δ‖/‖y‖ {rel} over {int(agree.sum())} "
+                             f"agreeing tokens, aux {float(a32)} vs {float(a64)}")
+    report = {"bf16_same_bits_twice": True, "bf16_ms": ms, "expert_flop": flop,
+              "expert_floor_ms": flop / PEAK_BF16_TC * 1e3, "tokens": t, "capacity": cap,
+              "f64_flips": flips, "f64_min_margin": float(margin.min()),
+              "agreeing_tokens": int(agree.sum()), "f32_rel": rel,
+              "f32_max_abs": float((a - b).abs().max()), "y_max": float(b.abs().max()),
+              "aux_f32": float(a32), "aux_f64": float(a64),
+              "dropped_share": float(1 - r64[4].double().mean())}
+    log(f"moe_block alone ({cfg.arch} layer 0, T={t}, C={cap}): bf16 twice on the card, the "
+        f"same bits; {ms:.3f} ms (expert products {flop:.4g} FLOP, floor "
+        f"{report['expert_floor_ms']:.3f} ms at 989 TFLOP/s); f32 vs f64 on the card: "
+        f"{flips} routing flips (allowed at f64 margins ≤ {MOE_F64_MARGIN:g}; smallest f64 "
+        f"margin {report['f64_min_margin']:.3g}), {int(agree.sum())} of {t} tokens agree, "
+        f"‖Δ‖/‖y‖ {rel:.3g} (≤ {MOE_F32_REL:g}), max |Δ| {report['f32_max_abs']:.3g} of "
+        f"max |y| {report['y_max']:.4g}; aux {float(a32):.9g} vs {float(a64):.9g}; dropped "
+        f"{report['dropped_share']:.4f} of the choices")
+    return report
+
+
+def image_then_text(b: int, s: int, grid: int):
+    """positions3 (3, B, S) as numpy: a grid × grid patch image (t = 0,
+    h = row, w = col), then text whose three streams continue together from
+    the grid's largest position + 1."""
+    import numpy as np
+
+    pos = np.zeros((3, b, s), np.int32)
+    n = min(grid * grid, s)
+    idx = np.arange(n)
+    pos[1, :, :n] = idx // grid
+    pos[2, :, :n] = idx % grid
+    pos[:, :, n:] = np.arange(s - n, dtype=np.int32) + grid
+    return pos
+
+
+def phase_vlm(smi: str):
+    """Qwen2-VL-7B at full width and depth: ``model.prefill`` on B × S
+    seeded stub embeddings with an image-then-text ``positions3``, then
+    VLM_GEN greedy decode steps from that cache (JAX's 1-D RoPE decode);
+    pallas (counted: flash_attention once per layer), the plain path, f64
+    attention (the noise floor) and chunked, held to the plain path by phase
+    18's rule; then ``serve_loop`` through ``make_run_wave``'s vlm branch,
+    which decodes from an empty cache.  Returns (launches, the recorded
+    kernel calls, the report)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request
+    from repro_torch.models.api import build_model, make_serve_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(replace(base, attn_mode="pallas"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    embeds = torch.from_numpy(rng.normal(size=(SERVE_BATCH, SERVE_PROMPT, base.d_model))
+                              .astype(np.float32)).cuda()
+    pos3 = torch.from_numpy(image_then_text(SERVE_BATCH, SERVE_PROMPT, VLM_GRID)).cuda()
+    batch = {"embeds": embeds, "positions3": pos3}
+    torch.cuda.synchronize()
+    log(f"{VLM_ARCH}: {n_params / 1e9:.4f} B parameters ({base.dtype}, "
+        f"{sum(_bytes(t) for t in _leaves(params)) / 1e9:.3f} GB; {held / 1e9:.2f} GB held by "
+        f"earlier phases); M-RoPE sections {base.mrope_sections}; B={SERVE_BATCH} × "
+        f"S={SERVE_PROMPT} stub embeddings, a {VLM_GRID}×{VLM_GRID} image then "
+        f"{SERVE_PROMPT - VLM_GRID * VLM_GRID} text positions; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(m):
+        """Prefill, then VLM_GEN greedy decode steps: ({row: tokens},
+        [[the logits of each call]], prefill s, decode s per step)."""
+        serve = make_serve_step(m)
+        dec = []
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = m.prefill(params, batch, SERVE_CAP)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            pre = time.perf_counter() - t0
+            calls, toks = [logits], []
+            for _ in range(VLM_GEN):
+                t0 = time.perf_counter()
+                tok, logits, cache = serve(params, cache, tok)
+                toks.append(tok[:, 0].cpu().numpy())
+                dec.append(time.perf_counter() - t0)
+                calls.append(logits)
+        toks = np.stack(toks, 1)
+        return {j: toks[j] for j in range(SERVE_BATCH)}, [calls], pre, dec
+
+    with torch.inference_mode():
+        model.prefill(params, batch, SERVE_CAP)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    n_l = base.n_layers
+    with recording(("flash_attention",), keep=lambda i: i in (0, n_l - 1)) as captured:
+        ops.reset_launches()
+        out, logits, pre, dec = run(model)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if launches != {"flash_attention": n_l}:
+        raise AssertionError(f"{VLM_ARCH}: launched {launches}, not flash_attention {n_l}")
+    if not all(bool(torch.isfinite(x).all()) for x in logits[0]):
+        raise AssertionError(f"{VLM_ARCH}: non-finite logits")
+    for toks in out.values():
+        if not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"{VLM_ARCH}: tokens {toks}")
+    flop = 2 * n_params * SERVE_BATCH * SERVE_PROMPT
+    report = {"card": smi, "pallas": {"prefill_ms": pre * 1e3,
+                                      "decode_ms_per_step": statistics.median(dec) * 1e3,
+                                      "prefill_model_flop": flop,
+                                      "prefill_flop_share": flop / pre / PEAK_BF16_TC},
+              "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9, "n_params": n_params}
+    runs = {"pallas": (out, logits)}
+    for name, mode in (("ref", "ref"), ("exact", exact_attention), ("chunked", "chunked")):
+        o, lg, p_s, d_s = run(build_model(replace(base, attn_mode=mode)))
+        runs[name] = (o, lg)
+        if name != "exact":
+            report[name] = {"prefill_ms": p_s * 1e3,
+                            "decode_ms_per_step": statistics.median(d_s) * 1e3}
+    _, noise, same, std = path_gap(runs["ref"][1], runs["exact"][1])
+    report["noise_floor"] = {"max_abs": noise, "same_token_steps": same, "logit_std": std}
+    log(f"{VLM_ARCH} noise floor: the plain path's logits differ from those with exactly "
+        f"rounded (f64) prefill attention by up to {noise:.6g} ({noise / std:.4f} of their "
+        f"std {std:.6g}) over the {same} steps fed the same tokens")
+    for name in ("pallas", "chunked"):
+        report[f"{name}_vs_ref"] = compare_paths(f"{VLM_ARCH} {name} vs ref", runs[name],
+                                                 runs["ref"], runs["exact"][1], noise, VLM_GEN)
+    del runs, logits
+    # the serve loop's vlm branch: no prefill, an empty cache and a zero token
+    prompts = rng.integers(0, base.vocab, (SERVE_REQUESTS, SERVE_PROMPT))
+    ops.reset_launches()
+    served, slog, tracer, wall = _serve_once(
+        model, params, [Request(rid=i, prompt=prompts[i]) for i in range(SERVE_REQUESTS)])
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"{VLM_ARCH} serve: launched {dict(ops.LAUNCHES)} with no prefill")
+    if sorted(served) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"{VLM_ARCH} serve: served {sorted(served)}")
+    if any(not np.array_equal(t, served[0]) for t in served.values()):
+        raise AssertionError(f"{VLM_ARCH} serve: requests decoded from the same empty cache "
+                             "and zero token differ")
+    if not all(bool(torch.isfinite(x).all()) for w in slog for x in w):
+        raise AssertionError(f"{VLM_ARCH} serve: non-finite logits")
+    report["serve_from_empty"] = _serve_numbers(tracer, wall, len(served))
+    r, s_ = report["pallas"], report["serve_from_empty"]
+    log(f"{VLM_ARCH} ({smi}): prefill {r['prefill_ms']:.3f} ms for {SERVE_BATCH}×{SERVE_PROMPT} "
+        f"(model FLOPs 2·N·tokens {flop:.4g}, share {r['prefill_flop_share']:.4f} of 989 "
+        f"TFLOP/s; ref {report['ref']['prefill_ms']:.3f}, chunked "
+        f"{report['chunked']['prefill_ms']:.3f}); decode {r['decode_ms_per_step']:.3f} ms per "
+        f"step from that cache; peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held; "
+        f"serve_loop (vlm branch, decode from an empty cache): {len(served)} requests, decode "
+        f"{s_['decode_ms_per_step']:.3f} ms per step, {s_['tokens_per_s']:.6g} tokens/s, "
+        f"latency p50 {s_['latency_p50_s']:.4f} s, p99 {s_['latency_p99_s']:.4f} s; every "
+        f"request the same {SERVE_GEN} tokens")
+    del params, model, embeds, batch
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("vlm: " + json.dumps(report))
+    log(f"vlm phase took {report['phase_s']:.1f} s")
+    return launches["flash_attention"], list(captured), report
 
 
 # ---------------------------------------------------------------------------
@@ -3656,10 +4173,20 @@ def main() -> int:
         stream_launches = phase_stream(tables, ctx, frames, a.reps)
         log(f"stream phase took {time.perf_counter() - t0:.1f} s")
         spmd_launches = phase_spmd(tables, frames, a.reps, pool, smi)
-        fa_launches, fa_captured, serve_report, serve_wave = phase_serve()
+        fa_launches, fa_captured, serve_report, serve_wave = serve_cell(SERVE_ARCH, smi)
         train_report = phase_train(smi, a.profile)
+        if not a.profile:
+            serve_wave = None  # frees Qwen2-1.5B's served parameters before the MoE phases
+        for run in (lambda: serve_cell(MOE_ARCH, smi, check_block=True, sample_calls=True),
+                    lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
+                                       requests_n=SERVE_BATCH, gen=MIXTRAL_GEN, chunked=False,
+                                       sample_calls=True),
+                    lambda: phase_vlm(smi)):
+            n, calls = run()[:2]  # the rest holds the model: dropped before the next phase
+            fa_launches += n
+            fa_captured += calls
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
-                        flash_attention=fa_launches["flash_attention"])
+                        flash_attention=fa_launches)
         for k, n in list(stream_launches.items()) + list(spmd_launches.items()):
             launches[k] += n
         captured += km_captured + seg_captured + fa_captured

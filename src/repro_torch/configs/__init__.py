@@ -1,5 +1,6 @@
-"""Architecture configs: the dense ones of ``repro/configs``, copied
-verbatim (the other families wait for their slices)."""
+"""Architecture configs: the dense, MoE and VLM ones of ``repro/configs``,
+copied verbatim, in the JAX dict's order (the hybrid, RWKV and enc-dec
+families wait for their slices)."""
 
 from importlib import import_module
 from typing import List
@@ -11,6 +12,9 @@ _MODULES = {
     "glm4-9b": "glm4_9b",
     "qwen2-1.5b": "qwen2_1_5b",
     "granite-34b": "granite_34b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

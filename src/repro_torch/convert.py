@@ -51,8 +51,14 @@ def tensors_from_arrays(*arrays: np.ndarray, device: Any = None) -> List[torch.T
 def _leaf_from_numpy(a: Any) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch.from_numpy refuses
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+        return torch.from_numpy(np.array(a, copy=True).view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+#: leaves that stay at least f32 when a tree is carried at a narrower
+#: dtype: the MoE router, which JAX keeps f32 whatever the model's dtype
+#: (in bf16 its top-k would route other experts)
+KEEP_F32 = ("router",)
 
 
 def params_from_jax(tree: Any, device: Any = None,
@@ -60,11 +66,16 @@ def params_from_jax(tree: Any, device: Any = None,
     """A JAX parameter tree (nested dicts of arrays, e.g. through
     ``jax.device_get``) as the same tree of tensors on ``device``
     (``cuda`` unless given); floating leaves are cast to ``dtype`` where
-    one is given.  Stacked per-layer leaves keep their leading axis."""
+    one is given, except that a leaf named in ``KEEP_F32`` goes no
+    narrower than f32.  Stacked per-layer leaves keep their leading axis."""
     dev = resolve_device(device)
-    if isinstance(tree, Mapping):
-        return {k: params_from_jax(v, dev, dtype) for k, v in tree.items()}
-    t = _leaf_from_numpy(tree)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t.to(dev)
+
+    def carry(node: Any, name: str) -> Any:
+        if isinstance(node, Mapping):
+            return {k: carry(v, k) for k, v in node.items()}
+        t = _leaf_from_numpy(node)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(torch.promote_types(dtype, torch.float32) if name in KEEP_F32 else dtype)
+        return t.to(dev)
+
+    return carry(tree, "")

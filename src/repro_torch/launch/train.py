@@ -25,6 +25,7 @@ import time
 from dataclasses import replace
 from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config, get_reduced
@@ -39,24 +40,31 @@ from ..train.optimizer import AdamW
 def make_batch_fn(cfg, pipeline: TokenPipeline,
                   device: Any = None) -> Callable[[int], Dict[str, torch.Tensor]]:
     """Adapt the token pipeline to the family's batch dict, on ``device``.
-    Only the dense family is ported; the vlm and encdec batches wait for
-    their families."""
-    if cfg.family == "vlm":
-        raise NotImplementedError("the vlm family's batches (embeds, positions3) wait "
-                                  "for ROADMAP Queue 1 item 8.3")
+    The VLM batch, as JAX's: stub patch embeddings (B, S, D) as f32
+    normals from ``np.random.default_rng((1234, step))``, ``positions3``
+    the broadcast arange (3, B, S), and no tokens.  The enc-dec batch waits
+    for its family."""
     if cfg.family == "encdec":
         raise NotImplementedError("the encdec family's batches (frames) wait for "
                                   "ROADMAP Queue 1 item 8.6")
 
     def at(step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(device) for k, v in pipeline.batch_at(step).items()}
+        b = pipeline.batch_at(step)
+        if cfg.family == "vlm":
+            bsz, s = b.pop("tokens").shape
+            rng = np.random.default_rng((1234, step))
+            b["embeds"] = rng.normal(size=(bsz, s, cfg.d_model)).astype(np.float32)
+            b["positions3"] = np.broadcast_to(np.arange(s, dtype=np.int32), (3, bsz, s)).copy()
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
     return at
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b",
+                    help="a dense, MoE or VLM config (the VLM trains on stub patch "
+                         "embeddings)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--layers", type=int, default=None,

@@ -3,7 +3,8 @@
 The port's copy of ``repro/models/api.py``.  ``build_model(cfg)`` returns
 a ``Model`` facade with uniform entry points (init / loss / prefill /
 decode / state init); the step factories make the functions the train and
-serve launchers call.  Only the dense family is built.
+serve launchers call.  The dense, MoE and VLM families are built (JAX's
+first branch); hybrid, RWKV and enc-dec wait for their slices.
 
 ``make_train_step`` takes gradients with ``torch.autograd.grad`` over
 detached copies of the parameter leaves and returns them as a tree (JAX's
@@ -122,21 +123,26 @@ class Model:
     init_state: Optional[Callable] = None  # (batch, cap) → decode state
 
 
+#: the families that wait for their slice, and their ROADMAP Queue 1 items
+_NOT_PORTED = {"hybrid": "8.4", "rwkv": "8.5", "encdec": "8.6"}
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             cfg=cfg,
             init=lambda gen: lm.init_lm(cfg, gen),
             loss=lambda p, b: lm.lm_loss(p, cfg, b),
             prefill=lambda p, b, cap: lm.prefill(
                 p, cfg, tokens=b.get("tokens"), embeds=b.get("embeds"),
-                cache_capacity=cap),
+                cache_capacity=cap, positions3=b.get("positions3")),
             decode=lambda p, cache, toks: lm.decode_step(p, cfg, cache, toks),
             init_state=lambda bsz, cap, device=None: lm.init_cache(cfg, bsz, cap, device),
         )
-    if cfg.family in ("moe", "vlm", "hybrid", "rwkv", "encdec"):
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP Queue 1 item 8)")
+            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP Queue 1 item "
+            f"{_NOT_PORTED[cfg.family]})")
     raise ValueError(f"unknown family {cfg.family}")
 
 

@@ -768,6 +768,103 @@ def test_train_driver_on_card(card, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the MoE and VLM families on the card
+# ---------------------------------------------------------------------------
+
+
+def _moe_inputs(card, dtype, seed=0, t=2048, d=256, f=128, e=64):
+    """Layer weights as ``init_moe`` makes them (the router f32) and
+    rmsnorm-scaled rows (B=4), from a seed."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(card).manual_seed(seed)
+    p = layers.init_moe(gen, d, f, e, dtype=dtype)
+    x = torch.randn((4, t // 4, d), generator=gen, device=card).to(dtype)
+    return p, x
+
+
+def test_moe_block_gives_the_same_bits_twice_on_card(card):
+    """bf16 at Moonlight's 64 experts, top-6, capacity 1.25 (choices
+    dropped): the dispatch places unique slots and the combine adds in k
+    order, so no atomic sum makes two runs differ."""
+    from repro_torch.models import layers
+
+    p, x = _moe_inputs(card, torch.bfloat16)
+    kw = dict(n_experts=64, top_k=6, capacity_factor=1.25)
+    (y1, a1), (y2, a2) = layers.moe_block(p, x, **kw), layers.moe_block(p, x, **kw)
+    assert y1.dtype == torch.bfloat16 and y1.device.type == torch.device(card).type
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(a1.view(torch.int32), a2.view(torch.int32))
+    *_, keep = layers.moe_route(p, x.reshape(-1, x.shape[-1]), n_experts=64, top_k=6,
+                                capacity=layers.moe_capacity(2048, 6, 64, 1.25))
+    assert not bool(keep.all())
+
+
+def test_moe_block_f32_matches_f64_on_card(card):
+    """f32 on the card against the same function in f64 on the card (TF32
+    off): the same routing wherever the f64 top-k margin is above 1e-5, the
+    agreeing tokens' outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5."""
+    from repro_torch.models import layers
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p, x = _moe_inputs(card, torch.float32, seed=1)
+        p64 = {k: v.double() for k, v in p.items()}
+        kw = dict(n_experts=64, top_k=6, capacity_factor=1.25)
+        y32, a32 = layers.moe_block(p, x, **kw)
+        y64, a64 = layers.moe_block(p64, x.double(), **kw)
+        cap = layers.moe_capacity(2048, 6, 64, 1.25)
+        r32 = layers.moe_route(p, x.reshape(2048, -1), n_experts=64, top_k=6, capacity=cap)
+        r64 = layers.moe_route(p64, x.double().reshape(2048, -1), n_experts=64, top_k=6,
+                               capacity=cap)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert r64[0].dtype == torch.float64 and y64.dtype == torch.float64
+    sets32, sets64 = r32[2].sort(-1).values, r64[2].sort(-1).values
+    same = (sets32 == sets64).all(-1)
+    top = r64[0].sort(-1, descending=True).values
+    margin = top[:, 5] - top[:, 6]
+    assert bool((margin[~same] <= 1e-5).all())
+    agree = same & (r32[4].view(2048, 6) == r64[4].view(2048, 6)).all(-1)
+    assert int(agree.sum()) >= 2000
+    a, b = y32.reshape(2048, -1)[agree].double(), y64.reshape(2048, -1)[agree]
+    assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= 1e-5
+    assert abs(float(a32) - float(a64)) <= 1e-5 * abs(float(a64))
+
+
+def test_moe_and_vlm_serve_waves_on_card(card):
+    """The reduced Moonlight and Qwen2-VL (f32) served on the card: the
+    kernel's path and the plain path give the same greedy tokens, the
+    kernel once per layer per prefilled wave (the VLM's waves decode from an
+    empty cache and launch none)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import Request, make_run_wave, serve_loop
+    from repro_torch.models.api import build_model
+
+    for arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b"):
+        cfg = get_reduced(arch)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab, (8, 16))
+        outs = {}
+        for mode in ("pallas", "ref"):
+            model = build_model(dataclasses.replace(cfg, attn_mode=mode))
+            params = model.init(torch.Generator(card).manual_seed(0))
+            run_wave = make_run_wave(model, params, batch=4, prompt_len=16, gen=4,
+                                     cache_cap=24, device=card)
+            before = ops.LAUNCHES["flash_attention"]
+            outs[mode] = serve_loop([Request(rid=i, prompt=prompts[i]) for i in range(8)],
+                                    run_wave, batch=4)
+            launched = ops.LAUNCHES["flash_attention"] - before
+            prefilled = mode == "pallas" and cfg.family == "moe"
+            assert launched == (2 * cfg.n_layers if prefilled else 0), arch
+        assert sorted(outs["pallas"]) == list(range(8))
+        for rid, toks in outs["ref"].items():
+            np.testing.assert_array_equal(outs["pallas"][rid], toks)
+
+
+# ---------------------------------------------------------------------------
 # the compile driver on the card: cost search, the fallback ladder, taps
 # ---------------------------------------------------------------------------
 

@@ -95,9 +95,10 @@ def test_qwen2_forward_prefill_and_decode_match_jax(mode):
     b, s, steps, cap = 2, 8, 4, 16
     toks = rng.integers(0, jcfg.vocab, (b, s + steps)).astype(np.int32)
 
-    want, _ = jlm.forward(params, jcfg, tokens=jnp.asarray(toks[:, :s]))
-    got = lm.forward(tp, tcfg, tokens=torch.from_numpy(toks[:, :s]))
+    want, jaux = jlm.forward(params, jcfg, tokens=jnp.asarray(toks[:, :s]))
+    got, aux = lm.forward(tp, tcfg, tokens=torch.from_numpy(toks[:, :s]))
     _close(got, want)
+    assert float(aux) == float(jaux) == 0.0  # a dense model has no aux loss
 
     jlogits, jcache = jlm.prefill(params, jcfg, tokens=jnp.asarray(toks[:, :s]),
                                   cache_capacity=cap)
@@ -124,7 +125,7 @@ def test_decode_agrees_with_forward():
     (``tests/test_models_smoke.py::test_decode_consistent_with_forward``)."""
     _, _, tcfg, tp = _models("qwen2-1.5b", "pallas")
     toks = torch.from_numpy(np.random.default_rng(5).integers(0, tcfg.vocab, (1, 8)))
-    full = lm.forward(tp, tcfg, tokens=toks)
+    full, _ = lm.forward(tp, tcfg, tokens=toks)
     pre, cache = lm.prefill(tp, tcfg, tokens=toks[:, :7], cache_capacity=8)
     _close(pre, full[:, 6])
     dec, _ = lm.decode_step(tp, tcfg, cache, toks[:, 7:])
@@ -145,14 +146,15 @@ def test_rotating_cache_write_matches_jax():
     _close(cache["k"], jcache["k"])
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family == "dense"])
 def test_dense_forward_matches_jax(arch):
     """Every dense config: gelu MLPs (starcoder2, granite), MQA (granite),
-    no QKV bias (glm4)."""
+    no QKV bias (glm4).  The MoE and VLM configs are held in
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_vlm.py``."""
     jcfg, params, tcfg, tp = _models(arch, "chunked", seed=2)
     toks = np.random.default_rng(3).integers(0, jcfg.vocab, (2, 8)).astype(np.int32)
     want, _ = jlm.forward(params, jcfg, tokens=jnp.asarray(toks))
-    _close(lm.forward(tp, tcfg, tokens=torch.from_numpy(toks)), want)
+    _close(lm.forward(tp, tcfg, tokens=torch.from_numpy(toks))[0], want)
 
 
 def test_gelu_is_the_tanh_approximation():
@@ -208,11 +210,23 @@ def test_serve_step_is_greedy():
     assert torch.equal(tok[:, 0], logits.argmax(-1).int()) and cache["len"] == 5
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "rwkv", "encdec"])
-def test_other_families_are_not_ported(family):
+@pytest.mark.parametrize("family,item", [("hybrid", "8.4"), ("rwkv", "8.5"), ("encdec", "8.6")])
+def test_other_families_are_not_ported(family, item):
     cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b"])
+def test_moe_and_vlm_families_build(arch):
+    """The two families this slice ports build, with every entry point."""
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    assert cfg.family in ("moe", "vlm")
+    assert None not in (model.prefill, model.decode, model.init_state)
+    state = model.init_state(2, 8)
+    assert state["len"] == 0 and state["k"].shape == (cfg.n_layers, 2, cfg.n_kv_heads, 8,
+                                                      cfg.d_head)
 
 
 def test_layernorm_matches_jax():
