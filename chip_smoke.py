@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the torch port: TPC-H, k-means, serving and training
-Qwen2-1.5B, serving Moonlight-16B-A3B, Mixtral-8x7B's widths and Qwen2-VL-7B
-through ``repro_torch`` on one GPU.
+Qwen2-1.5B, serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
+Zamba2-7B and RWKV6-1.6B through ``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -153,9 +153,10 @@ Phases, each printing its own lines:
    plain one; the kernel against its plain version on edge cases first
    (S ∈ {1, 77, 200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 on the
    CUDA-core kernel and bf16 on the tensor-core one, non-causal, windows
-   64 and 128, a non-default scale), each with its share of the bound and,
-   in bf16, its distance from the tensor-core recipe
-   (``ref.flash_attention_tiled``);
+   64 and 128, a non-default scale; then D = 112 at S ∈ {1, 200, 2048},
+   group ∈ {1, 4}, causal and windowed, f32 and bf16), each with its route,
+   its share of the bound and, in bf16, its distance from the tensor-core
+   recipe (``ref.flash_attention_tiled``);
 19. the training path (``models.api.make_train_step``: ``lm_loss`` with
    the chunked CE loss, autograd through ``chunked_attention`` with remat,
    AdamW): ``attention(mode="pallas")`` must refuse under grad; Qwen2-1.5B's
@@ -210,7 +211,30 @@ Phases, each printing its own lines:
    18's rule; then ``serve_loop`` through ``make_run_wave``'s vlm branch,
    which decodes from an empty cache with a zero token and no prefill, as
    JAX's launcher does: every request the same tokens;
-23. each kernel against its plain version on the inputs the paths gave it,
+23. the hybrid family: Zamba2-7B (``configs/zamba2_7b.py`` ``CONFIG``, 81
+   Mamba2 layers, the shared attention + MLP at 14 points with d_head 112,
+   bf16, 6.63 B parameters from ``model.init`` with seed 0, drawn layer by
+   layer): ``model.prefill`` on 4 × 2048 numpy-seeded tokens, then 32 greedy
+   decode steps from that state; pallas (``flash_attention`` 14 times at
+   (4, 32, 2048, 112), counted), the plain path, f64 attention and
+   chunked, held by phase 18's rule; the D = 112 call's ms and TFLOP/s
+   beside the same shape at D = 128; ``ssd_chunked`` alone at a layer's
+   shapes (4, 2048, 112, 64, N 64, chunk 64), f32 against f64 on the card
+   (‖Δ‖ ≤ 1e-5·‖y‖), timed beside its floor; the floors of prefill (2·N·
+   tokens at 989 TFLOP/s and the SSD's f32 einsums at 67) and decode (the
+   weights and the SSM and KV state at 3.35 TB/s); then ``serve_loop``
+   through ``make_run_wave``'s hybrid branch (an empty state, no prefill:
+   every request the same tokens);
+24. the RWKV family: RWKV6-1.6B (``configs/rwkv6_1_6b.py`` ``CONFIG``, 24
+   layers, bf16, seed 0): ``model.prefill`` on 4 × 2048 tokens, then 32
+   decode steps (no kernel: RWKV has no attention); the same weights in
+   f32 and f64 on the card, the f32 logits within 1e-4 of the f64 logits'
+   largest magnitude and the bf16 logits' RMS distance within 0.15 of
+   their std (over the steps fed the same tokens); in f32, decode after a
+   prefill of S − 1 tokens against the prefill of S (2e-3); the time
+   scan's host cost (prefill µs per (position, layer)); then ``serve_loop``
+   through the rwkv branch;
+25. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -219,10 +243,11 @@ Phases, each printing its own lines:
    each call's points (the card's achieved read rate, not a library call); each served attention call's distance from the
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
-   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``); the MoE
-   and VLM phases add the first and last layer's call of their counted
-   run;
-24. per-query latency (median over ``--reps`` after a warm-up, each run
+   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``), once per
+   head width (128, and 112 from Zamba2-7B); the MoE, VLM and hybrid
+   phases add the first and last layer's (attention point's) call of their
+   counted run;
+26. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -233,7 +258,7 @@ Then the card's line, the ``kernels`` JSON line (the relational kernels'
 launches count the TPC-H path's run, the stream phase's counted folds and
 the spmd ranks' main runs; ``kmeans_step``'s the k-means path's and the
 spmd ranks' steps; ``flash_attention``'s the served Qwen2-1.5B, Moonlight,
-Mixtral and Qwen2-VL runs) and, last,
+Mixtral, Qwen2-VL and Zamba2-7B runs) and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -280,7 +305,17 @@ so flips are counted and each checked to sit at a margin the two runs'
 the plain path's.  ``moe_block`` alone: bf16 twice the same bits; f32
 against f64 on the card, routing flips only at f64 margins ≤ 1e-5 (the
 f32 router moves a probability by about 1e-8), the agreeing tokens'
-outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.
+outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.  The hybrid's paths go by
+phase 18's rule; random Mamba layers amplify a rounding (the norm inside
+the block divides rows of small RMS), so at 81 layers the noise floor is
+itself several std and the rule has little power there: the per-call
+kernel check (phase 25) holds the D = 112 kernel.  ``ssd_chunked`` alone:
+f32 against f64 within ‖Δ‖ ≤ 1e-5·‖y‖ (f32 rounding of 64-term chunk
+sums).  RWKV6 against f64 on the card: f32 within 1e-4 of the largest
+f64 logit; bf16 by the RMS of the difference, at most 0.15 of the
+logits' std (bf16 rounds every product and the residual stream to 8 bits
+through 24 layers; ``tests/test_torch_rwkv.py`` holds the same bound at
+24 layers on the CPU).
 """
 
 from __future__ import annotations
@@ -354,6 +389,22 @@ MOE_F64_MARGIN, MOE_F32_REL = 1e-5, 1e-5
 #: SERVE_PROMPT stub embeddings, a VLM_GRID × VLM_GRID image then text,
 #: VLM_GEN decode steps
 VLM_ARCH, VLM_GRID, VLM_GEN = "qwen2-vl-7b", 32, 32
+#: the hybrid family: Zamba2-7B at full width and depth (81 Mamba2 layers,
+#: the shared attention at 14 points with d_head 112), SERVE_BATCH ×
+#: SERVE_PROMPT tokens, ZAMBA_GEN decode steps; ssd_chunked alone, f32
+#: against f64 on the card, within ‖Δ‖ ≤ SSD_REL·‖y‖ (f32 rounding of a
+#: 64-term chunk sum gives about 1e-6)
+ZAMBA_ARCH, ZAMBA_GEN, SSD_REL = "zamba2-7b", 32, 1e-5
+#: the RWKV family: RWKV6-1.6B at full width and depth, SERVE_BATCH ×
+#: RWKV_PROMPT tokens, RWKV_GEN decode steps; against the same weights in
+#: f64 on the card, over the steps fed the same tokens: the f32 logits
+#: within RWKV_F32_REL of the f64 logits' largest magnitude (f32 rounding
+#: through 24 layers and a 2048-step scan), the bf16 ones' RMS distance
+#: within RWKV_BF16_RMS of their std (bf16 rounds every product and the
+#: residual stream to 8 bits; tests/test_torch_rwkv.py holds 24 layers of
+#: random weights on the CPU to the same share)
+RWKV_ARCH, RWKV_PROMPT, RWKV_GEN = "rwkv6-1.6b", 2048, 32
+RWKV_F32_REL, RWKV_BF16_RMS = 1e-4, 0.15
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -1668,7 +1719,10 @@ def phase_sql(tables, ctx) -> None:
 def phase_edges_attention() -> None:
     """flash_attention against its plain version at the edges: S ∈ {1, 77,
     200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 and bf16, causal or
-    not, windows 64 and 128, non-default scales."""
+    not, windows 64 and 128, non-default scales; then D = 112 (Zamba2-7B's
+    shared attention: the tensor-core kernel's D = 128 tile, zero-filled)
+    at every combination of f32 and bf16, causal and windowed (128),
+    group 1 and 4, S ∈ {1, 200, 2048}, each printing its route."""
     import itertools
 
     import numpy as np
@@ -1679,18 +1733,23 @@ def phase_edges_attention() -> None:
     variants = [(True, None, None), (False, None, None), (True, 64, None),
                 (False, 128, 0.3), (True, 128, None), (True, None, 0.05)]
     rng = np.random.default_rng(9)
-    cases = list(itertools.product((1, 77, 200, 2048), (32, 64, 128), (1, 6)))
+    cases = [(s, d, group, *variants[i % len(variants)],
+              (torch.float32, torch.bfloat16)[(i // len(variants)) % 2])
+             for i, (s, d, group) in enumerate(itertools.product((1, 77, 200, 2048),
+                                                                 (32, 64, 128), (1, 6)))]
+    cases += [(s, 112, group, True, window, None, dtype) for s, group, window, dtype in
+              itertools.product((1, 200, 2048), (1, 4), (None, 128),
+                                (torch.float32, torch.bfloat16))]
     shares = []
-    for i, (s, d, group) in enumerate(cases):
-        causal, window, scale = variants[i % len(variants)]
-        dtype = (torch.float32, torch.bfloat16)[(i // len(variants)) % 2]
+    for s, d, group, causal, window, scale, dtype in cases:
         q, k, v = (torch.tensor(rng.normal(size=(2, h, s, d)), dtype=dtype, device="cuda")
                    for h in (2 * group, 2, 2))
         kw = dict(causal=causal, window=window, sm_scale=scale)
         what = f"flash_attention[S={s},D={d},group={group},{dtype},{kw}]"
         got = ops.flash_attention(q, k, v, **kw)
         err, share = check_attention(what, got, ref.flash_attention(q, k, v, **kw), v)
-        row = {"case": what, "max_abs_err": err, "bound_share": share}
+        route = FA_TENSOR_CORE if dtype == torch.bfloat16 else FA_CUDA_CORE
+        row = {"case": what, "route": route, "max_abs_err": err, "bound_share": share}
         if dtype == torch.bfloat16:
             row["max_abs_from_tiled"] = tiled_gap(got, (q, k, v), kw)
         shares.append(row)
@@ -1701,6 +1760,11 @@ def phase_edges_attention() -> None:
     log(f"edge cases: {len(cases)} flash_attention calls match their plain version; worst share "
         f"of the bound: f32 (fa_main) {worst['float32']:.4f}, bf16 (fa_wgmma) "
         f"{worst['bfloat16']:.4f}")
+    d112 = [r for r in shares if ",D=112," in r["case"]]
+    log(f"edge cases at D = 112: {len(d112)} calls match their plain version; worst share of the "
+        "bound: " + ", ".join(
+            f"{t} ({r}) {max(x['bound_share'] for x in d112 if x['route'] == r):.4f}"
+            for t, r in (("f32", FA_CUDA_CORE), ("bf16", FA_TENSOR_CORE))))
 
 
 def _watched(model):
@@ -1785,6 +1849,21 @@ def path_gap(glog, wlog):
             same += n
     std = float(torch.cat([w[0].flatten() for w in wlog]).std())
     return pre, worst, same, std
+
+
+def logit_rms_gap(glog, wlog) -> float:
+    """The RMS of two runs' logit differences over every step both were fed
+    the same tokens (as ``path_gap`` counts them)."""
+    import torch
+
+    sq, n = 0.0, 0
+    for g, w, fed in zip(glog, wlog, fed_same(glog, wlog)):
+        gl, wl = torch.stack(g), torch.stack(w)                     # (steps, B, V)
+        for j, k in enumerate(fed):
+            d = (gl[:k, j] - wl[:k, j]).double()
+            sq += float((d * d).sum())
+            n += d.numel()
+    return (sq / n) ** 0.5
 
 
 def exact_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
@@ -2148,22 +2227,35 @@ def phase_kernels(captured, launches, pool):
         f"({km['bytes_ms'] * PEAK_BYTES / 1e3 / km['read_floor_ms'] / 1e9:.4g} TB/s); "
         f"kmeans_step wrapper {km['ms']:.4f} ms, {km['ms'] / km['read_floor_ms']:.3f}x the floor, "
         f"bound {km['bytes_ms']:.4f} ms")
-    phase_attention_route([c for c in captured if c[0] == "flash_attention"])
+    own = phase_attention_route([c for c in captured if c[0] == "flash_attention"])
+    next(r for r in out if r["name"] == "flash_attention")["own_ms_by_head_width"] = own
     return out
 
 
-def phase_attention_route(calls) -> None:
-    """One served flash_attention call (bf16) under torch.profiler, after a
-    warm-up window: its device kernels must be the tensor-core kernel and
-    not the CUDA-core one."""
+def phase_attention_route(calls) -> dict:
+    """The first served flash_attention call (bf16) of each head width (128;
+    112 from Zamba2-7B) under torch.profiler, after a warm-up window: its
+    device kernels must be the tensor-core kernel and not the CUDA-core
+    one.  Returns {D: {"shape", "own_ms"}}: the tensor-core kernel's own
+    device ms per call."""
     from repro_torch.kernels import ops
 
-    _, args, kw = calls[0]
-    names = device_kernels(lambda: ops.flash_attention(*args, **kw))
-    if not any(FA_TENSOR_CORE in n for n in names) or any(FA_CUDA_CORE in n for n in names):
-        raise AssertionError(f"a served flash_attention call ran {names}, not {FA_TENSOR_CORE}")
-    log(f"served flash_attention call (q {tuple(args[0].shape)}, {args[0].dtype}) ran on the "
-        f"card as: {names}")
+    firsts = {}
+    for _, args, kw in calls:
+        firsts.setdefault(args[0].shape[-1], (args, kw))
+    own = {}
+    for d, (args, kw) in sorted(firsts.items()):
+        times = device_ms_by_kernel(lambda: ops.flash_attention(*args, **kw))
+        names = sorted(times)
+        if not any(FA_TENSOR_CORE in n for n in names) or any(FA_CUDA_CORE in n for n in names):
+            raise AssertionError(f"a served flash_attention call at D = {d} ran {names}, not "
+                                 f"{FA_TENSOR_CORE}")
+        own[d] = {"shape": list(args[0].shape),
+                  "own_ms": sum(t for n, t in times.items() if FA_TENSOR_CORE in n)}
+        log(f"served flash_attention call (q {tuple(args[0].shape)}, {args[0].dtype}) ran on the "
+            f"card as: {names}; {FA_TENSOR_CORE}'s own device time {own[d]['own_ms']:.4f} ms a "
+            "call")
+    return own
 
 
 def phase_queries(tables, frames, reps: int) -> None:
@@ -2275,9 +2367,9 @@ def _profiled(fn, activities):
     return prof
 
 
-def device_kernels(fn, reps: int = 3):
-    """The names of the device kernels that ``reps`` calls of ``fn``
-    launch, from torch.profiler after a warm-up window."""
+def device_ms_by_kernel(fn, reps: int = 3) -> dict:
+    """{device kernel name: its own device ms per call of ``fn``} over
+    ``reps`` calls, from torch.profiler after a warm-up window."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -2286,7 +2378,16 @@ def device_kernels(fn, reps: int = 3):
             fn()
         torch.cuda.synchronize()
 
-    return sorted({e.key for e in _device_events(_profiled(run, [ProfilerActivity.CUDA]))})
+    out = {}
+    for e in _device_events(_profiled(run, [ProfilerActivity.CUDA])):
+        out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def device_kernels(fn, reps: int = 3):
+    """The names of the device kernels that ``reps`` calls of ``fn``
+    launch, from torch.profiler after a warm-up window."""
+    return sorted(device_ms_by_kernel(fn, reps))
 
 
 def _device_events(prof):
@@ -2782,6 +2883,64 @@ def image_then_text(b: int, s: int, grid: int):
     return pos
 
 
+def prefill_decode(model, params, batch, gen: int):
+    """``model.prefill`` on ``batch`` (a cache of SERVE_CAP), then ``gen``
+    greedy decode steps: ({row: tokens}, [[the logits of each call]],
+    prefill s, decode s per step), the card synchronised around the
+    prefill and each step's tokens read back."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import make_serve_step
+
+    serve = make_serve_step(model)
+    dec = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, SERVE_CAP)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        pre = time.perf_counter() - t0
+        calls, toks = [logits], []
+        for _ in range(gen):
+            t0 = time.perf_counter()
+            tok, logits, cache = serve(params, cache, tok)
+            toks.append(tok[:, 0].cpu().numpy())
+            dec.append(time.perf_counter() - t0)
+            calls.append(logits)
+    toks = np.stack(toks, 1)
+    return {j: toks[j] for j in range(toks.shape[0])}, [calls], pre, dec
+
+
+def serve_from_empty(arch: str, model, params, rng) -> dict:
+    """``serve_loop`` through ``make_run_wave``'s else branch (the vlm,
+    hybrid and rwkv families, as JAX's launcher): SERVE_REQUESTS requests
+    of SERVE_PROMPT tokens from ``rng``, each wave from ``init_state``'s
+    empty state with a zero token and no prefill, so no kernel launches
+    and every request gets the same tokens.  Returns the serving numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request
+
+    prompts = rng.integers(0, model.cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT))
+    ops.reset_launches()
+    served, slog, tracer, wall = _serve_once(
+        model, params, [Request(rid=i, prompt=prompts[i]) for i in range(SERVE_REQUESTS)])
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"{arch} serve: launched {dict(ops.LAUNCHES)} with no prefill")
+    if sorted(served) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"{arch} serve: served {sorted(served)}")
+    if any(not np.array_equal(t, served[0]) for t in served.values()):
+        raise AssertionError(f"{arch} serve: requests decoded from the same empty state "
+                             "and zero token differ")
+    if not all(bool(torch.isfinite(x).all()) for w in slog for x in w):
+        raise AssertionError(f"{arch} serve: non-finite logits")
+    return _serve_numbers(tracer, wall, len(served))
+
+
 def phase_vlm(smi: str):
     """Qwen2-VL-7B at full width and depth: ``model.prefill`` on B × S
     seeded stub embeddings with an image-then-text ``positions3``, then
@@ -2798,8 +2957,7 @@ def phase_vlm(smi: str):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import Request
-    from repro_torch.models.api import build_model, make_serve_step
+    from repro_torch.models.api import build_model
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -2824,26 +2982,7 @@ def phase_vlm(smi: str):
         f"{time.perf_counter() - t0:.1f} s")
 
     def run(m):
-        """Prefill, then VLM_GEN greedy decode steps: ({row: tokens},
-        [[the logits of each call]], prefill s, decode s per step)."""
-        serve = make_serve_step(m)
-        dec = []
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = m.prefill(params, batch, SERVE_CAP)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            torch.cuda.synchronize()
-            pre = time.perf_counter() - t0
-            calls, toks = [logits], []
-            for _ in range(VLM_GEN):
-                t0 = time.perf_counter()
-                tok, logits, cache = serve(params, cache, tok)
-                toks.append(tok[:, 0].cpu().numpy())
-                dec.append(time.perf_counter() - t0)
-                calls.append(logits)
-        toks = np.stack(toks, 1)
-        return {j: toks[j] for j in range(SERVE_BATCH)}, [calls], pre, dec
+        return prefill_decode(m, params, batch, VLM_GEN)
 
     with torch.inference_mode():
         model.prefill(params, batch, SERVE_CAP)  # warm-up
@@ -2884,27 +3023,14 @@ def phase_vlm(smi: str):
                                                  runs["ref"], runs["exact"][1], noise, VLM_GEN)
     del runs, logits
     # the serve loop's vlm branch: no prefill, an empty cache and a zero token
-    prompts = rng.integers(0, base.vocab, (SERVE_REQUESTS, SERVE_PROMPT))
-    ops.reset_launches()
-    served, slog, tracer, wall = _serve_once(
-        model, params, [Request(rid=i, prompt=prompts[i]) for i in range(SERVE_REQUESTS)])
-    if any(ops.LAUNCHES.values()):
-        raise AssertionError(f"{VLM_ARCH} serve: launched {dict(ops.LAUNCHES)} with no prefill")
-    if sorted(served) != list(range(SERVE_REQUESTS)):
-        raise AssertionError(f"{VLM_ARCH} serve: served {sorted(served)}")
-    if any(not np.array_equal(t, served[0]) for t in served.values()):
-        raise AssertionError(f"{VLM_ARCH} serve: requests decoded from the same empty cache "
-                             "and zero token differ")
-    if not all(bool(torch.isfinite(x).all()) for w in slog for x in w):
-        raise AssertionError(f"{VLM_ARCH} serve: non-finite logits")
-    report["serve_from_empty"] = _serve_numbers(tracer, wall, len(served))
+    report["serve_from_empty"] = serve_from_empty(VLM_ARCH, model, params, rng)
     r, s_ = report["pallas"], report["serve_from_empty"]
     log(f"{VLM_ARCH} ({smi}): prefill {r['prefill_ms']:.3f} ms for {SERVE_BATCH}×{SERVE_PROMPT} "
         f"(model FLOPs 2·N·tokens {flop:.4g}, share {r['prefill_flop_share']:.4f} of 989 "
         f"TFLOP/s; ref {report['ref']['prefill_ms']:.3f}, chunked "
         f"{report['chunked']['prefill_ms']:.3f}); decode {r['decode_ms_per_step']:.3f} ms per "
         f"step from that cache; peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held; "
-        f"serve_loop (vlm branch, decode from an empty cache): {len(served)} requests, decode "
+        f"serve_loop (vlm branch, decode from an empty cache): {SERVE_REQUESTS} requests, decode "
         f"{s_['decode_ms_per_step']:.3f} ms per step, {s_['tokens_per_s']:.6g} tokens/s, "
         f"latency p50 {s_['latency_p50_s']:.4f} s, p99 {s_['latency_p99_s']:.4f} s; every "
         f"request the same {SERVE_GEN} tokens")
@@ -2913,6 +3039,325 @@ def phase_vlm(smi: str):
     log("vlm: " + json.dumps(report))
     log(f"vlm phase took {report['phase_s']:.1f} s")
     return launches["flash_attention"], list(captured), report
+
+
+def ssd_flop(b: int, s: int, h: int, p: int, n: int, c: int) -> int:
+    """The operations ``ssd_chunked`` does on (B, S, H, P) inputs with N
+    states in chunks of c: the scores (C·Bᵀ), their decay weights, the
+    intra-chunk product, the chunk states, the inter-chunk product and its
+    decay."""
+    return (2 * b * s * c * n + b * s * c * h + 2 * b * s * c * h * p
+            + b * s * n * h + 2 * b * s * h * n * p + 2 * b * s * n * h * p + b * s * h * p)
+
+
+def check_ssd(cfg) -> dict:
+    """``ssd_chunked`` alone at a prefill layer's shapes (B = SERVE_BATCH,
+    S = SERVE_PROMPT, H = d_inner / 64, P = 64, N = ssm_state, the config's
+    chunk) on seeded inputs (x, B, C normal, the log-decay −softplus of a
+    normal, as ``mamba2_block`` makes it with A = −1): the f32 math on the
+    card against the same inputs in f64 on the card, ‖Δ‖ ≤ SSD_REL·‖y‖ for
+    the output and the final state; timed with x, B and C in bf16 (as the
+    path gives them) and in f32, beside its floor (operations at the f32
+    rate: the einsums are f32 products)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm
+
+    b, s, h, p, n, c = (SERVE_BATCH, SERVE_PROMPT, cfg.d_inner // ssm.MAMBA_HEAD,
+                        ssm.MAMBA_HEAD, cfg.ssm_state, cfg.ssm_chunk)
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, a = normal(b, s, h, p), -F.softplus(normal(b, s, h))
+    bm, cm = normal(b, s, n), normal(b, s, n)
+    y32, s32 = ssm.ssd_chunked(x, a, bm, cm, chunk=c)
+    y64, s64 = ssm.ssd_chunked(x.double(), a.double(), bm.double(), cm.double(), chunk=c)
+    gaps = {k: float(torch.linalg.vector_norm(g.double() - w) / torch.linalg.vector_norm(w))
+            for k, g, w in (("y", y32, y64), ("state", s32, s64))}
+    if not all(g <= SSD_REL for g in gaps.values()):
+        raise AssertionError(f"ssd_chunked f32 vs f64 on the card: ‖Δ‖/‖y‖ {gaps} over "
+                             f"{SSD_REL}")
+    del y64, s64
+    x16, b16, c16 = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    flop = ssd_flop(b, s, h, p, n, c)
+    out = {"shape": [b, s, h, p, n, c], "rel_err_vs_f64": gaps,
+           "ms_bf16_inputs": cuda_ms(lambda: ssm.ssd_chunked(x16, a, b16, c16, chunk=c)),
+           "ms_f32": cuda_ms(lambda: ssm.ssd_chunked(x, a, bm, cm, chunk=c)),
+           "flop": flop, "floor_ms": flop / PEAK_F32 * 1e3}
+    log(f"ssd_chunked alone at {out['shape']} (B, S, H, P, N, chunk): f32 vs f64 on the card "
+        f"‖Δ‖/‖y‖ {gaps['y']:.3g}, state {gaps['state']:.3g} (limit {SSD_REL}); "
+        f"{out['ms_bf16_inputs']:.3f} ms with bf16 inputs, {out['ms_f32']:.3f} ms f32, floor "
+        f"{out['floor_ms']:.3f} ms ({flop / 1e9:.4g} GFLOP at 67 TFLOP/s)")
+    return out
+
+
+def fa_width_rates(args, kw) -> dict:
+    """flash_attention at the served D = 112 call's shape against the same
+    shape at D = 128 (seeded inputs), each timed with CUDA events: ms a
+    launch and achieved TFLOP/s by the unmasked work (4·B·Hq·D per kept
+    pair), so the zero-filled tile's cost shows beside D = 128's rate."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    q, k, v = args
+    b, hq, s, _ = q.shape
+    gen = torch.Generator("cuda").manual_seed(2)
+    out = {}
+    for d in (q.shape[-1], 128):
+        qkv = (q, k, v) if d == q.shape[-1] else tuple(
+            torch.randn((b, t.shape[1], s, d), generator=gen, device="cuda").to(q.dtype)
+            for t in (q, k, v))
+        ms = cuda_ms(lambda: ops.flash_attention(*qkv, **kw))
+        flop = 4 * b * hq * d * attention_pairs(s, kw)
+        out[f"d{d}"] = {"ms": ms, "tflop_per_s": flop / ms / 1e9,
+                        "bound_ms": flop / PEAK_BF16_TC * 1e3}
+    log(f"flash_attention at {tuple(q.shape)} {q.dtype}: D = {q.shape[-1]} "
+        f"{out[f'd{q.shape[-1]}']}; the same shape at D = 128 {out['d128']}")
+    return out
+
+
+def phase_zamba2(smi: str):
+    """Zamba2-7B at full width and depth: ``model.prefill`` on SERVE_BATCH ×
+    SERVE_PROMPT numpy-seeded tokens, then ZAMBA_GEN greedy decode steps from
+    that state; pallas (counted: flash_attention once per attention point,
+    14, at D = 112), the plain path, f64 attention (the noise floor) and
+    chunked, held to the plain path by phase 18's rule; ``ssd_chunked``
+    alone (``check_ssd``); then ``serve_loop`` through ``make_run_wave``'s
+    hybrid branch, which decodes from an empty state.  Returns (launches,
+    the recorded kernel calls, the report)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = get_config(ZAMBA_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(replace(base, attn_mode="pallas"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_bytes = sum(_bytes(t) for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, base.vocab, (SERVE_BATCH, SERVE_PROMPT))
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    torch.cuda.synchronize()
+    points = base.n_attn_points
+    log(f"{ZAMBA_ARCH}: {n_params / 1e9:.4f} B parameters (ModelConfig.n_params() "
+        f"{base.n_params()}; {base.dtype}, {weight_bytes / 1e9:.3f} GB; {held / 1e9:.2f} GB held "
+        f"by earlier phases); {base.n_layers} Mamba2 layers, the shared attention at {points} "
+        f"points (d_head {base.d_head}); B={SERVE_BATCH} × S={SERVE_PROMPT} tokens; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(m):
+        return prefill_decode(m, params, batch, ZAMBA_GEN)
+
+    with torch.inference_mode():
+        model.prefill(params, batch, SERVE_CAP)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with recording(("flash_attention",), keep=lambda i: i in (0, points - 1)) as captured:
+        ops.reset_launches()
+        out, logits, pre, dec = run(model)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if launches != {"flash_attention": points}:
+        raise AssertionError(f"{ZAMBA_ARCH}: launched {launches}, not flash_attention {points}")
+    want = (SERVE_BATCH, base.n_heads, SERVE_PROMPT, base.d_head)
+    if any(tuple(c[1][0].shape) != want or c[1][0].dtype != torch.bfloat16 for c in captured):
+        raise AssertionError(f"{ZAMBA_ARCH}: flash_attention calls "
+                             f"{[tuple(c[1][0].shape) for c in captured]}, not {want} bf16")
+    if not all(bool(torch.isfinite(x).all()) for x in logits[0]):
+        raise AssertionError(f"{ZAMBA_ARCH}: non-finite logits")
+    for toks in out.values():
+        if not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"{ZAMBA_ARCH}: tokens {toks}")
+    # floors: prefill 2·N·tokens on the tensor cores plus the SSD's f32
+    # einsums; decode reads every weight and the whole state once a step
+    h = base.d_inner // 64
+    state_bytes = (base.n_layers * SERVE_BATCH * (3 * base.d_inner * 2
+                                                  + h * base.ssm_state * 64 * 4)
+                   + 2 * points * SERVE_BATCH * base.n_kv_heads * SERVE_CAP * base.d_head * 2)
+    flop = 2 * n_params * SERVE_BATCH * SERVE_PROMPT
+    ssd = base.n_layers * ssd_flop(SERVE_BATCH, SERVE_PROMPT, h, 64, base.ssm_state,
+                                   base.ssm_chunk)
+    floors = {"prefill_model_flop": flop, "prefill_ssd_flop": ssd,
+              "prefill_floor_ms": (flop / PEAK_BF16_TC + ssd / PEAK_F32) * 1e3,
+              "decode_bytes": weight_bytes + state_bytes,
+              "decode_floor_ms": (weight_bytes + state_bytes) / PEAK_BYTES * 1e3}
+    report = {"card": smi, "pallas": {"prefill_ms": pre * 1e3,
+                                      "decode_ms_per_step": statistics.median(dec) * 1e3,
+                                      "decode_ms_all": [x * 1e3 for x in dec],
+                                      "prefill_flop_share": flop / pre / PEAK_BF16_TC},
+              "floors": floors, "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9,
+              "n_params": n_params, "weight_gb": weight_bytes / 1e9,
+              "state_gb": state_bytes / 1e9}
+    runs = {"pallas": (out, logits)}
+    for name, mode in (("ref", "ref"), ("exact", exact_attention), ("chunked", "chunked")):
+        o, lg, p_s, d_s = run(build_model(replace(base, attn_mode=mode)))
+        runs[name] = (o, lg)
+        if name != "exact":
+            report[name] = {"prefill_ms": p_s * 1e3,
+                            "decode_ms_per_step": statistics.median(d_s) * 1e3}
+    _, noise, same, std = path_gap(runs["ref"][1], runs["exact"][1])
+    report["noise_floor"] = {"max_abs": noise, "same_token_steps": same, "logit_std": std}
+    log(f"{ZAMBA_ARCH} noise floor: the plain path's logits differ from those with exactly "
+        f"rounded (f64) prefill attention by up to {noise:.6g} ({noise / std:.4f} of their "
+        f"std {std:.6g}) over the {same} steps fed the same tokens")
+    for name in ("pallas", "chunked"):
+        report[f"{name}_vs_ref"] = compare_paths(f"{ZAMBA_ARCH} {name} vs ref", runs[name],
+                                                 runs["ref"], runs["exact"][1], noise, ZAMBA_GEN)
+    del runs, logits
+    report["flash_attention_widths"] = fa_width_rates(*captured[0][1:])
+    report["ssd_chunked"] = check_ssd(base)
+    # the serve loop's hybrid branch: no prefill, an empty state and a zero token
+    report["serve_from_empty"] = serve_from_empty(ZAMBA_ARCH, model, params, rng)
+    r, s_ = report["pallas"], report["serve_from_empty"]
+    log(f"{ZAMBA_ARCH} ({smi}): prefill {r['prefill_ms']:.3f} ms for {SERVE_BATCH}×"
+        f"{SERVE_PROMPT} (floor {floors['prefill_floor_ms']:.3f} ms: 2·N·tokens {flop:.4g} at "
+        f"989 TFLOP/s plus the SSD's {ssd:.4g} f32 at 67; ref {report['ref']['prefill_ms']:.3f}, "
+        f"chunked {report['chunked']['prefill_ms']:.3f}); decode {r['decode_ms_per_step']:.3f} "
+        f"ms per step from that state (floor {floors['decode_floor_ms']:.3f} ms: "
+        f"{weight_bytes / 1e9:.2f} GB of weights and {state_bytes / 1e9:.2f} GB of SSM and KV "
+        f"state at 3.35 TB/s); {SERVE_BATCH * ZAMBA_GEN / sum(dec):.6g} generated tokens/s; "
+        f"peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held; serve_loop (hybrid "
+        f"branch, decode from an empty state): {SERVE_REQUESTS} requests, decode "
+        f"{s_['decode_ms_per_step']:.3f} ms per step, {s_['tokens_per_s']:.6g} tokens/s, "
+        f"latency p50 {s_['latency_p50_s']:.4f} s, p99 {s_['latency_p99_s']:.4f} s; every "
+        f"request the same {SERVE_GEN} tokens")
+    del params, model, batch
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("hybrid: " + json.dumps(report))
+    log(f"hybrid phase took {report['phase_s']:.1f} s")
+    return launches["flash_attention"], list(captured), report
+
+
+def phase_rwkv(smi: str):
+    """RWKV6-1.6B at full width and depth: ``model.prefill`` on SERVE_BATCH ×
+    RWKV_PROMPT numpy-seeded tokens, then RWKV_GEN greedy decode steps
+    (no kernel: RWKV has no attention); the same weights in f32 and in f64
+    on the card, the f32 run's logits within RWKV_F32_REL of the f64
+    logits' largest magnitude and the bf16 run's within an RMS distance of
+    RWKV_BF16_RMS of their std (over the steps fed the same tokens); in
+    f32, decode after a prefill of S − 1 tokens against the prefill of S
+    (``tests/test_models_smoke.py``'s 2e-3); then ``serve_loop`` through
+    ``make_run_wave``'s rwkv branch.  The time scan is a loop over S ×
+    layers steps, each a few small launches: prefill ms per (position,
+    layer) is its host cost.  Returns (0, [],
+    the report)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.train.optimizer import tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_bytes = sum(_bytes(t) for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, base.vocab, (SERVE_BATCH, RWKV_PROMPT))).cuda()
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    log(f"{RWKV_ARCH}: {n_params / 1e9:.4f} B parameters (ModelConfig.n_params() "
+        f"{base.n_params()}; {base.dtype}, {weight_bytes / 1e9:.3f} GB; {held / 1e9:.2f} GB held "
+        f"by earlier phases); B={SERVE_BATCH} × S={RWKV_PROMPT} tokens; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": tokens[:, :16]}, SERVE_CAP)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, logits, pre, dec = prefill_decode(model, params, batch, RWKV_GEN)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"{RWKV_ARCH}: launched {dict(ops.LAUNCHES)}; RWKV runs no kernel")
+    peak = torch.cuda.max_memory_allocated() - held
+    if not all(bool(torch.isfinite(x).all()) for x in logits[0]):
+        raise AssertionError(f"{RWKV_ARCH}: non-finite logits")
+    for toks in out.values():
+        if not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"{RWKV_ARCH}: tokens {toks}")
+    steps = RWKV_PROMPT * base.n_layers
+    flop = 2 * n_params * SERVE_BATCH * RWKV_PROMPT
+    report = {"card": smi, "prompt": RWKV_PROMPT,
+              "bf16": {"prefill_ms": pre * 1e3,
+                       "decode_ms_per_step": statistics.median(dec) * 1e3,
+                       "decode_ms_all": [x * 1e3 for x in dec],
+                       "prefill_us_per_scan_step": pre * 1e6 / steps,
+                       "prefill_floor_ms": flop / PEAK_BF16_TC * 1e3,
+                       "decode_floor_ms": weight_bytes / PEAK_BYTES * 1e3},
+              "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9, "n_params": n_params}
+    runs = {"bf16": (out, logits)}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        m = build_model(replace(base, dtype=str(dtype)[6:]))
+        o, lg, p_s, d_s = prefill_decode(m, tree_map(lambda t: t.to(dtype), params), batch,
+                                         RWKV_GEN)
+        runs[name] = (o, lg)
+        report[name] = {"prefill_ms": p_s * 1e3,
+                        "decode_ms_per_step": statistics.median(d_s) * 1e3}
+    f64 = runs["f64"][1]
+    top = float(torch.stack([x.abs().max() for w in f64 for x in w]).max())
+    for name in ("f32", "bf16"):
+        pre_gap, worst, same, std = path_gap(runs[name][1], f64)
+        rms = logit_rms_gap(runs[name][1], f64)
+        got, limit = (worst, RWKV_F32_REL * top) if name == "f32" else (rms, RWKV_BF16_RMS * std)
+        report[f"{name}_vs_f64"] = {"prefill_max_abs": pre_gap, "max_abs": worst, "rms": rms,
+                                    "same_token_steps": same, "logit_std": std,
+                                    "limit": limit, "f64_max_abs": top}
+        log(f"{RWKV_ARCH} {name} vs f64 on the card: logits max |Δ| {worst:.6g}, RMS {rms:.6g} "
+            f"over {same} steps fed the same tokens (prefill max {pre_gap:.6g}; std {std:.6g}, "
+            f"f64 max |logit| {top:.6g}); held: {'max' if name == 'f32' else 'RMS'} ≤ "
+            f"{limit:.6g}")
+        if not got <= limit:
+            raise AssertionError(f"{RWKV_ARCH} {name} vs f64: logits differ by {got} over "
+                                 f"{limit}")
+    # decode after a prefill of S − 1 tokens against the prefill of S, in f32
+    m32 = build_model(replace(base, dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    with torch.inference_mode():
+        _, st = m32.prefill(p32, {"tokens": tokens[:, :-1]}, SERVE_CAP)
+        got, _ = m32.decode(p32, st, tokens[:, -1:].to(torch.int32))
+    want = runs["f32"][1][0][0]
+    gap = float((got - want).abs().max())
+    report["decode_vs_longer_prefill"] = {"max_abs": gap, "want_max_abs": float(want.abs().max())}
+    if not bool(((got - want).abs() <= 2e-3 + 2e-3 * want.abs()).all()):
+        raise AssertionError(f"{RWKV_ARCH}: decode after S − 1 differs from the prefill of S by "
+                             f"{gap}")
+    del runs, logits, p32, m32, st
+    report["serve_from_empty"] = serve_from_empty(RWKV_ARCH, model, params, rng)
+    r, s_ = report["bf16"], report["serve_from_empty"]
+    log(f"{RWKV_ARCH} ({smi}): prefill {r['prefill_ms']:.3f} ms for {SERVE_BATCH}×{RWKV_PROMPT} "
+        f"({r['prefill_us_per_scan_step']:.2f} µs per (position, layer) of the time scan; floor "
+        f"{r['prefill_floor_ms']:.3f} ms for 2·N·tokens at 989 TFLOP/s); decode "
+        f"{r['decode_ms_per_step']:.3f} ms per step (floor {r['decode_floor_ms']:.3f} ms for "
+        f"{weight_bytes / 1e9:.2f} GB of weights); decode after S − 1 vs the prefill of S (f32) "
+        f"max |Δ| {gap:.3g}; peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held; "
+        f"serve_loop (rwkv branch, decode from an empty state): {SERVE_REQUESTS} requests, decode "
+        f"{s_['decode_ms_per_step']:.3f} ms per step, {s_['tokens_per_s']:.6g} tokens/s, every "
+        f"request the same {SERVE_GEN} tokens")
+    del params, model, batch
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("rwkv: " + json.dumps(report))
+    log(f"rwkv phase took {report['phase_s']:.1f} s")
+    return 0, [], report
 
 
 # ---------------------------------------------------------------------------
@@ -4181,7 +4626,9 @@ def main() -> int:
                     lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
                                        requests_n=SERVE_BATCH, gen=MIXTRAL_GEN, chunked=False,
                                        sample_calls=True),
-                    lambda: phase_vlm(smi)):
+                    lambda: phase_vlm(smi),
+                    lambda: phase_zamba2(smi),
+                    lambda: phase_rwkv(smi)):
             n, calls = run()[:2]  # the rest holds the model: dropped before the next phase
             fa_launches += n
             fa_captured += calls

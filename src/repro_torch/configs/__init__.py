@@ -1,6 +1,6 @@
-"""Architecture configs: the dense, MoE and VLM ones of ``repro/configs``,
-copied verbatim, in the JAX dict's order (the hybrid, RWKV and enc-dec
-families wait for their slices)."""
+"""Architecture configs: the dense, MoE, hybrid, VLM and RWKV ones of
+``repro/configs``, copied verbatim, in the JAX dict's order (the enc-dec
+family waits for its slice)."""
 
 from importlib import import_module
 from typing import List
@@ -14,7 +14,9 @@ _MODULES = {
     "granite-34b": "granite_34b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "zamba2-7b": "zamba2_7b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -56,9 +56,11 @@ def _leaf_from_numpy(a: Any) -> torch.Tensor:
 
 
 #: leaves that stay at least f32 when a tree is carried at a narrower
-#: dtype: the MoE router, which JAX keeps f32 whatever the model's dtype
-#: (in bf16 its top-k would route other experts)
-KEEP_F32 = ("router",)
+#: dtype, as JAX makes them f32 whatever the model's dtype: the MoE router
+#: (in bf16 its top-k would route other experts), Mamba2's ``A_log``,
+#: ``D`` and ``dt_bias`` and RWKV6's ``w0`` and ``u`` (the decays and
+#: their bonus)
+KEEP_F32 = ("router", "A_log", "D", "dt_bias", "w0", "u")
 
 
 def params_from_jax(tree: Any, device: Any = None,

@@ -7,7 +7,7 @@
 // next.  Here the kv walk is a loop inside the thread block, with m, l and
 // acc in registers.  Two kernels, chosen by the inputs' type:
 //
-// bf16 (every served call): `fa_wgmma`, on the tensor cores.
+// bf16 (every served call): `fa_wgmma`, on the tensor cores, D ∈ {32, 64, 112, 128}.
 //   Bound on the card: operations.  At the served shape (q 4×12×2048×128,
 //   k/v 4×2×2048×128, causal) the unmasked half of 4·B·Hq·S²·D is 51.6
 //   GFLOP against 59 MB of inputs and output: 0.052 ms at the 989 TFLOP/s
@@ -49,10 +49,23 @@
 //     MN-major (the transpose bit).  l sums the f32 weights.
 //   - The output is acc / l with l = 0 → 1, so a row with nothing unmasked
 //     gives 0; rows past S are not written.
+//   - D = 112 (Zamba2-7B's shared attention) runs in the D = 128 tile,
+//     zero-filled.  The tensor maps say the rows are 112 wide with a
+//     224-byte stride (a multiple of 16, as cuTensorMapEncodeTiled needs);
+//     the second 64-column box of a row then reaches past the global width,
+//     and TMA fills its columns 112–127 with zeros and still counts the
+//     whole box's bytes on the mbarrier.  Q·Kᵀ takes 7 k16 steps (columns
+//     0–111, exact); P·V runs at n = 128, its last 16 columns adding
+//     P·0 = 0, and the epilogue stores 112 columns.  Chosen over a native
+//     m64n112 P·V because 224-byte rows do not split into 128-byte swizzled
+//     boxes: the tile would need a box and swizzle layout of its own, while
+//     this costs 1/7 more P·V work on the tensor cores and nothing else.
+//     The wrapper passes the scale 1/√112.
 //
 // f32: `fa_main`, on the CUDA cores (tensor cores in TF32 would not give
-//   its rtol 1e-4).  Block (q tile, b·Hkv + kv head); a q tile is BQ
-//   positions of all `group` heads, BQ = 64 / group rounded down (at least
+//   its rtol 1e-4), D ∈ {32, 64, 112, 128} (at 112 a thread owns 7 float4
+//   slices and a row is 448 bytes, 16-byte aligned).  Block (q tile,
+//   b·Hkv + kv head); a q tile is BQ positions of all `group` heads, BQ = 64 / group rounded down (at least
 //   1), so a block has up to 64 query rows and each K/V tile is read once
 //   per group.  Four threads share a row: thread `part` owns the float4
 //   slices 16i + 4·part of q·scale and of the accumulator, so a row costs
@@ -95,12 +108,14 @@ int fa_max_group = FA_MAX_GROUP;
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// shared-memory geometry of fa_wgmma at head width D
+// shared-memory geometry of fa_wgmma at head width D; D = 112 runs in the
+// D = 128 tile, its columns 112–127 zero-filled by TMA
 template <int D>
 struct FaTile {
-  static constexpr int SWB = D * 2 < 128 ? D * 2 : 128;  // swizzle span: bytes of a box row
+  static constexpr int DT = D == 112 ? 128 : D;           // columns a tile holds
+  static constexpr int SWB = DT * 2 < 128 ? DT * 2 : 128; // swizzle span: bytes of a box row
   static constexpr int EPB = SWB / 2;                     // elements of a box row
-  static constexpr int NBOX = D / EPB;                    // boxes across D
+  static constexpr int NBOX = DT / EPB;                   // boxes across the tile
   static constexpr int KPB = EPB / 16;                    // k16 steps per box
   static constexpr int SWIZZLE = SWB == 128 ? 1 : 2;      // descriptor code: 128 or 64 bytes
   static constexpr int Q_BOX = FA_TBQ * SWB;
@@ -252,7 +267,8 @@ fa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUten
     const int r0 = 16 * (warp % 4) + lane / 4;
     const int qw0 = q0 + 64 * wg;
     const uint32_t qaddr = hop::smem_addr(qs) + wg * 64 * G::SWB;
-    // sc = Q·Kᵀ of stage st's tile (64 × 128, f32), started, not waited for
+    // sc = Q·Kᵀ of stage st's tile (64 × 128, f32), started, not waited for;
+    // D / 16 k16 steps (7 at D = 112: the zero-filled columns are skipped)
     auto logits = [&](float (&sc)[FA_TBK / 2], int st) {
       const uint32_t kaddr = hop::smem_addr(ks + st * G::KV_BYTES);
 #pragma unroll
@@ -265,13 +281,13 @@ fa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUten
       }
       hop::wgmma_commit();
     };
-    // acc += P·V of stage st's tile (64 × D, f32), started, not waited for;
+    // acc += P·V of stage st's tile (64 × DT, f32), started, not waited for;
     // V MN-major: 16 kv rows per k16 step
-    auto values = [&](float (&acc)[D / 2], const uint32_t (&pa)[FA_TBK / 16][4], int st) {
+    auto values = [&](float (&acc)[G::DT / 2], const uint32_t (&pa)[FA_TBK / 16][4], int st) {
       const uint32_t vaddr = hop::smem_addr(vs + st * G::KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < FA_TBK / 16; ++kk)
-        fa_pv<D>(acc, pa[kk],
+        fa_pv<G::DT>(acc, pa[kk],
                  hop::gmma_desc(vaddr + kk * 16 * G::SWB, G::KV_BOX, 8 * G::SWB, G::SWIZZLE));
       hop::wgmma_commit();
     };
@@ -285,10 +301,11 @@ fa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUten
              kv0 + FA_TBK > s;
     };
 
-    float acc[D / 2], sc[FA_TBK / 2];
+    // acc's columns past D (D = 112: 112–127) stay 0 and are never stored
+    float acc[G::DT / 2], sc[FA_TBK / 2];
     uint32_t pa[FA_TBK / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < G::DT / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < FA_TBK / 2; ++i) sc[i] = 0.f;
     float m0 = FA_NEG, m1 = FA_NEG, l0 = 0.f, l1 = 0.f, a0, a1;
@@ -398,7 +415,8 @@ static fa_encode_fn fa_encoder() {
   return fn;
 }
 
-// a (heads, s, d) bf16 tensor as boxes of `rows` positions × `swb` bytes
+// a (heads, s, d) bf16 tensor as boxes of `rows` positions × `swb` bytes; a
+// box that reaches past s rows or d columns is filled with zeros
 static bool fa_map(CUtensorMap* map, fa_encode_fn enc, const void* ptr, int heads, int s, int d,
                    int rows, int swb) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
@@ -590,7 +608,8 @@ static cudaError_t fa_run(const void* q, const void* k, const void* v, void* o, 
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
                          int hkv, int s, int d, int bf16, int causal, int window, float scale,
                          void* stream) {
-  if (b < 0 || hkv < 1 || hq < hkv || hq % hkv != 0 || s < 1 || (d != 32 && d != 64 && d != 128))
+  if (b < 0 || hkv < 1 || hq < hkv || hq % hkv != 0 || s < 1 ||
+      (d != 32 && d != 64 && d != 112 && d != 128))
     return cudaErrorInvalidValue;
   const int group = hq / hkv;
   if (group > FA_MAX_GROUP || static_cast<long long>(b) * hkv > 65535) return cudaErrorInvalidValue;
@@ -601,6 +620,7 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, i
       return cudaErrorInvalidValue;
     if (d == 32) return fa_tc_run<32>(q, k, v, o, b, hq, hkv, s, causal, window, scale, st);
     if (d == 64) return fa_tc_run<64>(q, k, v, o, b, hq, hkv, s, causal, window, scale, st);
+    if (d == 112) return fa_tc_run<112>(q, k, v, o, b, hq, hkv, s, causal, window, scale, st);
     return fa_tc_run<128>(q, k, v, o, b, hq, hkv, s, causal, window, scale, st);
   }
   const int bq = group >= FA_ROWS ? 1 : FA_ROWS / group;
@@ -612,5 +632,7 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, i
     return fa_run<32>(q, k, v, o, hq, hkv, s, group, bq, causal, window, scale, grid, threads, st);
   if (d == 64)
     return fa_run<64>(q, k, v, o, hq, hkv, s, group, bq, causal, window, scale, grid, threads, st);
+  if (d == 112)
+    return fa_run<112>(q, k, v, o, hq, hkv, s, group, bq, causal, window, scale, grid, threads, st);
   return fa_run<128>(q, k, v, o, hq, hkv, s, group, bq, causal, window, scale, grid, threads, st);
 }

@@ -620,17 +620,23 @@ def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torc
 # ---------------------------------------------------------------------------
 
 
+#: the head widths both flash_attention kernels are built for (``fa_launch``
+#: in ``csrc/flash_attention.cu`` refuses any other)
+FA_HEAD_DIMS = (32, 64, 112, 128)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Causal or sliding-window GQA attention, forward only: q (B, Hq, S,
     D), k, v (B, Hkv, S, D), f32 or bf16 → (B, Hq, S, D) in q's dtype
-    (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ {32, 64, 128}.  On the
-    card bf16 runs on the tensor cores (its arithmetic is
-    ``ref.flash_attention_tiled``), f32 on the CUDA cores.  The kernel has
-    no backward, as the JAX kernel has none: under grad mode with q, k or
-    v requiring grad it raises on every device, rather than return an
-    output that carries no gradient."""
+    (``attention(mode="pallas")``).  Any S ≥ 1; D ∈ ``FA_HEAD_DIMS`` (112
+    is Zamba2-7B's shared attention: the tensor-core kernel runs it in its
+    D = 128 tile, zero-filled by TMA).  On the card bf16 runs on the tensor
+    cores (its arithmetic is ``ref.flash_attention_tiled``), f32 on the
+    CUDA cores.  The kernel has no backward, as the JAX kernel has none:
+    under grad mode with q, k or v requiring grad it raises on every
+    device, rather than return an output that carries no gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError("flash_attention is forward-only, as the JAX kernel is (no "
                          "backward): train with attn_mode=\"chunked\", or call it "
@@ -653,8 +659,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group = hq // hkv if hkv else 0
     if hkv < 1 or hq % hkv or not 1 <= group <= constant("flash_attention", "fa_max_group"):
         raise ValueError(f"flash_attention: {hq} query heads over {hkv} kv heads")
-    if d not in (32, 64, 128) or s < 1:
-        raise ValueError(f"flash_attention takes D in (32, 64, 128) and S ≥ 1, not D={d}, S={s}")
+    if d not in FA_HEAD_DIMS or s < 1:
+        raise ValueError(f"flash_attention takes D in {FA_HEAD_DIMS} and S ≥ 1, not D={d}, "
+                         f"S={s}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)

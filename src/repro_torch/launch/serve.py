@@ -518,19 +518,20 @@ def make_run_wave(model, params, *, batch: int, prompt_len: int, gen: int, cache
                   device: Any) -> Callable[[List[Request]], Dict[int, np.ndarray]]:
     """``run_wave`` for :func:`serve_loop`, with the JAX launcher's family
     branches: the dense and MoE families prefill the wave's prompts (padded
-    with zero rows up to ``batch``) and take the greedy token; the VLM
-    family, as JAX's ``else`` branch, starts from ``init_state``'s empty
-    cache with a zero token and no prefill (its prompts are not read: a
-    kept quirk, ROADMAP Queue 3).  Then ``gen`` greedy decode steps;
+    with zero rows up to ``batch``) and take the greedy token; the VLM,
+    hybrid and RWKV families, as JAX's ``else`` branch, start from
+    ``init_state``'s empty state with a zero token and no prefill (their
+    prompts are not read: a kept quirk, ROADMAP Queue 3 item 25).  Then
+    ``gen`` greedy decode steps;
     returns ``{rid: the gen decoded tokens}``.  Records ``serve.prefill_s``
     (where there is a prefill) and ``serve.decode_step_s`` (host clock,
     the device synchronised) and counts ``serve.tokens``."""
     from ..models.api import make_serve_step
 
     family = model.cfg.family
-    if family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"serving family {family!r} is not ported yet "
-                                  "(ROADMAP Queue 1 items 8.4-8.6)")
+    if family == "encdec":
+        raise NotImplementedError("serving the encdec family is not ported yet "
+                                  "(ROADMAP Queue 1 item 8.6)")
     dev = torch.device(device)
     serve = make_serve_step(model)
 
@@ -542,16 +543,16 @@ def make_run_wave(model, params, *, batch: int, prompt_len: int, gen: int, cache
         toks[:take] = np.stack([r.prompt for r in wave]).astype(np.int32)
         out = np.zeros((batch, gen), np.int32)
         with torch.inference_mode():
-            if family == "vlm":
-                state = model.init_state(batch, cache_cap, dev)
-                tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-            else:
+            if family in ("dense", "moe"):
                 t0 = time.perf_counter()
                 logits, state = model.prefill(
                     params, {"tokens": torch.from_numpy(toks).to(dev)}, cache_cap)
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
                 _sync(dev)
                 tracer.observe("serve.prefill_s", time.perf_counter() - t0)
+            else:
+                state = model.init_state(batch, cache_cap, dev)
+                tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
             for i in range(gen):
                 t0 = time.perf_counter()
                 tok, logits, state = serve(params, state, tok)
@@ -568,8 +569,8 @@ def main(argv=None):
     from ..configs import ARCH_IDS
 
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b",
-                    help="a dense, MoE or VLM config (the VLM decodes from an empty "
-                         "cache, as JAX's launcher does)")
+                    help="a dense, MoE, VLM, hybrid or RWKV config (the VLM, hybrid and "
+                         "RWKV ones decode from an empty state, as JAX's launcher does)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

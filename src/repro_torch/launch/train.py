@@ -40,10 +40,12 @@ from ..train.optimizer import AdamW
 def make_batch_fn(cfg, pipeline: TokenPipeline,
                   device: Any = None) -> Callable[[int], Dict[str, torch.Tensor]]:
     """Adapt the token pipeline to the family's batch dict, on ``device``.
-    The VLM batch, as JAX's: stub patch embeddings (B, S, D) as f32
-    normals from ``np.random.default_rng((1234, step))``, ``positions3``
-    the broadcast arange (3, B, S), and no tokens.  The enc-dec batch waits
-    for its family."""
+    The dense, MoE, hybrid and RWKV families take the pipeline's tokens,
+    labels and mask as they are.  The VLM batch, as JAX's: stub patch
+    embeddings (B, S, D) as f32 normals from
+    ``np.random.default_rng((1234, step))``, ``positions3`` the broadcast
+    arange (3, B, S), and no tokens.  The enc-dec batch waits for its
+    family."""
     if cfg.family == "encdec":
         raise NotImplementedError("the encdec family's batches (frames) wait for "
                                   "ROADMAP Queue 1 item 8.6")
@@ -63,8 +65,8 @@ def make_batch_fn(cfg, pipeline: TokenPipeline,
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b",
-                    help="a dense, MoE or VLM config (the VLM trains on stub patch "
-                         "embeddings)")
+                    help="a dense, MoE, VLM, hybrid or RWKV config (the VLM trains on "
+                         "stub patch embeddings)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--layers", type=int, default=None,

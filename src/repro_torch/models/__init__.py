@@ -1,6 +1,7 @@
 """The LM substrate on torch: the config dataclass and family dispatch
 (``api``), shared layers (``layers``: norms, RoPE/M-RoPE, attention,
-MLPs, MoE) and the decoder-only LM (``lm``: dense, MoE, SWA and M-RoPE
-variants; forward, loss, prefill and decode), each a copy of its
-``repro/models`` counterpart.  The SSM, RWKV and enc-dec families come
+MLPs, MoE), the decoder-only LM (``lm``: dense, MoE, SWA and M-RoPE
+variants; forward, loss, prefill and decode), the Mamba2 and RWKV6 blocks
+and the RWKV LM (``ssm``) and the Zamba2-style hybrid (``hybrid``), each a
+copy of its ``repro/models`` counterpart.  The enc-dec family comes
 later."""

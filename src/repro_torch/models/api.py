@@ -3,8 +3,8 @@
 The port's copy of ``repro/models/api.py``.  ``build_model(cfg)`` returns
 a ``Model`` facade with uniform entry points (init / loss / prefill /
 decode / state init); the step factories make the functions the train and
-serve launchers call.  The dense, MoE and VLM families are built (JAX's
-first branch); hybrid, RWKV and enc-dec wait for their slices.
+serve launchers call.  The dense, MoE, VLM, hybrid and RWKV families are
+built; enc-dec waits for its slice.
 
 ``make_train_step`` takes gradients with ``torch.autograd.grad`` over
 detached copies of the parameter leaves and returns them as a tree (JAX's
@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ..train.optimizer import AdamW, Optimizer, tree_leaves, tree_like, tree_map
-from . import lm
+from . import hybrid, lm, ssm
 
 
 @dataclass(frozen=True)
@@ -124,7 +124,7 @@ class Model:
 
 
 #: the families that wait for their slice, and their ROADMAP Queue 1 items
-_NOT_PORTED = {"hybrid": "8.4", "rwkv": "8.5", "encdec": "8.6"}
+_NOT_PORTED = {"encdec": "8.6"}
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -138,6 +138,25 @@ def build_model(cfg: ModelConfig) -> Model:
                 cache_capacity=cap, positions3=b.get("positions3")),
             decode=lambda p, cache, toks: lm.decode_step(p, cfg, cache, toks),
             init_state=lambda bsz, cap, device=None: lm.init_cache(cfg, bsz, cap, device),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: hybrid.init_hybrid(cfg, gen),
+            loss=lambda p, b: hybrid.lm_loss(p, cfg, b),
+            prefill=lambda p, b, cap: hybrid.prefill(p, cfg, b["tokens"], cap),
+            decode=lambda p, st, toks: hybrid.decode_step(p, cfg, st, toks),
+            init_state=lambda bsz, cap, device=None: hybrid.init_decode_state(
+                None, cfg, bsz, cap, device),
+        )
+    if cfg.family == "rwkv":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: ssm.init_rwkv_lm(cfg, gen),
+            loss=lambda p, b: ssm.rwkv_lm_loss(p, cfg, b),
+            prefill=lambda p, b, cap: ssm.rwkv_prefill(p, cfg, b["tokens"]),
+            decode=lambda p, st, toks: ssm.rwkv_decode_step(p, cfg, st, toks),
+            init_state=lambda bsz, cap, device=None: ssm.rwkv_init_state(cfg, bsz, device),
         )
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(

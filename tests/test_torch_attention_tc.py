@@ -31,6 +31,10 @@ VARIANTS = [dict(causal=True), dict(causal=False), dict(causal=True, window=64),
 #: S × D × group, each with the next variant in turn (as chip_smoke.py's edge cases)
 CASES = [(s, d, g, VARIANTS[i % len(VARIANTS)]) for i, (s, d, g) in
          enumerate(itertools.product((1, 77, 200, 256), (32, 64, 128), (1, 6)))]
+#: D = 112 (Zamba2-7B's shared attention, which the tensor-core kernel runs
+#: in its D = 128 tile, zero-filled): the same S, groups 1 and 4
+CASES += [(s, 112, g, VARIANTS[i % len(VARIANTS)]) for i, (s, g) in
+          enumerate(itertools.product((1, 77, 200, 256), (1, 4)))]
 
 
 def _inputs(s, d, group, seed, dtype):

@@ -619,6 +619,54 @@ def test_flash_attention_on_card(card, s, d, group, dtype, causal, window, scale
                                                      sm_scale=scale), v)
 
 
+@pytest.mark.parametrize("s,group", [(1, 1), (200, 4), (2048, 1), (2048, 4)])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_at_d112_on_card(card, dtype, window, s, group):
+    """D = 112 (Zamba2-7B's shared attention): bf16 on the tensor cores in
+    the D = 128 tile zero-filled by TMA, f32 on the CUDA cores; causal and
+    windowed, S = 1, ragged and 2048."""
+    q, k, v = _attention_inputs(card, 2, 2 * group, 2, s, 112, dtype, seed=s + group)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.flash_attention(q, k, v, causal=True, window=window), v)
+
+
+def _device_kernel_names(fn, windows=6, pad_s=2.0):
+    """The device kernels ``fn`` launches, from torch.profiler: windows
+    padded with idle seconds (a short window can lose its kernels on the
+    card's machine), the first after a warm-up window that kept any."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and getattr(e, "self_device_time_total", 0) > 0}
+        if names and window:
+            break
+    return names
+
+
+def test_flash_attention_at_d112_runs_the_tensor_core_kernel_on_card(card):
+    """The profiler shows ``fa_wgmma`` (not ``fa_main``) for a bf16 call at
+    D = 112, and ``fa_main`` for an f32 one."""
+    for dtype, want, not_want in ((torch.bfloat16, "fa_wgmma", "fa_main"),
+                                  (torch.float32, "fa_main", "fa_wgmma")):
+        q, k, v = _attention_inputs(card, 1, 4, 4, 256, 112, dtype, seed=3)
+        names = _device_kernel_names(lambda: [ops.flash_attention(q, k, v) for _ in range(3)])
+        assert any(want in n for n in names) and not any(not_want in n for n in names), names
+
+
 def test_flash_attention_refuses_what_it_does_not_take_on_card(card):
     q, k, v = _attention_inputs(card, 1, 4, 2, 64, 48, torch.float32, seed=1)
     with pytest.raises(ValueError, match="D in"):
@@ -862,6 +910,63 @@ def test_moe_and_vlm_serve_waves_on_card(card):
         assert sorted(outs["pallas"]) == list(range(8))
         for rid, toks in outs["ref"].items():
             np.testing.assert_array_equal(outs["pallas"][rid], toks)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_prefill_on_card_launches_the_kernel_and_matches_plain(card, dtype):
+    """The reduced Zamba2 at Zamba2-7B's head width (d_head 112) prefilled
+    on the card with attn_mode "pallas": flash_attention once per attention
+    point (fa_main in f32, fa_wgmma in bf16); the f32 logits and state
+    within tests/test_models_smoke.py's 2e-3 of the plain attention's, the
+    bf16 ones finite (its rounding grows through the Mamba layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_reduced("zamba2-7b"), d_head=112, n_heads=2, n_kv_heads=2,
+                              dtype=dtype)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 200))).to(card)
+    params = build_model(cfg).init(torch.Generator(card).manual_seed(0))
+    outs = {}
+    for mode in ("pallas", "ref"):
+        before = ops.LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            outs[mode] = build_model(dataclasses.replace(cfg, attn_mode=mode)).prefill(
+                params, {"tokens": toks[:, :192]}, 208)
+        assert ops.LAUNCHES["flash_attention"] - before == (
+            cfg.n_attn_points if mode == "pallas" else 0)
+    (lp, sp), (lr, sr) = outs["pallas"], outs["ref"]
+    assert bool(torch.isfinite(lp).all())
+    if dtype == "float32":
+        torch.testing.assert_close(lp, lr, rtol=2e-3, atol=2e-3)
+        for key in ("conv", "ssm", "k", "v"):
+            torch.testing.assert_close(sp[key], sr[key], rtol=2e-3, atol=2e-3, msg=key)
+
+
+def test_hybrid_and_rwkv_serve_waves_on_card(card):
+    """The reduced Zamba2 and RWKV6 (f32) served on the card through
+    make_run_wave's else branch: no prefill and no kernel launch, and every
+    request the same tokens (each wave decodes from the same empty state
+    and zero token)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import Request, make_run_wave, serve_loop
+    from repro_torch.models.api import build_model
+
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(card).manual_seed(0))
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab, (8, 16))
+        run_wave = make_run_wave(model, params, batch=4, prompt_len=16, gen=4, cache_cap=24,
+                                 device=card)
+        before = dict(ops.LAUNCHES)
+        out = serve_loop([Request(rid=i, prompt=prompts[i]) for i in range(8)], run_wave,
+                         batch=4)
+        assert ops.LAUNCHES == before, arch
+        assert sorted(out) == list(range(8)), arch
+        for toks in out.values():
+            np.testing.assert_array_equal(toks, out[0])
 
 
 # ---------------------------------------------------------------------------

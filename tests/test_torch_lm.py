@@ -210,23 +210,33 @@ def test_serve_step_is_greedy():
     assert torch.equal(tok[:, 0], logits.argmax(-1).int()) and cache["len"] == 5
 
 
-@pytest.mark.parametrize("family,item", [("hybrid", "8.4"), ("rwkv", "8.5"), ("encdec", "8.6")])
+@pytest.mark.parametrize("family,item", [("encdec", "8.6")])
 def test_other_families_are_not_ported(family, item):
     cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         build_model(cfg)
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b", "zamba2-7b", "rwkv6-1.6b"])
 def test_moe_and_vlm_families_build(arch):
-    """The two families this slice ports build, with every entry point."""
+    """The MoE, VLM, hybrid and RWKV families build, with every entry
+    point, and ``init_state`` gives the family's empty state."""
     cfg = get_reduced(arch)
     model = build_model(cfg)
-    assert cfg.family in ("moe", "vlm")
     assert None not in (model.prefill, model.decode, model.init_state)
     state = model.init_state(2, 8)
-    assert state["len"] == 0 and state["k"].shape == (cfg.n_layers, 2, cfg.n_kv_heads, 8,
+    if cfg.family == "rwkv":
+        (last, wkv), cm = state
+        assert last.shape == cm.shape == (cfg.n_layers, 2, 1, cfg.d_model)
+        assert wkv.shape == (cfg.n_layers, 2, cfg.d_model // 64, 64, 64)
+        assert wkv.dtype == torch.float32
+        return
+    kv_points = cfg.n_attn_points if cfg.family == "hybrid" else cfg.n_layers
+    assert state["len"] == 0 and state["k"].shape == (kv_points, 2, cfg.n_kv_heads, 8,
                                                       cfg.d_head)
+    if cfg.family == "hybrid":
+        assert state["conv"].shape == (cfg.n_layers, 2, 3, cfg.d_inner)
+        assert state["ssm"].shape == (cfg.n_layers, 2, cfg.d_inner // 64, cfg.ssm_state, 64)
 
 
 def test_layernorm_matches_jax():
