@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the torch port: TPC-H, k-means, serving and training
 Qwen2-1.5B, serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
-Zamba2-7B and RWKV6-1.6B through ``repro_torch`` on one GPU.
+Zamba2-7B and RWKV6-1.6B, serving and training Whisper-base through
+``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -234,7 +235,23 @@ Phases, each printing its own lines:
    prefill of S − 1 tokens against the prefill of S (2e-3); the time
    scan's host cost (prefill µs per (position, layer)); then ``serve_loop``
    through the rwkv branch;
-25. each kernel against its plain version on the inputs the paths gave it,
+25. the enc-dec family: Whisper-base (``configs/whisper_base.py``
+   ``CONFIG``, 6 + 6 layers, d_model 512, 8 heads of 64, bf16, seed 0)
+   served with ``attn_mode="pallas"`` through ``serve_loop`` and
+   ``make_run_wave``'s encdec branch after a warm-up: 32 requests in waves
+   of 16, each wave 1500 stub frames drawn after the prompts from the
+   launcher's generator, 64 greedy tokens, a cache of 448;
+   ``flash_attention`` once per encoder layer per wave (12, counted),
+   non-causal at (16, 8, 1500, 64), every launch against its plain version
+   and one timed beside its bound and SDPA; the plain path, f64 attention
+   and chunked, held by phase 18's rule (the decoder's cross-attention
+   reads encoder frame 0 alone, ROADMAP Queue 3 item 30); then training:
+   its widths at depth 2 + 2 in f32 on the card against f64 on the host
+   (B = 1, S = 448 tokens and frames; the train phase's rule), and the
+   full model in bf16 (AdamW lr 3e-3, remat, ``chunked``) for a warm-up
+   and 4 steps at B = 16, S = 448, launching no kernel: losses finite and
+   falling, step ms, tokens/s, peak GB, model-FLOPs share;
+26. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -244,10 +261,10 @@ Phases, each printing its own lines:
    tensor-core recipe beside its distance from the plain version; then one
    served call under ``torch.profiler``, which must show the tensor-core
    kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``), once per
-   head width (128, and 112 from Zamba2-7B); the MoE, VLM and hybrid
-   phases add the first and last layer's (attention point's) call of their
-   counted run;
-26. per-query latency (median over ``--reps`` after a warm-up, each run
+   head width (128, 112 from Zamba2-7B and 64 from Whisper-base); the MoE,
+   VLM, hybrid and enc-dec phases add the first and last layer's
+   (attention point's) call of their counted run;
+27. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -258,7 +275,7 @@ Then the card's line, the ``kernels`` JSON line (the relational kernels'
 launches count the TPC-H path's run, the stream phase's counted folds and
 the spmd ranks' main runs; ``kmeans_step``'s the k-means path's and the
 spmd ranks' steps; ``flash_attention``'s the served Qwen2-1.5B, Moonlight,
-Mixtral, Qwen2-VL and Zamba2-7B runs) and, last,
+Mixtral, Qwen2-VL, Zamba2-7B and Whisper-base runs) and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -309,7 +326,7 @@ outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.  The hybrid's paths go
 phase 18's rule; random Mamba layers amplify a rounding (the norm inside
 the block divides rows of small RMS), so at 81 layers the noise floor is
 itself several std and the rule has little power there: the per-call
-kernel check (phase 25) holds the D = 112 kernel.  ``ssd_chunked`` alone:
+kernel check (phase 26) holds the D = 112 kernel.  ``ssd_chunked`` alone:
 f32 against f64 within ‖Δ‖ ≤ 1e-5·‖y‖ (f32 rounding of 64-term chunk
 sums).  RWKV6 against f64 on the card: f32 within 1e-4 of the largest
 f64 logit; bf16 by the RMS of the difference, at most 0.15 of the
@@ -405,6 +422,16 @@ ZAMBA_ARCH, ZAMBA_GEN, SSD_REL = "zamba2-7b", 32, 1e-5
 #: random weights on the CPU to the same share)
 RWKV_ARCH, RWKV_PROMPT, RWKV_GEN = "rwkv6-1.6b", 2048, 32
 RWKV_F32_REL, RWKV_BF16_RMS = 1e-4, 0.15
+#: the enc-dec family: Whisper-base at full width and depth (6 + 6 layers),
+#: WHISPER_REQUESTS requests in waves of WHISPER_BATCH, each encoding
+#: WHISPER_FRAMES stub frames (Whisper's 30-second window after its
+#: stride-2 conv, arXiv:2212.04356), then WHISPER_GEN greedy tokens in a
+#: cache of WHISPER_CAP (the released models' decoder context, n_text_ctx);
+#: trained on WHISPER_TRAIN_B × WHISPER_CAP tokens and frames, a warm-up and
+#: WHISPER_TRAIN_STEPS steps
+WHISPER_ARCH = "whisper-base"
+WHISPER_REQUESTS, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN, WHISPER_CAP = 32, 16, 1500, 64, 448
+WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 16, 4
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -1776,9 +1803,9 @@ def _watched(model):
     calls = []
 
     def prefill(p, b, cap):
-        logits, cache = model.prefill(p, b, cap)
-        calls.append([logits])
-        return logits, cache
+        out = model.prefill(p, b, cap)  # an enc-dec prefill gives the cache alone
+        calls.append([out[0]] if isinstance(out, tuple) else [])
+        return out
 
     def init_state(bsz, cap, device=None):  # a wave with no prefill (the vlm family's)
         calls.append([])
@@ -1792,7 +1819,8 @@ def _watched(model):
     return replace(model, prefill=prefill, decode=decode, init_state=init_state), calls
 
 
-def _serve_once(model, params, requests, gen: int = SERVE_GEN):
+def _serve_once(model, params, requests, gen: int = SERVE_GEN, *, batch: int = SERVE_BATCH,
+                prompt_len: int = SERVE_PROMPT, cap: int = SERVE_CAP, frames_rng=None):
     """One traced ``serve_loop`` over ``requests`` through ``make_run_wave``;
     returns (outputs, the logits of each call per wave, tracer, wall s)."""
     import torch
@@ -1801,12 +1829,12 @@ def _serve_once(model, params, requests, gen: int = SERVE_GEN):
     from repro_torch.obs.trace import tracing
 
     watched, calls = _watched(model)
-    run_wave = make_run_wave(watched, params, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                             gen=gen, cache_cap=SERVE_CAP, device="cuda")
+    run_wave = make_run_wave(watched, params, batch=batch, prompt_len=prompt_len, gen=gen,
+                             cache_cap=cap, device="cuda", frames_rng=frames_rng)
     with tracing() as tracer:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = serve_loop(requests, run_wave, batch=SERVE_BATCH)
+        out = serve_loop(requests, run_wave, batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return out, calls, tracer, wall
@@ -1884,14 +1912,16 @@ def exact_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     return (p @ v.double().repeat_interleave(group, 1)).to(q.dtype)
 
 
-def compare_paths(label: str, got, want, exact, noise: float, gen: int = SERVE_GEN) -> dict:
+def compare_paths(label: str, got, want, exact, noise: float, gen: int = SERVE_GEN, *,
+                  batch: int = SERVE_BATCH, lead: int = 1) -> dict:
     """One serving run (outputs, per-wave logits) against the plain path's:
     the logits of every step both were fed the same tokens within the
-    larger of LOGIT_STD_SHARE of the prefill logits' std and NOISE_FACTOR ×
-    ``noise``, and each request's tokens its logits' argmax.  Reports the
-    run's own distance from the ``exact`` run, and per request the step at
-    which its tokens first leave the plain path's with the plain path's
-    top-2 logit gap there."""
+    larger of LOGIT_STD_SHARE of the first call's logits' std and
+    NOISE_FACTOR × ``noise``, and each request's tokens its logits' argmax
+    (the calls after the ``lead`` ones: 1, the prefill's logits, or 0 for a
+    prefill that gives none).  Reports the run's own distance from the
+    ``exact`` run, and per request the step at which its tokens first leave
+    the plain path's with the plain path's top-2 logit gap there."""
     import torch
 
     (gout, glog), (wout, wlog) = got, want
@@ -1909,15 +1939,15 @@ def compare_paths(label: str, got, want, exact, noise: float, gen: int = SERVE_G
         gaps = (top2[..., 0] - top2[..., 1]).cpu()                  # (steps, B)
         gseq, wseq = gl.argmax(-1).cpu(), wl.argmax(-1).cpu()
         for j in range(gseq.shape[1]):
-            rid = wave * SERVE_BATCH + j
+            rid = wave * batch + j
             # the decode steps' tokens are what serve_loop returned
-            if not (gseq[1:, j].numpy() == gout[rid]).all() or not (
-                    wseq[1:, j].numpy() == wout[rid]).all():
+            if not (gseq[lead:, j].numpy() == gout[rid]).all() or not (
+                    wseq[lead:, j].numpy() == wout[rid]).all():
                 raise AssertionError(f"{label}: request {rid}'s tokens are not its logits' argmax")
             bad = (gseq[:, j] != wseq[:, j]).nonzero()
             if len(bad):
                 diverged.append((rid, int(bad[0]), round(float(gaps[int(bad[0]), j]), 6)))
-    steps = len(gout) * (gen + 1)
+    steps = len(gout) * (gen + lead)
     log(f"serving path {label}: logits max |Δ| {worst:.6g} over the {same} of {steps} steps fed "
         f"the same tokens (limit {limit:.6g}; std {std:.6g}, {worst / std:.4f} of it; noise "
         f"floor {noise:.6g}); prefill logits max |Δ| {pre:.6g}; from the exact run "
@@ -2093,10 +2123,11 @@ def _leaves(tree):
     return [tree]
 
 
-def _serve_numbers(tracer, wall: float, served: int, gen: int = SERVE_GEN) -> dict:
+def _serve_numbers(tracer, wall: float, served: int, gen: int = SERVE_GEN,
+                   wave_tokens: int = SERVE_BATCH * SERVE_PROMPT) -> dict:
     """The serving numbers of one run from the port's tracer: medians over
-    the waves (prefill, where the family has one) and the steps (decode),
-    latency percentiles."""
+    the waves (prefill, where the family has one, of ``wave_tokens`` prompt
+    tokens or frames) and the steps (decode), latency percentiles."""
     prefill = tracer.histograms.get("serve.prefill_s", [])
     decode = tracer.histograms["serve.decode_step_s"]
     lat = tracer.histogram_summary("serve.request_latency_s")
@@ -2107,8 +2138,7 @@ def _serve_numbers(tracer, wall: float, served: int, gen: int = SERVE_GEN) -> di
     if prefill:
         out.update({"prefill_ms_per_wave": statistics.median(prefill) * 1e3,
                     "prefill_ms_all": [x * 1e3 for x in prefill],
-                    "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
-                    / statistics.median(prefill)})
+                    "prefill_tokens_per_s": wave_tokens / statistics.median(prefill)})
     return out
 
 
@@ -2234,7 +2264,8 @@ def phase_kernels(captured, launches, pool):
 
 def phase_attention_route(calls) -> dict:
     """The first served flash_attention call (bf16) of each head width (128;
-    112 from Zamba2-7B) under torch.profiler, after a warm-up window: its
+    112 from Zamba2-7B; 64 from Whisper-base) under torch.profiler, after a
+    warm-up window: its
     device kernels must be the tensor-core kernel and not the CUDA-core
     one.  Returns {D: {"shape", "own_ms"}}: the tensor-core kernel's own
     device ms per call."""
@@ -3358,6 +3389,218 @@ def phase_rwkv(smi: str):
     log("rwkv: " + json.dumps(report))
     log(f"rwkv phase took {report['phase_s']:.1f} s")
     return 0, [], report
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family: Whisper-base served and trained at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def whisper_serve(model, params, gen: int = WHISPER_GEN):
+    """``serve_loop`` over WHISPER_REQUESTS requests through
+    ``make_run_wave``'s encdec branch, as ``launch/serve.py``'s main draws
+    them: the prompts (WHISPER_FRAMES tokens, not read) from
+    ``np.random.default_rng(0)``, then each wave's stub frames (WHISPER_BATCH,
+    WHISPER_FRAMES, d_model) from the same generator; ``_serve_once``'s
+    return."""
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, model.cfg.vocab, (WHISPER_REQUESTS, WHISPER_FRAMES))
+    return _serve_once(model, params, [Request(rid=i, prompt=prompts[i])
+                                       for i in range(WHISPER_REQUESTS)], gen,
+                       batch=WHISPER_BATCH, prompt_len=WHISPER_FRAMES, cap=WHISPER_CAP,
+                       frames_rng=rng)
+
+
+def phase_whisper(smi: str):
+    """Whisper-base at full width and depth: served with
+    attn_mode="pallas" through ``serve_loop`` and ``make_run_wave``'s encdec
+    branch after a warm-up (the counts set to 0 just before and read just
+    after: ``flash_attention`` once per encoder layer per wave, non-causal
+    at (WHISPER_BATCH, 8, WHISPER_FRAMES, 64) bf16; every launch held
+    against its plain version), then the same parameters and frames with
+    the plain attention (``ref``), f64 attention (the noise floor) and
+    ``chunked``, held to the plain path by phase 18's rule; then training:
+    the widths at depth TRAIN_CHECK_DEPTH in f32 on the card against the
+    same code in f64 on the host (B = 1, S = WHISPER_CAP), and Whisper-base
+    in bf16 (AdamW, remat, attn_mode="chunked": the kernel has no backward)
+    for a warm-up and WHISPER_TRAIN_STEPS steps of B = WHISPER_TRAIN_B ×
+    S = WHISPER_CAP tokens and frames, launching no kernel.  Returns
+    (launches, the first wave's first and last encoder layer's kernel
+    calls, the report)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(replace(base, attn_mode="pallas"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_l, waves = base.n_enc_layers, WHISPER_REQUESTS // WHISPER_BATCH
+    log(f"{WHISPER_ARCH}: {n_params / 1e6:.4f} M parameters (ModelConfig.n_params(), which "
+        f"counts no norm: {base.n_params()}; {base.dtype}, "
+        f"{sum(_bytes(t) for t in _leaves(params)) / 1e9:.4f} GB; {held / 1e9:.2f} GB held by "
+        f"earlier phases); {base.n_enc_layers} + {base.n_layers} layers; {WHISPER_REQUESTS} "
+        f"requests of {WHISPER_FRAMES} stub frames, batch {WHISPER_BATCH}, {WHISPER_GEN} "
+        f"generated, cache {WHISPER_CAP}; set-up {time.perf_counter() - t0:.1f} s")
+    whisper_serve(model, params, gen=2)  # warm-up: library handles, the allocator
+    torch.cuda.reset_peak_memory_stats()
+    with recording(("flash_attention",)) as captured:
+        ops.reset_launches()
+        out, logits, tracer, wall = whisper_serve(model, params)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if sorted(out) != list(range(WHISPER_REQUESTS)):
+        raise AssertionError(f"{WHISPER_ARCH}: served {sorted(out)}")
+    for rid, toks in out.items():
+        if toks.shape != (WHISPER_GEN,) or not ((toks >= 0) & (toks < base.vocab)).all():
+            raise AssertionError(f"{WHISPER_ARCH} request {rid}: tokens {toks}")
+    if not all(bool(torch.isfinite(x).all()) for w in logits for x in w):
+        raise AssertionError(f"{WHISPER_ARCH}: non-finite logits")
+    if launches != {"flash_attention": n_l * waves} or len(captured) != n_l * waves:
+        raise AssertionError(f"{WHISPER_ARCH}: launched {launches}, not flash_attention {n_l} "
+                             "per wave")
+    want = (WHISPER_BATCH, base.n_heads, WHISPER_FRAMES, base.d_head)
+    for _, args, kw in captured:
+        if tuple(args[0].shape) != want or args[0].dtype != torch.bfloat16 or kw["causal"]:
+            raise AssertionError(f"{WHISPER_ARCH}: a flash_attention call at "
+                                 f"{tuple(args[0].shape)} {args[0].dtype} {kw}, not {want} bf16 "
+                                 "non-causal")
+    # every launch of the path against its plain version on its inputs
+    shares = [check_attention(f"{WHISPER_ARCH} flash_attention#{i}",
+                              ops.flash_attention(*args, **kw), ref.flash_attention(*args, **kw),
+                              args[2])[1] for i, (_, args, kw) in enumerate(captured)]
+    args, kw = captured[0][1:]
+    fa = {"ms": cuda_ms(lambda: ops.flash_attention(*args, **kw)),
+          "library_ms": _library_ms("flash_attention", args, kw),
+          "bound_ms": work("flash_attention", args, kw)[1] / PEAK_BF16_TC * 1e3,
+          "worst_bound_share": max(shares)}
+    report = {"card": smi, "pallas": _serve_numbers(tracer, wall, len(out), WHISPER_GEN,
+                                                    WHISPER_BATCH * WHISPER_FRAMES),
+              "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9, "n_params": n_params,
+              "flash_attention": fa}
+    log(f"{WHISPER_ARCH} (pallas): {len(out)} requests served, {waves} waves; launches "
+        f"{launches}, each within the bf16 rule of its plain version (worst share of the "
+        f"bound {max(shares):.4f}); a call at {want} bf16 non-causal {fa['ms']:.4f} ms, bound "
+        f"{fa['bound_ms']:.4f} ms ({fa['ms'] / fa['bound_ms']:.2f}×), SDPA "
+        f"{fa['library_ms']:.4f} ms; peak {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held")
+    runs = {"pallas": (out, logits)}
+    for name, mode in (("ref", "ref"), ("exact", exact_attention), ("chunked", "chunked")):
+        res = whisper_serve(build_model(replace(base, attn_mode=mode)), params)
+        runs[name] = res[:2]
+        if name != "exact":
+            report[name] = _serve_numbers(res[2], res[3], len(res[0]), WHISPER_GEN,
+                                          WHISPER_BATCH * WHISPER_FRAMES)
+    _, noise, same, std = path_gap(runs["ref"][1], runs["exact"][1])
+    report["noise_floor"] = {"max_abs": noise, "same_token_steps": same, "logit_std": std}
+    log(f"{WHISPER_ARCH} noise floor: the plain path's logits differ from those with exactly "
+        f"rounded (f64) encoder attention by up to {noise:.6g} ({noise / std:.4f} of their std "
+        f"{std:.6g}) over the {same} steps fed the same tokens")
+    for name in ("pallas", "chunked"):
+        report[f"{name}_vs_ref"] = compare_paths(
+            f"{WHISPER_ARCH} {name} vs ref", runs[name], runs["ref"], runs["exact"][1], noise,
+            WHISPER_GEN, batch=WHISPER_BATCH, lead=0)
+    del runs, logits, out
+    r = report["pallas"]
+    log(f"serving {WHISPER_ARCH} ({smi}): prefill (the encoder and the cross K/V) "
+        f"{r['prefill_ms_per_wave']:.3f} ms per wave of {WHISPER_BATCH}×{WHISPER_FRAMES} frames "
+        f"(ref {report['ref']['prefill_ms_per_wave']:.3f}, chunked "
+        f"{report['chunked']['prefill_ms_per_wave']:.3f}); decode {r['decode_ms_per_step']:.3f} "
+        f"ms per step of {WHISPER_BATCH} tokens; {r['tokens_per_s']:.6g} generated tokens/s; "
+        f"request latency p50 {r['latency_p50_s']:.4f} s, p99 {r['latency_p99_s']:.4f} s")
+
+    # training: the card f32 against the host f64 at depth TRAIN_CHECK_DEPTH
+    cut = dict(n_layers=TRAIN_CHECK_DEPTH, n_enc_layers=TRAIN_CHECK_DEPTH)
+    cfg2 = replace(base, dtype="float32", **cut)
+
+    def batch_of(cfg, b, device):
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=WHISPER_CAP, global_batch=b, seed=0)
+        return make_batch_fn(cfg, pipe, device)(0)
+
+    model2 = build_model(cfg2)
+    p2 = model2.init(torch.Generator("cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    card = _grads_of(model2, p2, batch_of(cfg2, 1, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _grads_of(build_model(replace(cfg2, dtype="float64")),
+                     tree_map(lambda t: t.detach().double().cpu(), p2), batch_of(cfg2, 1, "cpu"))
+    report["train_card_vs_host_f64"] = _gap_report(
+        f"{WHISPER_ARCH} card f32 vs host f64 ({TRAIN_CHECK_DEPTH} + {TRAIN_CHECK_DEPTH} layers "
+        f"at full width, B=1, S={WHISPER_CAP} tokens and frames; card {t_card:.2f} s, host "
+        f"{time.perf_counter() - t0:.1f} s)", card, host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL)
+    del card, host, p2, model2
+
+    # Whisper-base in bf16 at full depth
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model = build_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    step, opt = make_train_step(model, AdamW(lr=TRAIN_LR), microbatch=1)
+    state = opt.init(params)
+    batch = batch_of(base, WHISPER_TRAIN_B, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)  # warm-up: the first step
+    losses = [float(met["loss"])]
+    warm_s = time.perf_counter() - t0
+    times = []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    trained = {k: v for k, v in ops.LAUNCHES.items() if v}
+    tpeak = torch.cuda.max_memory_allocated() - held
+    if trained:
+        raise AssertionError(f"{WHISPER_ARCH} training launched {trained}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{WHISPER_ARCH} training losses {losses}: not finite or not below "
+                             "the first")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError(f"{WHISPER_ARCH}: a parameter is not finite after training")
+    step_s = statistics.median(times)
+    tokens = WHISPER_TRAIN_B * WHISPER_CAP
+    model_flops = 6 * base.n_params() * tokens
+    report["train"] = {
+        "losses": losses, "warmup_s": warm_s, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_allocated_gb": tpeak / 1e9, "held_gb": held / 1e9, "model_flops": model_flops,
+        "model_flops_share": model_flops / step_s / PEAK_BF16_TC}
+    log(f"train ({smi}): {WHISPER_ARCH} {base.n_enc_layers} + {base.n_layers} layers bf16, "
+        f"B={WHISPER_TRAIN_B}×S={WHISPER_CAP} tokens and frames, AdamW lr {TRAIN_LR}, remat, "
+        f"chunked attention: losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms "
+        f"median of {WHISPER_TRAIN_STEPS} (synchronised; warm-up {warm_s:.2f} s), "
+        f"{tokens / step_s:.0f} decoder tokens/s, peak allocated {tpeak / 1e9:.2f} GB above the "
+        f"{held / 1e9:.2f} GB held, model-FLOPs share {model_flops / step_s / PEAK_BF16_TC:.4f} "
+        f"(6·N·tokens = {model_flops:.4g} over 989 TFLOP/s); no kernel launched")
+    del params, state, batch, met, model
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("encdec: " + json.dumps(report))
+    log(f"encdec phase took {report['phase_s']:.1f} s")
+    return launches["flash_attention"], [captured[0], captured[n_l - 1]], report
 
 
 # ---------------------------------------------------------------------------
@@ -4628,7 +4871,8 @@ def main() -> int:
                                        sample_calls=True),
                     lambda: phase_vlm(smi),
                     lambda: phase_zamba2(smi),
-                    lambda: phase_rwkv(smi)):
+                    lambda: phase_rwkv(smi),
+                    lambda: phase_whisper(smi)):
             n, calls = run()[:2]  # the rest holds the model: dropped before the next phase
             fa_launches += n
             fa_captured += calls

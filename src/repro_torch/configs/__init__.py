@@ -1,6 +1,5 @@
-"""Architecture configs: the dense, MoE, hybrid, VLM and RWKV ones of
-``repro/configs``, copied verbatim, in the JAX dict's order (the enc-dec
-family waits for its slice)."""
+"""Architecture configs: every model of ``repro/configs``, copied
+verbatim, in the JAX dict's order."""
 
 from importlib import import_module
 from typing import List
@@ -15,6 +14,7 @@ _MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "mixtral-8x7b": "mixtral_8x7b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-base": "whisper_base",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }

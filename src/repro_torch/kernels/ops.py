@@ -710,9 +710,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     product, and m, l and acc stay f32.  Differentiable by autograd; with
     ``policy="remat"`` (JAX's default) each block runs under
     ``torch.utils.checkpoint`` when a gradient is being recorded, so the
-    backward recomputes the block's logits and keeps O(S·D), not O(S²)."""
+    backward recomputes the block's logits and keeps O(S·D), not O(S²).
+
+    Where the key length differs from the query length S (cross-attention)
+    the blocks are JAX's, which it takes from S: S // bk blocks of bk =
+    min(block_k, S) keys, block i from ``min(i·bk, S_k − bk)`` (the clamp of
+    ``dynamic_slice``) at key positions i·bk onwards in the mask.  So only
+    the first S keys are seen, and a decode step (S = 1) sees key 0 alone
+    (a kept quirk, ROADMAP Queue 3 item 30).  Raises ``ValueError`` where
+    JAX fails: bk > S_k, or S not a multiple of bk."""
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qf = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, hkv, group, s, d).float()
@@ -721,9 +729,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, hkv, group, s, d), dtype=torch.float32, device=q.device)
     remat = (policy == "remat" and torch.is_grad_enabled()
              and any(t.requires_grad for t in (q, k, v)))
-    for k0 in range(0, s, min(block_k, s)):
-        blk = (qf, k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k], m, l, acc, k0,
-               causal, window)
+    if sk == s:  # (slice start, first key position): every key, block by block
+        width, blocks = block_k, [(k0, k0) for k0 in range(0, s, min(block_k, s))]
+    else:
+        width = min(block_k, s)
+        if width > sk or s % width:
+            raise ValueError(f"chunked_attention: {s} queries over {sk} keys take blocks of "
+                             f"{width} keys, which JAX's cannot cut")
+        blocks = [(min(i * width, sk - width), i * width) for i in range(s // width)]
+    for c, k0 in blocks:
+        blk = (qf, k[:, :, c:c + width], v[:, :, c:c + width], m, l, acc, k0, causal, window)
         if remat:
             m, l, acc = checkpoint(_attention_block, *blk, use_reentrant=False)
         else:

@@ -515,23 +515,27 @@ def _sync(device: torch.device) -> None:
 
 
 def make_run_wave(model, params, *, batch: int, prompt_len: int, gen: int, cache_cap: int,
-                  device: Any) -> Callable[[List[Request]], Dict[int, np.ndarray]]:
+                  device: Any, frames_rng: Optional[np.random.Generator] = None
+                  ) -> Callable[[List[Request]], Dict[int, np.ndarray]]:
     """``run_wave`` for :func:`serve_loop`, with the JAX launcher's family
     branches: the dense and MoE families prefill the wave's prompts (padded
-    with zero rows up to ``batch``) and take the greedy token; the VLM,
-    hybrid and RWKV families, as JAX's ``else`` branch, start from
-    ``init_state``'s empty state with a zero token and no prefill (their
-    prompts are not read: a kept quirk, ROADMAP Queue 3 item 25).  Then
-    ``gen`` greedy decode steps;
-    returns ``{rid: the gen decoded tokens}``.  Records ``serve.prefill_s``
-    (where there is a prefill) and ``serve.decode_step_s`` (host clock,
-    the device synchronised) and counts ``serve.tokens``."""
+    with zero rows up to ``batch``) and take the greedy token; the enc-dec
+    family prefills (encodes) stub frames, f32 normals (batch, prompt_len,
+    d_model) drawn once per wave from ``frames_rng`` (the launcher's prompt
+    generator, as JAX's draws them after the prompts), then starts from a
+    zero token; the VLM, hybrid and RWKV families, as JAX's ``else``
+    branch, start from ``init_state``'s empty state with a zero token and
+    no prefill.  The enc-dec, VLM, hybrid and RWKV families read no prompt
+    (a kept quirk, ROADMAP Queue 3 item 25).  Then ``gen`` greedy decode
+    steps; returns ``{rid: the gen decoded tokens}``.  Records
+    ``serve.prefill_s`` (where there is a prefill) and
+    ``serve.decode_step_s`` (host clock, the device synchronised) and
+    counts ``serve.tokens``."""
     from ..models.api import make_serve_step
 
     family = model.cfg.family
-    if family == "encdec":
-        raise NotImplementedError("serving the encdec family is not ported yet "
-                                  "(ROADMAP Queue 1 item 8.6)")
+    if family == "encdec" and frames_rng is None:
+        raise ValueError("the encdec family's waves draw their frames from frames_rng")
     dev = torch.device(device)
     serve = make_serve_step(model)
 
@@ -548,6 +552,17 @@ def make_run_wave(model, params, *, batch: int, prompt_len: int, gen: int, cache
                 logits, state = model.prefill(
                     params, {"tokens": torch.from_numpy(toks).to(dev)}, cache_cap)
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                _sync(dev)
+                tracer.observe("serve.prefill_s", time.perf_counter() - t0)
+            elif family == "encdec":
+                # the stub frontend's output, on the device before the clock starts:
+                # serve.prefill_s is the encoder and the cross K/V
+                frames = torch.from_numpy(frames_rng.normal(
+                    size=(batch, prompt_len, model.cfg.d_model)).astype(np.float32)).to(dev)
+                _sync(dev)
+                t0 = time.perf_counter()
+                state = model.prefill(params, {"frames": frames}, cache_cap)
+                tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
                 _sync(dev)
                 tracer.observe("serve.prefill_s", time.perf_counter() - t0)
             else:
@@ -569,8 +584,9 @@ def main(argv=None):
     from ..configs import ARCH_IDS
 
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b",
-                    help="a dense, MoE, VLM, hybrid or RWKV config (the VLM, hybrid and "
-                         "RWKV ones decode from an empty state, as JAX's launcher does)")
+                    help="a dense, MoE, VLM, hybrid, RWKV or enc-dec config (whisper-base "
+                         "encodes stub frames of --prompt-len; the VLM, hybrid and RWKV "
+                         "ones decode from an empty state, as JAX's launcher does)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -615,12 +631,13 @@ def main(argv=None):
         cfg = replace(cfg, attn_mode=args.attn_mode)
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
-    run_wave = make_run_wave(model, params, batch=args.batch, prompt_len=args.prompt_len,
-                             gen=args.gen, cache_cap=args.cache_cap, device=device)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len))
     requests = [Request(rid=i, prompt=prompts[i]) for i in range(args.requests)]
+    run_wave = make_run_wave(model, params, batch=args.batch, prompt_len=args.prompt_len,
+                             gen=args.gen, cache_cap=args.cache_cap, device=device,
+                             frames_rng=rng)
 
     t0 = time.time()
     outputs = serve_loop(requests, run_wave, batch=args.batch,

@@ -44,11 +44,9 @@ def make_batch_fn(cfg, pipeline: TokenPipeline,
     labels and mask as they are.  The VLM batch, as JAX's: stub patch
     embeddings (B, S, D) as f32 normals from
     ``np.random.default_rng((1234, step))``, ``positions3`` the broadcast
-    arange (3, B, S), and no tokens.  The enc-dec batch waits for its
-    family."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("the encdec family's batches (frames) wait for "
-                                  "ROADMAP Queue 1 item 8.6")
+    arange (3, B, S), and no tokens.  The enc-dec batch, as JAX's: the
+    tokens, labels and mask, and stub frames (B, S, D) as f32 normals from
+    ``np.random.default_rng((4321, step))``."""
 
     def at(step: int) -> Dict[str, torch.Tensor]:
         b = pipeline.batch_at(step)
@@ -57,6 +55,10 @@ def make_batch_fn(cfg, pipeline: TokenPipeline,
             rng = np.random.default_rng((1234, step))
             b["embeds"] = rng.normal(size=(bsz, s, cfg.d_model)).astype(np.float32)
             b["positions3"] = np.broadcast_to(np.arange(s, dtype=np.int32), (3, bsz, s)).copy()
+        elif cfg.family == "encdec":
+            bsz, s = b["tokens"].shape
+            rng = np.random.default_rng((4321, step))
+            b["frames"] = rng.normal(size=(bsz, s, cfg.d_model)).astype(np.float32)
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
     return at
@@ -65,12 +67,13 @@ def make_batch_fn(cfg, pipeline: TokenPipeline,
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b",
-                    help="a dense, MoE, VLM, hybrid or RWKV config (the VLM trains on "
-                         "stub patch embeddings)")
+                    help="a dense, MoE, VLM, hybrid, RWKV or enc-dec config (the VLM trains "
+                         "on stub patch embeddings, whisper-base on stub frames)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the config's depth to this many layers (widths kept)")
+                    help="cut the config's depth to this many layers (widths kept; an "
+                         "enc-dec config's encoder and decoder both)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -93,7 +96,8 @@ def run(args: argparse.Namespace) -> Tuple[Tuple[Any, Any], List[float]]:
         raise SystemExit(f"[train] {e}")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.layers is not None:
-        cfg = replace(cfg, n_layers=args.layers)
+        cfg = replace(cfg, n_layers=args.layers,
+                      **({"n_enc_layers": args.layers} if cfg.family == "encdec" else {}))
     model = build_model(cfg)
     print(f"[train] {cfg.arch}: {cfg.n_params()/1e6:.1f}M params "
           f"({cfg.n_active_params()/1e6:.1f}M active) on {device}")

@@ -3,8 +3,9 @@
 The port's copy of ``repro/models/api.py``.  ``build_model(cfg)`` returns
 a ``Model`` facade with uniform entry points (init / loss / prefill /
 decode / state init); the step factories make the functions the train and
-serve launchers call.  The dense, MoE, VLM, hybrid and RWKV families are
-built; enc-dec waits for its slice.
+serve launchers call.  Every family of the JAX package is built: dense,
+MoE, VLM, hybrid, RWKV and enc-dec (whose prefill takes ``frames`` and
+returns the decode cache only, with no logits, as JAX's).
 
 ``make_train_step`` takes gradients with ``torch.autograd.grad`` over
 detached copies of the parameter leaves and returns them as a tree (JAX's
@@ -20,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ..train.optimizer import AdamW, Optimizer, tree_leaves, tree_like, tree_map
-from . import hybrid, lm, ssm
+from . import hybrid, lm, ssm, whisper
 
 
 @dataclass(frozen=True)
@@ -123,10 +124,6 @@ class Model:
     init_state: Optional[Callable] = None  # (batch, cap) → decode state
 
 
-#: the families that wait for their slice, and their ROADMAP Queue 1 items
-_NOT_PORTED = {"encdec": "8.6"}
-
-
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family in ("dense", "moe", "vlm"):
         return Model(
@@ -158,10 +155,14 @@ def build_model(cfg: ModelConfig) -> Model:
             decode=lambda p, st, toks: ssm.rwkv_decode_step(p, cfg, st, toks),
             init_state=lambda bsz, cap, device=None: ssm.rwkv_init_state(cfg, bsz, device),
         )
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-            f"{_NOT_PORTED[cfg.family]})")
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: whisper.init_encdec(cfg, gen),
+            loss=lambda p, b: whisper.encdec_loss(p, cfg, b),
+            prefill=lambda p, b, cap: whisper.prefill(p, cfg, b["frames"], cap),
+            decode=lambda p, cache, toks: whisper.decode_step(p, cfg, cache, toks),
+        )
     raise ValueError(f"unknown family {cfg.family}")
 
 

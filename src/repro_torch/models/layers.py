@@ -5,8 +5,7 @@ explicit parameter dicts of tensors.  Initialisers take a
 ``torch.Generator`` and a ``lead`` shape, so the per-layer leaves of a
 model are made stacked on a leading ``L`` axis (the JAX package stacks
 them with ``jax.vmap``): the dense leaves in one draw, the experts' one
-leading index at a time (``stacked_init``).  Cross-attention waits for
-the enc-dec family.
+leading index at a time (``stacked_init``).
 """
 
 from __future__ import annotations
@@ -201,6 +200,20 @@ def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     o = kops.decode_attention(q, cache_k, cache_v, min(cache_len + 1, cap))
     o = o.transpose(1, 2).reshape(b, 1, n_heads * d_head)
     return o @ p["wo"], cache_k, cache_v
+
+
+def cross_attention_block(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
+                          enc_v: torch.Tensor, *, n_heads: int, n_kv: int,
+                          d_head: int) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B, Hkv,
+    S_enc, D): no RoPE, and ``chunked_attention`` whatever the config's
+    attention mode, as JAX's (so its blocks, taken from x's length, see the
+    first S encoder positions only: ROADMAP Queue 3 item 30)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, d_head).transpose(1, 2)
+    o = kops.attention(q, enc_k, enc_v, causal=False, mode="chunked")
+    o = o.transpose(1, 2).reshape(b, s, n_heads * d_head)
+    return o @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,16 @@ class Optimizer:
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params) → (new_params, new_state)
 
 
+def clip_scale(g_leaves: List[torch.Tensor], grad_clip: float) -> torch.Tensor:
+    """AdamW's gradient-clip factor min(1, clip / (‖g‖ + 1e-9)), f32, with
+    ‖g‖ the correctly rounded sqrt of the f32 sum of squares, as XLA takes
+    it: torch's f32 sqrt on the CPU misses by an ulp on some inputs, and the
+    f64 sqrt rounded to f32 is exact (CUDA's f32 sqrt already is)."""
+    ss = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
+    gnorm = torch.sqrt(ss.double()).float()
+    return torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+
+
 def AdamW(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: float = 1.0) -> Optimizer:
     def init(params):
@@ -67,10 +77,7 @@ def AdamW(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
     def update(grads, state, params):
         step = state["step"] + 1
         g_leaves = tree_leaves(grads)
-        scale = None
-        if grad_clip is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in g_leaves))
-            scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        scale = None if grad_clip is None else clip_scale(g_leaves, grad_clip)
 
         bc1 = 1.0 - b1 ** step.float()
         bc2 = 1.0 - b2 ** step.float()

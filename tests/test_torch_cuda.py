@@ -970,6 +970,96 @@ def test_hybrid_and_rwkv_serve_waves_on_card(card):
 
 
 # ---------------------------------------------------------------------------
+# the enc-dec family on the card (Whisper-base)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,dtype", [(16, torch.bfloat16), (2, torch.float32)])
+def test_flash_attention_non_causal_at_whisper_encoders_shape_on_card(card, b, dtype):
+    """Whisper-base's encoder call: (B, 8, 1500, 64), group 1, non-causal,
+    1500 frames a multiple of no tile (every kv tile visited, the last
+    partial); bf16 on the tensor cores, f32 on the CUDA cores."""
+    q, k, v = _attention_inputs(card, b, 8, 8, 1500, 64, dtype, seed=15)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.flash_attention(q, k, v, causal=False), v)
+
+
+def _whisper_cut(dtype, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("whisper-base"), n_layers=2, n_enc_layers=2,
+                               dtype=dtype, **over)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_encoder_pallas_matches_plain_on_card(card, dtype):
+    """Whisper-base's widths at 2 encoder layers, 2 × 1500 frames: the
+    encoder with attn_mode "pallas" launches flash_attention once a layer
+    and gives the plain attention's states: f32 within rtol/atol 1e-4, bf16
+    within 2⁻⁵ of their largest magnitude (tests/test_torch_whisper.py's
+    bf16 rule)."""
+    import dataclasses
+
+    from repro_torch.models import whisper
+    from repro_torch.models.api import build_model
+
+    cfg = _whisper_cut(dtype)
+    params = build_model(cfg).init(torch.Generator(card).manual_seed(0))
+    frames = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 1500, cfg.d_model))
+                              .astype(np.float32)).to(card)
+    outs = {}
+    for mode in ("pallas", "ref"):
+        before = ops.LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            outs[mode] = whisper.encode(params, dataclasses.replace(cfg, attn_mode=mode), frames)
+        assert ops.LAUNCHES["flash_attention"] - before == (
+            cfg.n_enc_layers if mode == "pallas" else 0)
+    got, want = outs["pallas"].float().cpu(), outs["ref"].float().cpu()
+    assert bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert float((got - want).abs().max()) <= 2.0 ** -5 * float(want.abs().max())
+
+
+def test_whisper_train_step_on_card_matches_host_f64(card):
+    """A Whisper-base train step (AdamW, remat, chunked attention) at its
+    widths and 2 + 2 layers in f32 on the card: its loss finite and within
+    rtol 1e-5 of the same step's in f64 on the host (TF32 off), and the
+    updated parameters finite."""
+    import dataclasses
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
+
+    cfg = _whisper_cut("float32")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0)
+    init = build_model(cfg).init(torch.Generator(card).manual_seed(0))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = {}
+        for dev, dtype in ((card, "float32"), ("cpu", "float64")):
+            model = build_model(dataclasses.replace(cfg, dtype=dtype))
+            params = tree_map(lambda t: t.to(dev, getattr(torch, dtype)), init)
+            step, opt = make_train_step(model, AdamW(lr=3e-3))
+            new, _, met = step(params, opt.init(params), make_batch_fn(cfg, pipe, dev)(0))
+            losses[dev] = float(met["loss"])
+            assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert np.isfinite(losses[card])
+    assert abs(losses[card] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
 # the compile driver on the card: cost search, the fallback ladder, taps
 # ---------------------------------------------------------------------------
 

@@ -212,9 +212,13 @@ def test_serve_step_is_greedy():
 
 @pytest.mark.parametrize("family,item", [("encdec", "8.6")])
 def test_other_families_are_not_ported(family, item):
-    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        build_model(cfg)
+    """No family waits for its slice any more: the last, enc-dec (ROADMAP
+    Queue 1 item 8.6), builds with JAX's entry points (no ``init_state``:
+    its prefill makes the decode cache).  Held to JAX in
+    ``tests/test_torch_whisper.py``."""
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), family=family, n_enc_layers=1)
+    model = build_model(cfg)
+    assert None not in (model.prefill, model.decode) and model.init_state is None
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b", "zamba2-7b", "rwkv6-1.6b"])

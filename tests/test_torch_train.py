@@ -360,6 +360,29 @@ def test_optimizer_matches_jax_within_an_ulp(name, pdtype, gdtype, scale):
     assert int(ts["step"]) == int(js["step"]) == 3 and ts["step"].dtype == torch.int32
 
 
+def test_adamw_clip_scale_is_jaxs_to_the_bit():
+    """The clip's norm is the correctly rounded sqrt of the f32 sum of
+    squares, as XLA takes it (ROADMAP Queue 3 item 31): at the last step of
+    the clipped f32 case above (the sum of squares has f32 bits 1133081728;
+    torch's f32 sqrt gave 1099211952 on an AMD EPYC with AVX-512, the
+    correctly rounded sqrt is 1099211953) the sum is exact in both
+    packages, and the port's clip scale equals JAX's bit for bit on every
+    host, whatever torch's own f32 sqrt gives on this CPU."""
+    from repro_torch.train.optimizer import clip_scale
+
+    rng = np.random.default_rng(7)
+    _tree(rng, np.float32, 1.0)
+    for _ in range(3):
+        grads = _grads(rng, np.float32, 2.0 ** -4)
+    leaves = jax.tree_util.tree_leaves(grads)
+    ss = sum(jnp.sum(jnp.square(jnp.asarray(g, jnp.float32))) for g in leaves)
+    want = jnp.minimum(1.0, 1.0 / (jnp.sqrt(ss) + 1e-9))        # repro/train/optimizer.py:35-36
+    got = clip_scale(tree_leaves(params_from_jax(grads, "cpu")), 1.0)
+    assert np.asarray(ss).view(np.int32) == 1133081728
+    assert got.dtype == torch.float32 and float(want) < 1.0
+    assert np.asarray(got).view(np.int32) == np.asarray(want, np.float32).view(np.int32)
+
+
 def test_torch_cpu_sqrt_is_not_correctly_rounded():
     """Why AdamW's parameters get 2 ulps above: on the CPU, torch's f32 sqrt
     misses the correctly rounded result (numpy's, and the f64 sqrt rounded
@@ -448,12 +471,15 @@ def test_jax_pallas_attention_has_no_gradient():
 
 
 def test_batch_fn_refuses_the_families_not_ported():
-    """The encdec batch (frames) waits for its family; the vlm batch is
-    built (held to JAX's in ``tests/test_torch_vlm.py``)."""
+    """No family's batch is refused any more: the encdec batch (tokens and
+    stub frames, ROADMAP Queue 1 item 8.6) and the vlm batch are built
+    (held to JAX's in ``tests/test_torch_whisper.py`` and
+    ``tests/test_torch_vlm.py``)."""
     cfg = get_reduced("qwen2-1.5b")
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="8.6"):
-        train_mod.make_batch_fn(dataclasses.replace(cfg, family="encdec"), pipe, "cpu")
+    enc = train_mod.make_batch_fn(dataclasses.replace(cfg, family="encdec"), pipe, "cpu")(3)
+    assert sorted(enc) == ["frames", "labels", "mask", "tokens"]
+    assert enc["frames"].shape == (2, 8, cfg.d_model) and enc["frames"].dtype == torch.float32
     vlm = train_mod.make_batch_fn(dataclasses.replace(cfg, family="vlm"), pipe, "cpu")(3)
     assert sorted(vlm) == ["embeds", "labels", "mask", "positions3"]
     assert vlm["embeds"].shape == (2, 8, cfg.d_model) and vlm["positions3"].shape == (3, 2, 8)
