@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the torch port: TPC-H, k-means, serving and training
-Qwen2-1.5B, serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
+Qwen2-1.5B (its train step also sharded over four ranks sharing the
+card), serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
 Zamba2-7B and RWKV6-1.6B, serving and training Whisper-base through
 ``repro_torch`` on one GPU.
 
@@ -179,7 +180,24 @@ Phases, each printing its own lines:
    top operators; last ``launch/train.py`` at depth 2 in bf16: 3 steps
    with a checkpoint, the restored step-3 state the saved one bit for bit,
    3 resumed steps whose losses are the uninterrupted run's (rtol 2^-7);
-20. the MoE family at full width and depth: Moonlight-16B-A3B
+20. the sharded train step: four rank processes (spawned) sharing the card
+   over gloo run Qwen2-1.5B's full widths at 4 of its 28 layers (the
+   cut: gloo copies every collective through the host) through
+   ``frontends.tensor.lower_to_pjit`` over a (data 2 × model 2) mesh,
+   B = 4, S = 2048, microbatch 2: the parameters placed by the sharding
+   table as DTensors, ZeRO-1 moments, the ZeRO-2 f32 accumulator, the
+   vocab-split CE (no all-gather of logits, checked); first the probe that
+   gloo takes ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on
+   CUDA tensors; in f32 the loss and each gradient leaf against the
+   one-device step on rank 0 (rtol 1e-5, ‖Δ‖/‖g‖ ≤ 1e-5) and step 1's
+   parameters by the update rule of ``tests/test_torch_train.py``; then a
+   warm-up and 3 steps in f32 and in bf16 (losses finite, falling, the
+   same on every rank; no kernel launched): step ms per rank, the
+   collectives a step by kind (equal to the dry-run's of the same cut cell
+   on a fake world of 4, checked) and peak GB per rank beside the
+   dry-run's (the production cell's dry-run is the CLI's,
+   ``python -m repro_torch.launch.dryrun``, run on its own);
+21. the MoE family at full width and depth: Moonlight-16B-A3B
    (``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 48 layers, 64 experts,
    top-6, bf16, parameters from ``model.init`` with seed 0), after the
    earlier phases' models are freed, served with ``attn_mode="pallas"``
@@ -198,11 +216,11 @@ Phases, each printing its own lines:
    weight; a prefill wave's expert products compute E·C slots); then
    ``moe_block`` alone on layer 0's input (T = 8192): bf16 twice, the same
    bits, timed; f32 against f64, both on the card;
-21. Mixtral-8x7B's full widths at 8 of its 32 layers (all 32 are 93.1 GB
-   in bf16): one wave of 4 × 2048 prompts and 8 decode steps, as phase 20
+22. Mixtral-8x7B's full widths at 8 of its 32 layers (all 32 are 93.1 GB
+   in bf16): one wave of 4 × 2048 prompts and 8 decode steps, as phase 21
    without ``chunked`` and without ``moe_block`` alone (``flash_attention``
    8 times, with a window of 4096);
-22. the VLM family: Qwen2-VL-7B (``configs/qwen2_vl_7b.py`` ``CONFIG``, 28
+23. the VLM family: Qwen2-VL-7B (``configs/qwen2_vl_7b.py`` ``CONFIG``, 28
    layers, M-RoPE sections (16, 24, 24), bf16, seed 0): ``model.prefill``
    on 4 × 2048 seeded stub embeddings with three position streams (a
    32 × 32 patch image, t = 0, h = row, w = col, then text continuing from
@@ -212,7 +230,7 @@ Phases, each printing its own lines:
    18's rule; then ``serve_loop`` through ``make_run_wave``'s vlm branch,
    which decodes from an empty cache with a zero token and no prefill, as
    JAX's launcher does: every request the same tokens;
-23. the hybrid family: Zamba2-7B (``configs/zamba2_7b.py`` ``CONFIG``, 81
+24. the hybrid family: Zamba2-7B (``configs/zamba2_7b.py`` ``CONFIG``, 81
    Mamba2 layers, the shared attention + MLP at 14 points with d_head 112,
    bf16, 6.63 B parameters from ``model.init`` with seed 0, drawn layer by
    layer): ``model.prefill`` on 4 × 2048 numpy-seeded tokens, then 32 greedy
@@ -226,7 +244,7 @@ Phases, each printing its own lines:
    weights and the SSM and KV state at 3.35 TB/s); then ``serve_loop``
    through ``make_run_wave``'s hybrid branch (an empty state, no prefill:
    every request the same tokens);
-24. the RWKV family: RWKV6-1.6B (``configs/rwkv6_1_6b.py`` ``CONFIG``, 24
+25. the RWKV family: RWKV6-1.6B (``configs/rwkv6_1_6b.py`` ``CONFIG``, 24
    layers, bf16, seed 0): ``model.prefill`` on 4 × 2048 tokens, then 32
    decode steps (no kernel: RWKV has no attention); the same weights in
    f32 and f64 on the card, the f32 logits within 1e-4 of the f64 logits'
@@ -235,7 +253,7 @@ Phases, each printing its own lines:
    prefill of S − 1 tokens against the prefill of S (2e-3); the time
    scan's host cost (prefill µs per (position, layer)); then ``serve_loop``
    through the rwkv branch;
-25. the enc-dec family: Whisper-base (``configs/whisper_base.py``
+26. the enc-dec family: Whisper-base (``configs/whisper_base.py``
    ``CONFIG``, 6 + 6 layers, d_model 512, 8 heads of 64, bf16, seed 0)
    served with ``attn_mode="pallas"`` through ``serve_loop`` and
    ``make_run_wave``'s encdec branch after a warm-up: 32 requests in waves
@@ -251,7 +269,7 @@ Phases, each printing its own lines:
    full model in bf16 (AdamW lr 3e-3, remat, ``chunked``) for a warm-up
    and 4 steps at B = 16, S = 448, launching no kernel: losses finite and
    falling, step ms, tokens/s, peak GB, model-FLOPs share;
-26. each kernel against its plain version on the inputs the paths gave it,
+27. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -264,7 +282,7 @@ Phases, each printing its own lines:
    head width (128, 112 from Zamba2-7B and 64 from Whisper-base); the MoE,
    VLM, hybrid and enc-dec phases add the first and last layer's
    (attention point's) call of their counted run;
-27. per-query latency (median over ``--reps`` after a warm-up, each run
+28. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -326,7 +344,7 @@ outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.  The hybrid's paths go
 phase 18's rule; random Mamba layers amplify a rounding (the norm inside
 the block divides rows of small RMS), so at 81 layers the noise floor is
 itself several std and the rule has little power there: the per-call
-kernel check (phase 26) holds the D = 112 kernel.  ``ssd_chunked`` alone:
+kernel check (phase 27) holds the D = 112 kernel.  ``ssd_chunked`` alone:
 f32 against f64 within ‖Δ‖ ≤ 1e-5·‖y‖ (f32 rounding of 64-term chunk
 sums).  RWKV6 against f64 on the card: f32 within 1e-4 of the largest
 f64 logit; bf16 by the RMS of the difference, at most 0.15 of the
@@ -432,6 +450,22 @@ RWKV_F32_REL, RWKV_BF16_RMS = 1e-4, 0.15
 WHISPER_ARCH = "whisper-base"
 WHISPER_REQUESTS, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN, WHISPER_CAP = 32, 16, 1500, 64, 448
 WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 16, 4
+#: the sharded train step: Qwen2-1.5B's full widths at SHARDED_DEPTH of its
+#: 28 layers over a (data 2, model 2) mesh of SHARDED_RANKS gloo ranks on
+#: the card, TRAIN_B × TRAIN_S tokens in SHARDED_MICRO microbatches (so the
+#: f32 accumulator is placed by tree_grad_specs), a warm-up and
+#: SHARDED_STEPS steps in f32, then in bf16.  The depth is cut because gloo
+#: copies every collective through the host at about 1 GB/s (the spmd phase) and an
+#: f32 step moves about 2.2 GB per rank at 4 layers (the dry-run's count).
+#: The f32 step against the one-device step: loss TRAIN_LOSS_RTOL, each
+#: gradient leaf TRAIN_GRAD_REL; step 1's updated parameters by
+#: ‖Δ‖ ≤ SHARDED_UPD_RTOL·‖u‖ + SHARDED_UPD_ATOL·lr·√n per leaf, u the
+#: one-device update (AdamW sends g/(|g| + 1e-8): a gradient element near
+#: 1e-8, f32 noise of either sum order, moves its update by up to lr;
+#: tests/test_torch_train.py's rule)
+SHARDED_DEPTH, SHARDED_RANKS, SHARDED_MESH, SHARDED_MICRO, SHARDED_STEPS = 4, 4, (2, 2), 2, 3
+SHARDED_UPD_RTOL, SHARDED_UPD_ATOL = 2e-3, 1e-2
+SHARDED_JOIN_S = 900
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -4402,17 +4436,23 @@ SPMD_REPS = 5
 
 def _gloo_probe(world: int) -> dict:
     """Which collectives this gloo group runs on CUDA tensors (f32, i32 and
-    bool; min and max too for all_reduce): ``"ok"`` or the error.  A
-    refusal raises on every rank before any byte moves."""
+    bool; min and max too for all_reduce; bf16 for all_reduce and the two
+    collectives DTensor issues, all_gather_into_tensor and
+    reduce_scatter_tensor, whose results are checked): ``"ok"`` or the
+    error.  A refusal raises on every rank before any byte moves."""
     import torch
     import torch.distributed as dist
 
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
-    for op in ("all_reduce", "all_gather", "all_to_all", "broadcast"):
-        for dt in (torch.float32, torch.int32, torch.bool):
+    for op in ("all_reduce", "all_gather", "all_to_all", "broadcast", "all_gather_into_tensor",
+               "reduce_scatter_tensor"):
+        for dt in (torch.float32, torch.int32, torch.bool, torch.bfloat16):
             t = (torch.arange(4 * world, device=dev) % 2).to(dt)
             try:
+                if dt == torch.bfloat16 and op not in ("all_reduce", "all_gather_into_tensor",
+                                                       "reduce_scatter_tensor"):
+                    continue  # the sharded step's collectives carry bf16
                 if op == "all_reduce":
                     if dt == torch.bool:
                         continue
@@ -4422,6 +4462,19 @@ def _gloo_probe(world: int) -> dict:
                     dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
                 elif op == "all_to_all":
                     dist.all_to_all_single(torch.empty_like(t), t)
+                elif op == "all_gather_into_tensor":
+                    got = torch.empty(world * t.numel(), device=dev, dtype=dt)
+                    dist.all_gather_into_tensor(got, t)
+                    if not torch.equal(got.view(world, -1), t.expand(world, -1)):
+                        raise RuntimeError(f"all_gather_into_tensor gave {got.tolist()}")
+                elif op == "reduce_scatter_tensor":
+                    if dt == torch.bool:
+                        continue
+                    got = torch.empty(t.numel() // world, device=dev, dtype=dt)
+                    dist.reduce_scatter_tensor(got, t)
+                    want = (t.view(world, -1)[dist.get_rank()] * world).to(dt)
+                    if not torch.equal(got, want):
+                        raise RuntimeError(f"reduce_scatter_tensor gave {got.tolist()}")
                 else:
                     dist.broadcast(t.clone(), src=0)
                 torch.cuda.synchronize()
@@ -4713,7 +4766,8 @@ def phase_spmd(tables, frames, reps: int, pool, smi: str) -> dict:
     refused = sorted(op for op, ok in r0["probe"].items() if ok != "ok")
     if refused:
         raise AssertionError(f"gloo refuses {refused} on CUDA tensors, which backends/spmd.py "
-                             f"hands it as they are: {r0['probe']}")
+                             f"and DTensor (the sharded train step) hand it as they are: "
+                             f"{r0['probe']}")
     log(f"spmd ({label}): gloo runs every collective on CUDA tensors "
         f"{json.dumps(r0['probe'])}; host-staged by the backend: none (gloo copies "
         "through the host itself)")
@@ -4806,6 +4860,274 @@ def phase_spmd(tables, frames, reps: int, pool, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step: Qwen2-1.5B's widths over a 2 × 2 mesh of four
+# gloo ranks sharing the card, beside its dry-run
+# ---------------------------------------------------------------------------
+
+
+def _sharded_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``phase_sharded_train`` (a spawned process): its
+    numbers go to rank<r>.pkl."""
+    import datetime
+    import os
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 products, as main() sets
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SPMD_GROUP_TIMEOUT_S * 2))
+    try:
+        out = _sharded_cases(rank)
+        with open(Path(workdir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_cases(rank: int) -> dict:
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.frontends.tensor import lower_to_pjit, plan_train_program
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, Optimizer, tree_leaves
+
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"), device="cuda")
+    base = get_config(SERVE_ARCH)
+    got = TokenPipeline(vocab=base.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in got.items()}
+    grads_of = Optimizer(lambda p: {}, lambda g, st, p: (g, st))
+    out = {"device": str(mesh.device), "probe": _gloo_probe(dist.get_world_size())}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        model = build_model(replace(base, n_layers=SHARDED_DEPTH, dtype=dtype))
+        params = model.init(torch.Generator(mesh.device).manual_seed(0))
+        plan = plan_train_program(model, n_data=SHARDED_MESH[0])
+        opt = AdamW(lr=TRAIN_LR)
+        rec: dict = {}
+        if dtype == "float32":
+            # the one-device step on rank 0 (the others wait), then the sharded
+            # step's gradients, each leaf assembled on every rank
+            if rank == 0:
+                one, _ = make_train_step(model, grads_of, microbatch=SHARDED_MICRO)
+                ref_g, _, ref_met = one(params, {}, batch)
+                one, _ = make_train_step(model, opt, microbatch=SHARDED_MICRO)
+                ref_p, _, _ = one(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()  # a second one-device step, timed: the card alone
+                one(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+                rec["one_device_step_s"] = time.perf_counter() - t0
+            dist.barrier()
+            step, _ = lower_to_pjit(plan, model, mesh, grads_of, batch_shapes=batch,
+                                    microbatch=SHARDED_MICRO)
+            g, _, met = step(*step.place(params, {}, batch))
+            rec["grads_loss"] = float(met["loss"])
+            gaps = []
+            for a, b in zip(tree_leaves(g), tree_leaves(ref_g) if rank == 0 else tree_leaves(g)):
+                full = a.full_tensor()
+                if rank == 0:
+                    gaps.append(_rel_gap(full, b))
+            if rank == 0:
+                rec["one_device_loss"] = float(ref_met["loss"])
+                rec["grad_rel"] = gaps
+                del ref_g
+            del g
+        step, _ = lower_to_pjit(plan, model, mesh, opt, batch_shapes=batch,
+                                microbatch=SHARDED_MICRO)
+        p, s, b = step.place(params, opt.init(params), batch)
+        rec["local_gb"] = sum(_bytes(t.to_local()) for t in tree_leaves((p, s))) / 1e9
+        torch.cuda.synchronize()
+        rec["setup_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with shd.comm_bytes() as comm:  # the warm-up step, its collectives counted
+            p, s, met = step(p, s, b)
+        torch.cuda.synchronize()
+        rec["warmup_s"] = time.perf_counter() - t0
+        rec["comm"] = comm.by_kind()
+        rec["records"] = [(r["kind"], r["shape"], r["dtype"], r["bytes"]) for r in comm.records]
+        losses = [float(met["loss"])]
+        if dtype == "float32":
+            upd = []
+            for a, b0, b1 in zip(tree_leaves(p), tree_leaves(params),
+                                 tree_leaves(ref_p) if rank == 0 else tree_leaves(p)):
+                full = a.full_tensor()
+                if rank == 0:
+                    u = (b1.double() - b0.double()).cpu()
+                    d = (full.double() - b1.double()).cpu()
+                    bound = (SHARDED_UPD_RTOL * float(u.norm())
+                             + SHARDED_UPD_ATOL * TRAIN_LR * math.sqrt(u.numel()))
+                    upd.append((float(d.norm()), bound))
+            if rank == 0:
+                rec["update"] = upd
+                del ref_p
+        del params
+        times = []
+        for _ in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            p, s, met = step(p, s, b)
+            losses.append(float(met["loss"]))  # the loss is a plain tensor: this waits
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rec["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        rec["losses"] = losses
+        rec["step_s"] = times
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["finite"] = all(bool(torch.isfinite(t.to_local()).all()) for t in tree_leaves(p))
+        out[dtype] = rec
+        del p, s, b, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_train(smi: str) -> dict:
+    """Qwen2-1.5B's train step sharded over a (data 2, model 2) mesh of
+    SHARDED_RANKS gloo ranks sharing the card (``lower_to_pjit``: the
+    sharding table's placements, ZeRO-1 moments, the ZeRO-2 accumulator,
+    the vocab-split CE), at SHARDED_DEPTH layers: f32 against the one-device
+    step, then timed in f32 and bf16; beside it the dry-run of the same cut
+    cell on a fake world of 4 (its collectives must be the ones counted
+    here)."""
+    import pickle
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    # the ranks are other processes: what this one's allocator keeps cached
+    # from earlier phases (tens of GB after training) goes back to the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config(SERVE_ARCH)
+    label = f"{SHARDED_RANKS} ranks on one {smi}, gloo"
+    log(f"sharded train: {base.arch}'s full widths at {SHARDED_DEPTH} of its {base.n_layers} "
+        f"layers (cut: gloo copies every collective through the host at about 1 GB/s, and an "
+        f"f32 step moves about 2.2 GB a rank at this depth); mesh data {SHARDED_MESH[0]} × "
+        f"model {SHARDED_MESH[1]}, B={TRAIN_B}, S={TRAIN_S}, microbatch {SHARDED_MICRO}")
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=_sharded_rank, args=(r, SHARDED_RANKS, tmp))
+                 for r in range(SHARDED_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or any(codes):
+            raise AssertionError(f"sharded train ranks exited {codes} ({len(hung)} killed)")
+        ranks = [pickle.loads((Path(tmp) / f"rank{r}.pkl").read_bytes())
+                 for r in range(SHARDED_RANKS)]
+    r0 = ranks[0]
+    refused = sorted(op for op, ok in r0["probe"].items() if ok != "ok")
+    if refused:
+        raise AssertionError(f"gloo refuses {refused} on CUDA tensors: {r0['probe']}")
+    report: dict = {"card": smi, "label": label, "probe": r0["probe"]}
+    for r, rk in enumerate(ranks):
+        if rk["device"] != "cuda:0":
+            raise AssertionError(f"sharded rank {r} computed on {rk['device']}")
+    # 1. f32: the sharded step against the one-device step
+    f32 = r0["float32"]
+    loss_gap = abs(f32["grads_loss"] - f32["one_device_loss"]) / abs(f32["one_device_loss"])
+    worst = max(f32["grad_rel"])
+    over = [(i, d, bnd) for i, (d, bnd) in enumerate(f32["update"]) if d > bnd]
+    log(f"sharded train check ({label}): f32 loss {f32['grads_loss']:.9g} against the "
+        f"one-device {f32['one_device_loss']:.9g} (rel {loss_gap:.3g}, rtol {TRAIN_LOSS_RTOL:g}); "
+        f"gradients' largest ‖Δ‖/‖g‖ over {len(f32['grad_rel'])} leaves {worst:.3g} (bound "
+        f"{TRAIN_GRAD_REL:g}); step 1's parameters: largest ‖Δ‖ over its bound "
+        f"{max(d / bnd for d, bnd in f32['update']):.3g} (‖Δ‖ ≤ {SHARDED_UPD_RTOL:g}·‖u‖ + "
+        f"{SHARDED_UPD_ATOL:g}·lr·√n)")
+    if loss_gap > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_REL or over:
+        raise AssertionError(f"the sharded f32 step differs from the one-device step: loss "
+                             f"{loss_gap:.3g}, gradients {f32['grad_rel']}, updates over {over}")
+    report["check"] = {"loss_rel": loss_gap, "grad_rel_max": worst,
+                       "update_over_bound_max": max(d / bnd for d, bnd in f32["update"]),
+                       "one_device_f32_step_ms": f32["one_device_step_s"] * 1e3}
+    log(f"sharded train: the one-device f32 step on rank 0, alone on the card: "
+        f"{f32['one_device_step_s'] * 1e3:.1f} ms (its second call)")
+    # 2. the timed runs, the collectives and memory, beside the dry-run
+    for dtype in ("float32", "bfloat16"):
+        recs = [rk[dtype] for rk in ranks]
+        losses = recs[0]["losses"]
+        if any(rk["losses"] != losses for rk in recs):
+            raise AssertionError(f"sharded {dtype}: the ranks' losses differ: "
+                                 f"{[rk['losses'] for rk in recs]}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"sharded {dtype} losses {losses}: not finite or not falling")
+        if not all(rk["finite"] for rk in recs):
+            raise AssertionError(f"sharded {dtype}: a parameter is not finite")
+        if any(rk["launches"] for rk in recs):
+            raise AssertionError(f"the sharded train step launched {recs[0]['launches']}")
+        if any(rk["comm"] != recs[0]["comm"] for rk in recs):
+            raise AssertionError(f"sharded {dtype}: the ranks issued other collectives")
+        logits = [x for x in recs[0]["records"] if x[0] == "all_gather_into_tensor"
+                  and len(x[1]) == 3 and x[1][-1] in (base.vocab, base.vocab // SHARDED_MESH[1])]
+        if logits:
+            raise AssertionError(f"sharded {dtype}: logits were all-gathered: {logits[:4]}")
+        cut = replace(base, n_layers=SHARDED_DEPTH, dtype=dtype)
+        spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
+                for k, d in (("tokens", torch.int32), ("labels", torch.int32),
+                             ("mask", torch.float32))}
+        dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
+                                microbatch=SHARDED_MICRO, batch_override=spec)
+        if dry["collective_by_kind"] != recs[0]["comm"]:
+            raise AssertionError(f"sharded {dtype}: the dry-run's collectives "
+                                 f"{dry['collective_by_kind']} differ from the card's "
+                                 f"{recs[0]['comm']}")
+        step_ms = [statistics.median(rk["step_s"]) * 1e3 for rk in recs]
+        report[dtype] = {
+            "losses": losses, "step_ms_median_per_rank": step_ms,
+            "step_ms_per_rank": [[t * 1e3 for t in rk["step_s"]] for rk in recs],
+            "warmup_s": [rk["warmup_s"] for rk in recs], "setup_s": [rk["setup_s"] for rk in recs],
+            "collectives_per_step": recs[0]["comm"],
+            "peak_gb_per_rank": [rk["peak_gb"] for rk in recs],
+            "placed_state_gb_per_rank": [rk["local_gb"] for rk in recs],
+            "dryrun": {"collectives": dry["collective_by_kind"],
+                       "peak_gb_per_device": dry["peak_bytes"] / 1e9,
+                       "flops_per_device": dry["flops"], "bytes_per_device": dry["bytes"],
+                       "trace_s": dry["trace_s"]}}
+        log(f"sharded train ({label}): {base.arch} {SHARDED_DEPTH} layers {dtype}, "
+            f"B={TRAIN_B}×S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; step "
+            f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_STEPS} per rank "
+            f"(synchronised; warm-up {max(rk['warmup_s'] for rk in recs):.2f} s); collectives "
+            f"a step {json.dumps(recs[0]['comm'])} (the dry-run's on a fake world of 4: the "
+            f"same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB per rank "
+            f"(dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no all-gather of logits; "
+            f"no kernel launched")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("sharded train: " + json.dumps(report))
+    log(f"sharded train phase took {report['phase_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0)
@@ -4865,6 +5187,7 @@ def main() -> int:
         train_report = phase_train(smi, a.profile)
         if not a.profile:
             serve_wave = None  # frees Qwen2-1.5B's served parameters before the MoE phases
+        phase_sharded_train(smi)
         for run in (lambda: serve_cell(MOE_ARCH, smi, check_block=True, sample_calls=True),
                     lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
                                        requests_n=SERVE_BATCH, gen=MIXTRAL_GEN, chunked=False,

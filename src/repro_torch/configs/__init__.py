@@ -1,5 +1,6 @@
 """Architecture configs: every model of ``repro/configs``, copied
-verbatim, in the JAX dict's order."""
+verbatim, in the JAX dict's order, and the shape registry
+(``configs/shapes.py``)."""
 
 from importlib import import_module
 from typing import List
@@ -28,3 +29,6 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return import_module(f".{_MODULES[arch]}", __package__).REDUCED
+
+
+from .shapes import SHAPES, cell_applicable, input_specs  # noqa: E402,F401

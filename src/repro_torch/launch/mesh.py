@@ -9,8 +9,9 @@ the ranks that take part, the process group they talk over, the axis name
 the lowered program uses, and the device this rank computes on.
 
 A function builds it, so importing this module touches no process group.
-``make_production_mesh`` stays with ``launch/dryrun.py`` (ROADMAP Queue 1
-item 8.7).
+``make_production_mesh`` lays out the production target, 256 ranks
+(16 × 16, ``data`` × ``model``) or two pods of them (2 × 16 × 16, the
+``pod`` axis first), over the world that ``launch/dryrun.py`` fakes.
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Mesh", "make_mesh", "subgroup", "world_size", "resolve_rank_device"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "subgroup", "world_size",
+           "resolve_rank_device", "PRODUCTION_MESHES"]
+
+#: (shape, axes) of the production mesh, keyed by ``multi_pod``
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 @dataclass(frozen=True, eq=False)
@@ -139,3 +145,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, group: Any = None,
     # handle to ask, so the world is asked
     return Mesh(subgroup(range(n)), tuple(range(n)), axes, shape, dev,
                 str(dist.get_backend()))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: Any = None) -> Mesh:
+    """The production mesh over the first 256 (512) ranks of the
+    initialised default group."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return make_mesh(shape, axes, device=device)

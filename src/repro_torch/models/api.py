@@ -22,6 +22,7 @@ import torch
 
 from ..train.optimizer import AdamW, Optimizer, tree_leaves, tree_like, tree_map
 from . import hybrid, lm, ssm, whisper
+from .sharding import placed_like, replicated
 
 
 @dataclass(frozen=True)
@@ -186,7 +187,9 @@ def _microbatch_slices(batch: Dict[str, torch.Tensor], m: int) -> Dict[str, torc
 def value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor], params: Any, batch: Any):
     """(loss, gradient tree) of ``loss_fn(params, batch)``, as
     ``jax.value_and_grad`` gives them: each gradient in its parameter's
-    dtype, zeros where the loss does not reach a leaf."""
+    dtype, zeros where the loss does not reach a leaf.  DTensor leaves give
+    DTensor gradients (a leaf replicated over the data axes comes back as
+    a partial sum there)."""
     with torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss = loss_fn(live, batch)
@@ -204,26 +207,31 @@ def make_train_step(model: Model, optimizer: Optional[Optimizer] = None,
     ``microbatch`` m > 1 splits the global batch into m slices and
     accumulates their gradients into f32 zeros, then divides by m, as JAX
     does; with m ≤ 1 the gradients come in the parameters' dtype.
-    ``grad_constraint`` is JAX's sharding hook for the accumulator; the
-    port has no sharding yet, so only ``None`` is taken."""
-    if grad_constraint is not None:
-        raise NotImplementedError(
-            "grad_constraint shards the gradient accumulator: it waits for "
-            "models/sharding.py on torch.distributed (ROADMAP Queue 1 item 8.7)")
+
+    The same step runs on DTensors placed by ``models/sharding.py``, inside
+    its ``dtensor_scope`` (``frontends/tensor.py:lower_to_pjit`` binds it so),
+    called alike on every rank of the mesh: a microbatch slice keeps its
+    batch leaf's placement, and ``grad_constraint`` (ZeRO-2, as JAX's: a
+    tree → the tree placed by ``tree_grad_specs``) places each microbatch's
+    gradients and the f32 accumulator."""
     opt = optimizer or AdamW()
     m = microbatch if microbatch is not None else model.cfg.microbatch
+    constrain = grad_constraint or (lambda tree: tree)
 
     def train_step(params, opt_state, batch):
         if m <= 1:
             loss, grads = value_and_grad(model.loss, params, batch)
         else:
-            slices = _microbatch_slices(batch, m)
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            # a batch leaf split over the data axes is gathered before its
+            # microbatches are cut; each slice then takes the leaf's placement
+            slices = _microbatch_slices({k: replicated(v) for k, v in batch.items()}, m)
+            gsum = constrain(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                      params))
             lsum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
             for i in range(m):
-                l, g = value_and_grad(model.loss, params, {k: v[i] for k, v in slices.items()})
-                tree_map(lambda acc, x: acc.add_(x), gsum, g)
+                mb = {k: placed_like(v[i], batch[k]) for k, v in slices.items()}
+                l, g = value_and_grad(model.loss, params, mb)
+                tree_map(lambda acc, x: acc.add_(x), gsum, constrain(g))
                 lsum = lsum + l
             grads = tree_map(lambda g: g / m, gsum)
             loss = lsum / m

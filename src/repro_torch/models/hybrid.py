@@ -24,10 +24,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm
+from .sharding import zeros_placed_like
 
 
 def init_hybrid(cfg, gen: torch.Generator) -> Dict[str, Any]:
@@ -151,6 +153,10 @@ def prefill(params, cfg, tokens, cache_capacity: int):
         if i % cfg.attn_every == 0:
             point = i // cfg.attn_every
             k, v = _shared_kv(params, cfg, x, positions)
+            if point == 0 and isinstance(k, DTensor):  # the caches on the mesh, split as k is
+                kv = tuple(state["k"].shape)
+                state["k"], state["v"] = (zeros_placed_like(kv, cfg.param_dtype, k, lead=1)
+                                          for _ in range(2))
             state["k"][point, :, :, :s] = k
             state["v"][point, :, :, :s] = v
             x = _shared_block(params, cfg, x, positions)

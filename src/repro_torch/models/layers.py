@@ -5,7 +5,10 @@ explicit parameter dicts of tensors.  Initialisers take a
 ``torch.Generator`` and a ``lead`` shape, so the per-layer leaves of a
 model are made stacked on a leading ``L`` axis (the JAX package stacks
 them with ``jax.vmap``): the dense leaves in one draw, the experts' one
-leading index at a time (``stacked_init``).
+leading index at a time (``stacked_init``).  On DTensors (the sharded train
+step) the attention's head views and the attention itself go through
+``models/sharding.py``'s helpers; on plain tensors they are the plain
+reshapes and call.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from .sharding import group_heads, merge_heads, per_rank_attention, split_heads
 
 Params = Dict[str, Any]
 
@@ -141,15 +145,14 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int, 
 
 
 def _qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, d_head: int):
-    b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, n_heads, d_head).transpose(1, 2)
-    k = k.reshape(b, s, n_kv, d_head).transpose(1, 2)
-    v = v.reshape(b, s, n_kv, d_head).transpose(1, 2)
+    q = split_heads(q, n_heads, d_head).transpose(1, 2)
+    k = split_heads(k, n_kv, d_head).transpose(1, 2)
+    v = split_heads(v, n_kv, d_head).transpose(1, 2)
     return q, k, v
 
 
@@ -160,7 +163,6 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                     mrope_sections: Optional[Sequence[int]] = None,
                     positions3: Optional[torch.Tensor] = None,
                     attn_mode: Union[str, Callable] = "chunked") -> torch.Tensor:
-    b, s, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, d_head)
     if mrope_sections is not None:
         q = apply_mrope(q, positions3, mrope_sections, rope_theta)
@@ -168,9 +170,9 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     elif rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = kops.attention(q, k, v, causal=causal, window=window, mode=attn_mode)
-    o = o.transpose(1, 2).reshape(b, s, n_heads * d_head)
-    return o @ p["wo"]
+    o = per_rank_attention(lambda q, k, v: kops.attention(
+        q, k, v, causal=causal, window=window, mode=attn_mode), group_heads(q, n_kv), k, v)
+    return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"]
 
 
 def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -197,9 +199,8 @@ def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     write_pos = cache_len % cap
     cache_k[:, :, write_pos] = k[:, :, 0].to(cache_k.dtype)
     cache_v[:, :, write_pos] = v[:, :, 0].to(cache_v.dtype)
-    o = kops.decode_attention(q, cache_k, cache_v, min(cache_len + 1, cap))
-    o = o.transpose(1, 2).reshape(b, 1, n_heads * d_head)
-    return o @ p["wo"], cache_k, cache_v
+    o = kops.decode_attention(group_heads(q, n_kv), cache_k, cache_v, min(cache_len + 1, cap))
+    return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"], cache_k, cache_v
 
 
 def cross_attention_block(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
@@ -209,11 +210,10 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
     S_enc, D): no RoPE, and ``chunked_attention`` whatever the config's
     attention mode, as JAX's (so its blocks, taken from x's length, see the
     first S encoder positions only: ROADMAP Queue 3 item 30)."""
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, d_head).transpose(1, 2)
-    o = kops.attention(q, enc_k, enc_v, causal=False, mode="chunked")
-    o = o.transpose(1, 2).reshape(b, s, n_heads * d_head)
-    return o @ p["wo"]
+    q = split_heads(x @ p["wq"], n_heads, d_head).transpose(1, 2)
+    o = per_rank_attention(lambda q, k, v: kops.attention(q, k, v, causal=False, mode="chunked"),
+                           group_heads(q, n_kv), enc_k, enc_v)
+    return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,11 @@ returns a new cache; its serve step donates the old one).
 The logits are ``x.float() @ emb.float().T`` as in JAX: at Qwen2-1.5B's
 width that makes a 0.93 GB f32 copy of ``emb`` on every call (once per
 loss, shared by its chunks).
+
+On DTensors placed by ``models/sharding.py`` the lookup and the CE run per
+rank over a vocab-split ``emb`` (per-row all-reduces, never the logits
+gathered), the residual stream keeps the layer input's placement, and a
+prefill's cache is split as its keys are; plain tensors keep their bits.
 """
 
 from __future__ import annotations
@@ -29,9 +34,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .sharding import (placed_like, tp_input, vocab_parallel_ce, vocab_parallel_embedding,
+                       zeros_placed_like)
 
 
 def init_lm(cfg, gen: torch.Generator) -> Dict[str, Any]:
@@ -67,15 +75,17 @@ def _ffn(cfg, lp, z):
 
 
 def _layer_fwd(cfg, lp, x, positions, positions3):
-    h = x + L.attention_block(
-        lp["attn"], L.rmsnorm(x, lp["attn_norm"]), positions,
+    # on DTensors the residual stream keeps x's placement: the row-split
+    # projections' partial sums are all-reduced into it (Megatron's layout)
+    h = x + placed_like(L.attention_block(
+        lp["attn"], tp_input(L.rmsnorm(x, lp["attn_norm"])), positions,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
         causal=cfg.causal, window=cfg.window, rope_theta=cfg.rope_theta,
         mrope_sections=cfg.mrope_sections, positions3=positions3,
         attn_mode=cfg.attn_mode,
-    )
-    y, aux = _ffn(cfg, lp, L.rmsnorm(h, lp["mlp_norm"]))
-    return h + y, aux
+    ), x)
+    y, aux = _ffn(cfg, lp, tp_input(L.rmsnorm(h, lp["mlp_norm"])))
+    return h + placed_like(y, x), aux
 
 
 def _layers_fwd(cfg, layers, x, aux, positions, positions3):
@@ -111,6 +121,8 @@ def backbone(params, cfg, x, positions, positions3=None):
 def embed(params, cfg, tokens=None, embeds=None):
     if embeds is not None:
         return embeds.to(cfg.param_dtype)
+    if isinstance(params["emb"], DTensor):  # a vocab-split table: no gather of it
+        return vocab_parallel_embedding(params["emb"], tokens)
     return params["emb"][tokens]
 
 
@@ -129,6 +141,8 @@ def forward(params, cfg, tokens=None, embeds=None, positions=None, positions3=No
 
 
 def _ce_chunk(emb32, xs, ls, ms):
+    if isinstance(emb32, DTensor):  # per rank; the vocabulary may be sharded
+        return vocab_parallel_ce(_ce_chunk, emb32, xs, ls, ms)
     logits = xs.float() @ emb32.T                                   # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
@@ -164,7 +178,7 @@ def lm_loss(params, cfg, batch):
     x = embed(params, cfg, batch.get("tokens"), batch.get("embeds"))
     b, s = x.shape[0], x.shape[1]
     xf, aux = backbone(params, cfg, x, _positions(b, s, x.device), batch.get("positions3"))
-    ce = chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
+    ce = chunked_ce_loss(params, cfg, tp_input(xf), batch["labels"], batch["mask"],
                          chunk=cfg.loss_chunk)
     return ce + cfg.moe_aux_weight * aux
 
@@ -174,8 +188,14 @@ def lm_loss(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, bsz: int, cap: int, device=None) -> Dict[str, Any]:
+def init_cache(cfg, bsz: int, cap: int, device=None, like=None) -> Dict[str, Any]:
+    """Zero caches (L, B, Hkv, cap, D).  Given ``like``, a DTensor of one
+    layer's keys (B, Hkv, S, D), the caches are DTensors that split B and
+    Hkv as it does."""
     shape = (cfg.n_layers, bsz, cfg.n_kv_heads, cap, cfg.d_head)
+    if isinstance(like, DTensor):
+        return {"k": zeros_placed_like(shape, cfg.param_dtype, like, lead=1),
+                "v": zeros_placed_like(shape, cfg.param_dtype, like, lead=1), "len": 0}
     return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
             "len": 0}
@@ -206,9 +226,11 @@ def prefill(params, cfg, tokens=None, embeds=None, cache_capacity: Optional[int]
     positions = _positions(b, s, x.device)
     if cfg.mrope_sections is not None and positions3 is None:
         positions3 = torch.arange(s, dtype=torch.int32, device=x.device).expand(3, b, s)
-    cache = init_cache(cfg, b, cap, x.device)
+    cache = None
     for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
         k, v = _layer_kv(cfg, lp, x, positions, positions3)
+        if cache is None:
+            cache = init_cache(cfg, b, cap, x.device, like=k)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
         x, _ = _layer_fwd(cfg, lp, x, positions, positions3)

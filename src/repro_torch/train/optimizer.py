@@ -62,7 +62,9 @@ def clip_scale(g_leaves: List[torch.Tensor], grad_clip: float) -> torch.Tensor:
     ‖g‖ the correctly rounded sqrt of the f32 sum of squares, as XLA takes
     it: torch's f32 sqrt on the CPU misses by an ulp on some inputs, and the
     f64 sqrt rounded to f32 is exact (CUDA's f32 sqrt already is)."""
-    ss = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
+    ss = torch.sum(torch.square(g_leaves[0].float()))
+    for g in g_leaves[1:]:  # on DTensors a partial sum, all-reduced once below
+        ss = ss + torch.sum(torch.square(g.float()))
     gnorm = torch.sqrt(ss.double()).float()
     return torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
 

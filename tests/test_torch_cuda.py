@@ -1303,3 +1303,57 @@ def test_exchange_by_key_on_card_matches_numpy_partition(spmd_on_card):
     assert spmd_on_card["exchange_device"].startswith("cuda")
     assert spmd_on_card["exchange_ok"]
     assert spmd_on_card["calls"]["all_to_all"] >= 2
+
+
+def test_one_rank_mesh_places_the_tree_on_card_and_keeps_the_steps_bits(card, tmp_path):
+    """``placements`` and ``shard_tree`` put the reduced Qwen2's tree on the
+    card as DTensors of a one-rank (data 1, model 1) mesh over a gloo group,
+    and the step on them (microbatch 2, the ZeRO-2 constraint, AdamW) gives
+    the plain step's bits: loss and every new parameter."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, tree_leaves
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        model = build_model(get_reduced("qwen2-1.5b"))
+        params = model.init(torch.Generator(card).manual_seed(0))
+        mesh = Mesh(dist.group.WORLD, (0,), ("data", "model"), (1, 1), torch.device(card, 0),
+                    "gloo")
+        dm = shd.device_mesh(mesh)
+        pspecs = shd.tree_param_specs(params, mesh)
+        placed = shd.shard_tree(params, pspecs, dm)
+
+        def check(spec, t):
+            assert t.to_local().device.type == "cuda"
+            assert tuple(t.placements) == shd.placements(dm, spec)
+
+        shd._map_specs(check, pspecs, placed)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (4, 32)).astype(np.int32)),
+                 "labels": torch.from_numpy(rng.integers(0, 512, (4, 32)).astype(np.int32)),
+                 "mask": torch.ones((4, 32), dtype=torch.float32)}
+        batch = {k: v.to(card) for k, v in batch.items()}
+        opt = AdamW(lr=3e-3)
+        state = opt.init(params)
+        ospecs = shd.tree_opt_specs(state, pspecs, mesh)
+        bspecs = shd.batch_specs({k: (v.shape, v.dtype) for k, v in batch.items()}, mesh)
+        gspecs = shd.tree_grad_specs(params, pspecs, mesh)
+        sharded, _ = make_train_step(model, shd.zero1_optimizer(opt, pspecs, ospecs, dm),
+                                     microbatch=2,
+                                     grad_constraint=lambda g: shd.redistribute_tree(g, gspecs, dm))
+        plain, _ = make_train_step(model, opt, microbatch=2)
+        with shd.dtensor_scope(placed):
+            got = sharded(placed, shd.shard_tree(state, ospecs, dm),
+                          shd.shard_tree(batch, bspecs, dm))
+        want = plain(params, state, batch)
+        assert torch.equal(got[2]["loss"].full_tensor(), want[2]["loss"])
+        for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+            assert torch.equal(a.to_local(), b)
+    finally:
+        dist.destroy_process_group()

@@ -6,7 +6,8 @@ The plan's summary (workers, split, broadcast, combines, the pipeline
 inside) is held equal to the JAX package's; the mesh rewrite turns the
 gradient pre-aggregation into ``mesh.AllReduce`` with the port's
 ``LowerToMesh``/``PushCombineIntoMesh``; the lowered plan trains on one
-device (the CPU here), and a mesh of more than one device raises.
+device (the CPU here); a mesh of ranks needs its process group (the
+sharded step itself is tests/test_torch_pjit_mesh.py's).
 """
 
 import numpy as np
@@ -28,7 +29,7 @@ from repro_torch.frontends.tensor import (  # noqa: E402
     PjitBackend, PjitCompiled, lower_to_pjit, plan_summary, plan_train_program)
 from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
-from repro_torch.train.optimizer import AdamW  # noqa: E402
+from repro_torch.train.optimizer import AdamW, tree_leaves  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -102,10 +103,33 @@ def test_pjit_is_a_registered_target(model):
         res.executable({}, {}, {})
 
 
-def test_a_mesh_of_more_than_one_device_raises(model):
+def test_a_mesh_of_more_than_one_device_needs_its_process_group(model):
+    """A mesh of ranks binds the step on DTensors (tests/test_torch_pjit_mesh.py
+    runs it on four gloo ranks); without an initialised process group the
+    backend refuses before any rendezvous."""
     plan = plan_train_program(model, n_data=4)
     mesh = Mesh(None, (0, 1, 2, 3), ("data",), (4,), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="8.7"):
+    with pytest.raises(ValueError, match="process group"):
         lower_to_pjit(plan, model, mesh, AdamW())
-    with pytest.raises(NotImplementedError, match="8.7"):
+    with pytest.raises(ValueError, match="process group"):
         PjitBackend(model=model, mesh=mesh)
+
+
+def test_a_one_rank_mesh_binds_the_plain_step(model):
+    """No group and one rank: ``make_train_step``'s own step on plain
+    tensors, the same bits as calling it directly."""
+    from repro_torch.models.api import make_train_step
+
+    plan = plan_train_program(model, n_data=1)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    step, _ = lower_to_pjit(plan, model, mesh, AdamW(lr=3e-3), microbatch=2)
+    direct, _ = make_train_step(model, AdamW(lr=3e-3), microbatch=2)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (4, 16)).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(0, 512, (4, 16)).astype(np.int32)),
+             "mask": torch.ones((4, 16), dtype=torch.float32)}
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    a = step(params, AdamW(lr=3e-3).init(params), batch)
+    b = direct(params, AdamW(lr=3e-3).init(params), batch)
+    assert torch.equal(a[2]["loss"], b[2]["loss"])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])))

@@ -291,10 +291,25 @@ def test_microbatched_gradients_accumulate_in_f32():
         assert all(a.dtype == torch.bfloat16 for a in tree_leaves(new))
 
 
-def test_grad_constraint_waits_for_sharding():
-    _, _, tm, _ = _models("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="8.7"):
-        make_train_step(tm, grad_constraint=lambda g: g)
+def test_grad_constraint_places_the_accumulator():
+    """``grad_constraint`` (ZeRO-2's hook; tests/test_torch_pjit_mesh.py runs
+    it on DTensors) is applied to the f32 zeros and to each microbatch's
+    gradients; an identity constraint leaves the step's bits as they were."""
+    _, params, tm, tp = _models("qwen2-1.5b")
+    batch = _torch(_batch(tm.cfg))
+    seen = []
+
+    def constrain(tree):
+        seen.append([t.dtype for t in tree_leaves(tree)])
+        return tree
+
+    got = make_train_step(tm, SGD(), microbatch=2, grad_constraint=constrain)[0](
+        tp, SGD().init(tp), batch)
+    want = make_train_step(tm, SGD(), microbatch=2)[0](tp, SGD().init(tp), batch)
+    assert len(seen) == 3  # the accumulator, then two microbatches' gradients
+    assert all(d == torch.float32 for d in seen[0])
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])))
 
 
 # ---------------------------------------------------------------------------
