@@ -181,7 +181,7 @@ Phases, each printing its own lines:
    with a checkpoint, the restored step-3 state the saved one bit for bit,
    3 resumed steps whose losses are the uninterrupted run's (rtol 2^-7);
 20. the sharded train step: four rank processes (spawned) sharing the card
-   over gloo run Qwen2-1.5B's full widths at 4 of its 28 layers (the
+   over gloo run Qwen2-1.5B's full widths at 2 of its 28 layers (the
    cut: gloo copies every collective through the host) through
    ``frontends.tensor.lower_to_pjit`` over a (data 2 × model 2) mesh,
    B = 4, S = 2048, microbatch 2: the parameters placed by the sharding
@@ -196,7 +196,14 @@ Phases, each printing its own lines:
    collectives a step by kind (equal to the dry-run's of the same cut cell
    on a fake world of 4, checked) and peak GB per rank beside the
    dry-run's (the production cell's dry-run is the CLI's,
-   ``python -m repro_torch.launch.dryrun``, run on its own);
+   ``python -m repro_torch.launch.dryrun``, run on its own); then the MoE
+   over the same mesh: Moonlight-16B-A3B's widths at 1 of 48 layers in
+   f32 (``sharding.per_rank_moe``: every rank routes the whole microbatch
+   and computes its 16 experts), the loss and each gradient leaf against
+   the one-device step (rtol 1e-5, ‖Δ‖/‖g‖ ≤ 1e-5), the dropped choices
+   on every rank equal to the one-device step's, then a warm-up and 2
+   AdamW steps: step ms, the collectives a step (equal to the dry-run's
+   of the cut cell) and peak GB per rank;
 21. the MoE family at full width and depth: Moonlight-16B-A3B
    (``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 48 layers, 64 experts,
    top-6, bf16, parameters from ``model.init`` with seed 0), after the
@@ -269,7 +276,23 @@ Phases, each printing its own lines:
    full model in bf16 (AdamW lr 3e-3, remat, ``chunked``) for a warm-up
    and 4 steps at B = 16, S = 448, launching no kernel: losses finite and
    falling, step ms, tokens/s, peak GB, model-FLOPs share;
-27. each kernel against its plain version on the inputs the paths gave it,
+27. training the MoE, VLM, hybrid and RWKV families (``FAMILY_TRAIN``):
+   Moonlight-16B-A3B, Qwen2-VL-7B (the launcher's stub embeddings and
+   ``positions3``), Zamba2-7B (``chunked`` attention: the kernel has no
+   backward) and RWKV6-1.6B, each at full width: 1 or 2 layers in f32 on
+   the card against f64 on the host (the train phase's rule, or up to
+   WITNESS_FACTOR times the host's own f32 distance from f64 where that
+   is larger) and in f64 on the card against the same (the train phase's
+   rule); Moonlight at capacity factor 0.5 with its drops counted, the
+   host's routing pinned to the card's; then in bf16 at the depth that
+   fits 80 GB (2, 8, 24 and all 24 layers) with the train phase's traffic
+   (RWKV6 at S = 256: its scan's backward is the host's; Qwen2-VL-7B at lr
+   3e-5: at 3e-3 its losses climb after the first step), launching no
+   kernel: losses finite and the last below the first, step ms, tokens/s,
+   peak GB by part, the model-FLOPs
+   share (the MoE's of its active parameters) and Moonlight's dropped
+   share;
+28. each kernel against its plain version on the inputs the paths gave it,
    both timed with CUDA events, with its bound (operations at the peak
    rate of the operands' type: bf16 on the tensor cores, else f32) and,
    for ``segsum`` and ``flash_attention``, the one PyTorch call
@@ -282,7 +305,7 @@ Phases, each printing its own lines:
    head width (128, 112 from Zamba2-7B and 64 from Whisper-base); the MoE,
    VLM, hybrid and enc-dec phases add the first and last layer's
    (attention point's) call of their counted run;
-28. per-query latency (median over ``--reps`` after a warm-up, each run
+29. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
    step, tokens/s, request latency p50/p99 from the port's tracer); with
@@ -344,7 +367,7 @@ outputs within ‖Δ‖ ≤ 1e-5·‖y‖, aux rtol 1e-5.  The hybrid's paths go
 phase 18's rule; random Mamba layers amplify a rounding (the norm inside
 the block divides rows of small RMS), so at 81 layers the noise floor is
 itself several std and the rule has little power there: the per-call
-kernel check (phase 27) holds the D = 112 kernel.  ``ssd_chunked`` alone:
+kernel check (phase 28) holds the D = 112 kernel.  ``ssd_chunked`` alone:
 f32 against f64 within ‖Δ‖ ≤ 1e-5·‖y‖ (f32 rounding of 64-term chunk
 sums).  RWKV6 against f64 on the card: f32 within 1e-4 of the largest
 f64 logit; bf16 by the RMS of the difference, at most 0.15 of the
@@ -403,6 +426,12 @@ TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 4, 2048, 3e-3, 4
 #: rounding gives about 2e-6; a TF32 or bf16 product gives 1e-4 or more)
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_S = 2, 512
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-5
+#: the family checks also run the host in f32: the card's f32 distance from
+#: the host's f64 may be up to this many times the host's own, leaf by leaf
+#: (Zamba2-7B's random Mamba layers carry f32's rounding past
+#: TRAIN_GRAD_REL at 2 layers, the card's more than the host's: PERF.md
+#: §6, PR 27; _gap_report)
+WITNESS_FACTOR = 4.0
 #: on the card: remat off against on; microbatch 2 against 1 on B = 2
 REMAT_RTOL, MICRO_LOSS_RTOL, MICRO_GRAD_REL = 1e-6, 1e-5, 1e-4
 #: the launcher's bf16 resume against the uninterrupted run: loss rtol of
@@ -456,16 +485,51 @@ WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 16, 4
 #: f32 accumulator is placed by tree_grad_specs), a warm-up and
 #: SHARDED_STEPS steps in f32, then in bf16.  The depth is cut because gloo
 #: copies every collective through the host at about 1 GB/s (the spmd phase) and an
-#: f32 step moves about 2.2 GB per rank at 4 layers (the dry-run's count).
+#: f32 step moves about 2.2 GB per rank at 4 layers (the dry-run's count); 2
+#: layers keep the whole script within its time limit beside the MoE step.
 #: The f32 step against the one-device step: loss TRAIN_LOSS_RTOL, each
 #: gradient leaf TRAIN_GRAD_REL; step 1's updated parameters by
 #: ‖Δ‖ ≤ SHARDED_UPD_RTOL·‖u‖ + SHARDED_UPD_ATOL·lr·√n per leaf, u the
 #: one-device update (AdamW sends g/(|g| + 1e-8): a gradient element near
 #: 1e-8, f32 noise of either sum order, moves its update by up to lr;
 #: tests/test_torch_train.py's rule)
-SHARDED_DEPTH, SHARDED_RANKS, SHARDED_MESH, SHARDED_MICRO, SHARDED_STEPS = 4, 4, (2, 2), 2, 3
+SHARDED_DEPTH, SHARDED_RANKS, SHARDED_MESH, SHARDED_MICRO, SHARDED_STEPS = 2, 4, (2, 2), 2, 3
 SHARDED_UPD_RTOL, SHARDED_UPD_ATOL = 2e-3, 1e-2
 SHARDED_JOIN_S = 900
+#: the sharded MoE step: Moonlight-16B-A3B's full widths at SHARDED_MOE_DEPTH
+#: of its 48 layers (the four ranks share the card's 80 GB: rank 0 also
+#: holds the one-device f32 step and its AdamW state) on the same mesh,
+#: B = TRAIN_B, S = TRAIN_S, microbatch SHARDED_MICRO: the f32 step against
+#: the one-device step, then SHARDED_MOE_STEPS timed f32 steps
+SHARDED_MOE_DEPTH, SHARDED_MOE_STEPS = 1, 2
+#: training the MoE, VLM, hybrid and RWKV families on the card, per arch:
+#: (the card-vs-host check's depth and S at B = 1, the bf16 cell's depth,
+#: S, timed steps, AdamW's lr and the reason for its cuts).  The cell's depth is what
+#: fits 80 GB at about 22 bytes a parameter (bf16 parameter and gradient,
+#: f32 moments, and AdamW's new state beside the old) beside the
+#: activations of B = TRAIN_B × S tokens; the check's what the host's f64
+#: autograd does within a minute or two
+FAMILY_TRAIN = {
+    "moonshot-v1-16b-a3b": (1, 256, 2, TRAIN_S, 3, TRAIN_LR,
+                            "27.72 B parameters are about 610 GB at 22 B each; 3 of 48 layers "
+                            "(2.05 B) peaked at 75.59 GB in the AdamW update alone on an H100, "
+                            "so 2 (1.48 B) beside the earlier phases' tables"),
+    # lr 3e-5: at 3e-3, 1e-3 and 1e-4 its first AdamW step (every weight
+    # moved by about lr, at d = 3584) drops the loss far and the next steps
+    # climb (3e-3: 12.56, 7.22, 28.58, 15.78 on an H100 80GB HBM3 at 700 W);
+    # at 3e-5 it falls at every step (PERF.md §6, PR 27)
+    "qwen2-vl-7b": (2, 256, 8, TRAIN_S, 3, 3e-5,
+                    "7.07 B parameters are about 156 GB; 8 of 28 layers (2.41 B) fit"),
+    "zamba2-7b": (2, 256, 24, TRAIN_S, 3, TRAIN_LR,
+                  "6.64 B parameters are about 146 GB; 24 of 81 layers (4 shared-attention "
+                  "points, 2.19 B) fit"),
+    "rwkv6-1.6b": (2, 256, 24, 256, 2, TRAIN_LR,
+                   "not cut in depth (1.45 B); S cut to 256: the time scan's backward is an "
+                   "S-step autograd chain a layer at the host's launch rate, 58.0 s a step at "
+                   "S = 2048 and 14.6-16.1 s at 512 on an H100, past the script's time"),
+}
+#: the MoE check's capacity factor: low enough that choices are dropped
+FAMILY_MOE_CHECK_CF = 0.5
 
 TPCH_KERNELS = ("fused_select_agg", "grouped_select_agg", "grouped_join_agg")
 REPLACES = {
@@ -2535,21 +2599,40 @@ def _grads_of(model, params, batch, microbatch: int = 1):
     return met["loss"], grads
 
 
-def _gap_report(what: str, got, want, loss_rtol: float, grad_rel: float) -> dict:
+def _gap_report(what: str, got, want, loss_rtol: float, grad_rel: float,
+                witness=None) -> dict:
     """Hold a (loss, gradient tree) against another: the loss to
-    ``loss_rtol``, each leaf by ‖Δ‖/‖g‖ ≤ ``grad_rel``."""
+    ``loss_rtol``, each leaf by ‖Δ‖/‖g‖ ≤ ``grad_rel``.  With a
+    ``witness`` (the same computation as ``got`` in its dtype on the host)
+    the loss and each leaf may also be up to WITNESS_FACTOR times the
+    witness's own distance from ``want``: that much is the dtype's
+    rounding, seen without the card."""
     from repro_torch.train.optimizer import tree_leaves
 
     (l1, g1), (l0, g0) = got, want
     loss_gap = abs(float(l1) - float(l0)) / abs(float(l0))
     gaps = [_rel_gap(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g0))]
+    loss_bound, bounds, seen = loss_rtol, [grad_rel] * len(gaps), ""
+    if witness is not None:
+        lw, gw = witness
+        w_loss = abs(float(lw) - float(l0)) / abs(float(l0))
+        w_gaps = [_rel_gap(a, b) for a, b in zip(tree_leaves(gw), tree_leaves(g0))]
+        loss_bound = max(loss_rtol, WITNESS_FACTOR * w_loss)
+        bounds = [max(grad_rel, WITNESS_FACTOR * w) for w in w_gaps]
+        seen = (f"; the host's own in the same dtype: loss rel {w_loss:.3g}, gradients' "
+                f"largest {max(w_gaps):.3g}, so bounds of {loss_bound:.3g} and up to "
+                f"{max(bounds):.3g} a leaf")
     log(f"train check {what}: loss {float(l1):.9g} against {float(l0):.9g} (rel "
         f"{loss_gap:.3g}, rtol {loss_rtol:g}); gradients' largest ‖Δ‖/‖g‖ over "
-        f"{len(gaps)} leaves {max(gaps):.3g} (bound {grad_rel:g})")
-    if loss_gap > loss_rtol or max(gaps) > grad_rel:
+        f"{len(gaps)} leaves {max(gaps):.3g} (bound {grad_rel:g}){seen}")
+    if not (loss_gap <= loss_bound and all(g <= b for g, b in zip(gaps, bounds))):  # NaN fails
         raise AssertionError(f"train check {what} failed: loss rel {loss_gap:.3g}, "
-                             f"gradients {gaps}")
-    return {"loss_rel": loss_gap, "grad_rel_max": max(gaps)}
+                             f"gradients {gaps} against bounds {bounds}")
+    rep = {"loss_rel": loss_gap, "grad_rel_max": max(gaps)}
+    if witness is not None:
+        rep.update(witness_loss_rel=w_loss, witness_grad_rel_max=max(w_gaps),
+                   grad_over_bound_max=max(g / b for g, b in zip(gaps, bounds)))
+    return rep
 
 
 def phase_train(smi: str, profile: bool) -> dict:
@@ -3635,6 +3718,197 @@ def phase_whisper(smi: str):
     log("encdec: " + json.dumps(report))
     log(f"encdec phase took {report['phase_s']:.1f} s")
     return launches["flash_attention"], [captured[0], captured[n_l - 1]], report
+
+
+# ---------------------------------------------------------------------------
+# training the MoE, VLM, hybrid and RWKV families on the card
+# ---------------------------------------------------------------------------
+
+
+def _family_batch(cfg, b: int, s: int, device: str):
+    """The launcher's batch of the family (``launch/train.py:make_batch_fn``:
+    the VLM's stub embeddings and ``positions3``), TokenPipeline(seed=0)'s
+    step 0, on ``device``."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_batch_fn
+
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0)
+    return make_batch_fn(cfg, pipe, device)(0)
+
+
+def _dropped(rec) -> tuple:
+    """(choices dropped, choices made) over a ``routing()`` record."""
+    keeps = [c[3] for c in rec["calls"]]
+    return sum(int((~k).sum()) for k in keeps), sum(k.numel() for k in keeps)
+
+
+def train_family(arch: str, smi: str) -> dict:
+    """One family trained on the card through ``make_train_step``: full
+    width at FAMILY_TRAIN's check depth in f32 on the card against f64 on
+    the host (``phase_train``'s rule, with the host's own f32 run as the
+    witness of f32's rounding, ``_gap_report``), and the same code in f64 on
+    the card against the host's f64 (``phase_train``'s rule; a fault of the
+    card's path shows there without f32's rounding; the MoE at capacity factor
+    FAMILY_MOE_CHECK_CF, its drops counted, the host's routing pinned to
+    the card's), then the bf16 cell at FAMILY_TRAIN's depth: AdamW at
+    FAMILY_TRAIN's lr, B = TRAIN_B, remat, a warm-up and the timed steps
+    with the launch counts set to 0 just before and read just after."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model, make_train_step, value_and_grad
+    from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
+
+    t_fam = time.perf_counter()
+    base = get_config(arch)
+    c_depth, c_s, depth, seq, steps, lr, why = FAMILY_TRAIN[arch]
+    rep: dict = {"card": smi}
+    moe = base.is_moe
+    # 1. the card in f32 against the host in f64, full width at the check depth
+    over = {"n_layers": c_depth, "dtype": "float32"}
+    if moe:
+        over["moe_capacity_factor"] = FAMILY_MOE_CHECK_CF
+    cfg2 = replace(base, **over)
+    model2 = build_model(cfg2)
+    p2 = model2.init(torch.Generator("cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    with routing() as rec:
+        card = _grads_of(model2, p2, _family_batch(cfg2, 1, c_s, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    pin = [(None, ti.cpu(), po.cpu(), ke.cpu()) for _, ti, po, ke in rec["calls"]]
+    t0 = time.perf_counter()
+    with routing(pin=pin if moe else None):
+        host = _grads_of(build_model(replace(cfg2, dtype="float64")),
+                         tree_map(lambda t: t.detach().double().cpu(), p2),
+                         _family_batch(cfg2, 1, c_s, "cpu"))
+    t_host = time.perf_counter() - t0
+    with routing(pin=pin if moe else None):
+        host32 = _grads_of(build_model(cfg2), tree_map(lambda t: t.detach().cpu(), p2),
+                           _family_batch(cfg2, 1, c_s, "cpu"))
+    # the same code in f64 on the card: what parts it from the host's f64 is
+    # the rounding of the f32 the models keep at f64 (norms, RoPE, logits)
+    with routing(pin=[(None, ti, po, ke) for _, ti, po, ke in rec["calls"]] if moe else None):
+        card64 = _grads_of(build_model(replace(cfg2, dtype="float64")),
+                           tree_map(lambda t: t.detach().double(), p2),
+                           _family_batch(cfg2, 1, c_s, "cuda"))
+    what = (f"{c_depth} layers at full width, B=1, S={c_s}"
+            + (f", capacity factor {FAMILY_MOE_CHECK_CF}, the host's routing pinned to the "
+               f"card's" if moe else ""))
+    rep["card_f64_vs_host_f64"] = _gap_report(f"{arch} card f64 vs host f64 ({what})", card64,
+                                              host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL)
+    rep["card_vs_host_f64"] = _gap_report(
+        f"{arch} card f32 vs host f64 ({what}; card {t_card:.2f} s, host {t_host:.1f} s)",
+        card, host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, witness=host32)
+    if moe:
+        dropped, made = _dropped(rec)
+        if not dropped:
+            raise AssertionError(f"{arch}: the check dropped no choice at capacity factor "
+                                 f"{FAMILY_MOE_CHECK_CF}: the capacity code went unchecked")
+        rep["card_vs_host_f64"]["dropped"] = [dropped, made]
+        log(f"train check {arch}: {dropped} of {made} (token, k) choices dropped at capacity "
+            f"factor {FAMILY_MOE_CHECK_CF} (the router's calls, recompute included)")
+    del card, card64, host, host32, p2, model2, rec, pin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the bf16 cell at the depth that fits
+    cfg = replace(base, n_layers=depth)
+    held = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    step, opt = make_train_step(model, AdamW(lr=lr), microbatch=1)
+    state = opt.init(params)
+    batch = _family_batch(cfg, TRAIN_B, seq, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"training {arch}: {depth} of {base.n_layers} layers at full width ({why}); "
+        f"{n_params / 1e9:.4f} B parameters ({cfg.dtype}), B={TRAIN_B}, S={seq}, remat "
+        f"{cfg.remat}, attention {cfg.attn_mode}, lr {lr}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with routing() as rec:
+        params, state, met = step(params, state, batch)  # warm-up: the first step
+        losses = [float(met["loss"])]
+        warm_s = time.perf_counter() - t0
+        drop = _dropped(rec)
+        rec["calls"].clear()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        drops = [_dropped({"calls": rec["calls"]})]
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() - held
+    if launches:
+        raise AssertionError(f"{arch} training launched {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training losses {losses}: not finite or not falling")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError(f"{arch}: a parameter is not finite after training")
+    parts = {}
+
+    def part_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    (_, grads), parts["loss and gradients"] = part_peak(
+        lambda: value_and_grad(model.loss, params, batch))
+    _, parts["AdamW update"] = part_peak(lambda: opt.update(grads, state, params))
+    del grads, _
+    step_s = statistics.median(times)
+    tokens = TRAIN_B * seq
+    model_flops = 6 * cfg.n_active_params() * tokens
+    rep["cell"] = {
+        "layers": depth, "of_layers": base.n_layers, "cut": why, "seq": seq, "batch": TRAIN_B,
+        "n_params": n_params, "n_active_params": cfg.n_active_params(), "losses": losses,
+        "warmup_s": warm_s, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_allocated_gb": peak / 1e9, "peak_gb_by_part": parts, "held_gb": held / 1e9,
+        "model_flops": model_flops, "model_flops_share": model_flops / step_s / PEAK_BF16_TC}
+    share = ""
+    if moe:
+        dropped, made = drops[0]
+        rep["cell"]["dropped_share"] = dropped / made
+        rep["cell"]["dropped_share_warmup"] = drop[0] / drop[1]
+        share = (f"; {dropped / made:.4f} of the (token, k) choices dropped over the timed "
+                 f"steps (capacity factor {cfg.moe_capacity_factor})")
+    log(f"train ({smi}): {arch} {depth} of {base.n_layers} layers {cfg.dtype}, B={TRAIN_B}×S={seq}: "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms median of {steps} "
+        f"(synchronised; warm-up {warm_s:.2f} s), {tokens / step_s:.0f} tokens/s, peak "
+        f"allocated {peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB held "
+        f"({', '.join(f'{k} {v:.2f}' for k, v in parts.items())}), model-FLOPs share "
+        f"{model_flops / step_s / PEAK_BF16_TC:.4f} (6·N·tokens = {model_flops:.4g}"
+        + (f", N the {cfg.n_active_params() / 1e9:.4f} B active parameters: top-{cfg.top_k} of "
+           f"{cfg.n_experts} experts" if moe else "") + f", over 989 TFLOP/s dense bf16)"
+        + share + "; no kernel launched")
+    del params, state, batch, met, model, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t_fam
+    log(f"train {arch} took {rep['phase_s']:.1f} s")
+    return rep
+
+
+def phase_train_families(smi: str) -> dict:
+    """Training the MoE, VLM, hybrid and RWKV families on the card
+    (``train_family`` each, in FAMILY_TRAIN's order)."""
+    t_phase = time.perf_counter()
+    report = {arch: train_family(arch, smi) for arch in FAMILY_TRAIN}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("train families: " + json.dumps(report))
+    log(f"train families phase took {report['phase_s']:.1f} s")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4996,7 +5270,97 @@ def _sharded_cases(rank: int) -> dict:
         out[dtype] = rec
         del p, s, b, step
         torch.cuda.empty_cache()
+    del batch
+    out["moe"] = _sharded_moe_case(rank, mesh)
     return out
+
+
+def _sharded_moe_case(rank: int, mesh) -> dict:
+    """Moonlight-16B-A3B's widths at SHARDED_MOE_DEPTH layers in f32 over
+    the mesh (``sharding.per_rank_moe``): the gradients' step against the
+    one-device step on rank 0 with the dropped choices counted on both,
+    then a warm-up AdamW step (its collectives counted) and
+    SHARDED_MOE_STEPS timed ones."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.frontends.tensor import lower_to_pjit, plan_train_program
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, Optimizer, tree_leaves
+
+    cfg = replace(get_config(MOE_ARCH), n_layers=SHARDED_MOE_DEPTH, dtype="float32")
+    got = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in got.items()}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(mesh.device).manual_seed(0))
+    plan = plan_train_program(model, n_data=SHARDED_MESH[0])
+    grads_of = Optimizer(lambda p: {}, lambda g, st, p: (g, st))
+    rec: dict = {}
+    if rank == 0:
+        one, _ = make_train_step(model, grads_of, microbatch=SHARDED_MICRO)
+        with routing() as r:
+            ref_g, _, ref_met = one(params, {}, batch)
+        rec["one_device_drops"] = _dropped(r)
+        rec["one_device_loss"] = float(ref_met["loss"])
+        del r, one
+    dist.barrier()
+    step, _ = lower_to_pjit(plan, model, mesh, grads_of, batch_shapes=batch,
+                            microbatch=SHARDED_MICRO)
+    with routing() as r:
+        g, _, met = step(*step.place(params, {}, batch))
+    rec["drops"] = _dropped(r)
+    del r
+    rec["grads_loss"] = float(met["loss"])
+    gaps = []
+    for a, b in zip(tree_leaves(g), tree_leaves(ref_g) if rank == 0 else tree_leaves(g)):
+        full = a.full_tensor()
+        if rank == 0:
+            gaps.append(_rel_gap(full, b))
+    rec["grad_rel"] = gaps
+    del g
+    if rank == 0:
+        del ref_g
+    opt = AdamW(lr=TRAIN_LR)
+    step, _ = lower_to_pjit(plan, model, mesh, opt, batch_shapes=batch, microbatch=SHARDED_MICRO)
+    p, s, b = step.place(params, opt.init(params), batch)
+    del params
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with shd.comm_bytes() as comm:
+        p, s, met = step(p, s, b)
+    torch.cuda.synchronize()
+    rec["warmup_s"] = time.perf_counter() - t0
+    rec["comm"] = comm.by_kind()
+    losses = [float(met["loss"])]
+    times = []
+    for _ in range(SHARDED_MOE_STEPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, s, met = step(p, s, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    rec["losses"] = losses
+    rec["step_s"] = times
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["finite"] = all(bool(torch.isfinite(t.to_local()).all()) for t in tree_leaves(p))
+    del p, s, b, step
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_sharded_train(smi: str) -> dict:
@@ -5065,7 +5429,8 @@ def phase_sharded_train(smi: str) -> dict:
         f"{TRAIN_GRAD_REL:g}); step 1's parameters: largest ‖Δ‖ over its bound "
         f"{max(d / bnd for d, bnd in f32['update']):.3g} (‖Δ‖ ≤ {SHARDED_UPD_RTOL:g}·‖u‖ + "
         f"{SHARDED_UPD_ATOL:g}·lr·√n)")
-    if loss_gap > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_REL or over:
+    if not (loss_gap <= TRAIN_LOSS_RTOL and all(g <= TRAIN_GRAD_REL for g in f32["grad_rel"])) \
+            or over:
         raise AssertionError(f"the sharded f32 step differs from the one-device step: loss "
                              f"{loss_gap:.3g}, gradients {f32['grad_rel']}, updates over {over}")
     report["check"] = {"loss_rel": loss_gap, "grad_rel_max": worst,
@@ -5122,10 +5487,79 @@ def phase_sharded_train(smi: str) -> dict:
             f"same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB per rank "
             f"(dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no all-gather of logits; "
             f"no kernel launched")
+    report["moe"] = sharded_moe_report(ranks, label)
     report["phase_s"] = time.perf_counter() - t_phase
     log("sharded train: " + json.dumps(report))
     log(f"sharded train phase took {report['phase_s']:.1f} s")
     return report
+
+
+def sharded_moe_report(ranks, label: str) -> dict:
+    """Check and report the ranks' sharded MoE step (``_sharded_moe_case``):
+    the f32 loss and gradients against the one-device step, the dropped
+    choices equal to its, the collectives a step equal to the dry-run's of
+    the same cut cell, no kernel launched; step ms and peak GB per rank."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    recs = [rk["moe"] for rk in ranks]
+    r0 = recs[0]
+    full = get_config(MOE_ARCH)
+    cut = replace(full, n_layers=SHARDED_MOE_DEPTH, dtype="float32")
+    loss_gap = abs(r0["grads_loss"] - r0["one_device_loss"]) / abs(r0["one_device_loss"])
+    worst = max(r0["grad_rel"])
+    log(f"sharded MoE check ({label}): {MOE_ARCH} {SHARDED_MOE_DEPTH} of {full.n_layers} "
+        f"layers f32 (cut: four ranks share the card's 80 GB, rank 0 beside the one-device "
+        f"step), B={TRAIN_B}, S={TRAIN_S}, microbatch {SHARDED_MICRO}: loss "
+        f"{r0['grads_loss']:.9g} against the one-device {r0['one_device_loss']:.9g} (rel "
+        f"{loss_gap:.3g}, rtol {TRAIN_LOSS_RTOL:g}); gradients' largest ‖Δ‖/‖g‖ over "
+        f"{len(r0['grad_rel'])} leaves {worst:.3g} (bound {TRAIN_GRAD_REL:g}); dropped choices "
+        f"per rank {[rk['drops'][0] for rk in recs]} of {r0['drops'][1]}, one device "
+        f"{r0['one_device_drops'][0]} of {r0['one_device_drops'][1]}")
+    if not (loss_gap <= TRAIN_LOSS_RTOL and all(g <= TRAIN_GRAD_REL for g in r0["grad_rel"])):
+        raise AssertionError(f"the sharded MoE step differs from the one-device step: loss "
+                             f"{loss_gap:.3g}, gradients {r0['grad_rel']}")
+    if any(rk["drops"] != r0["one_device_drops"] for rk in recs) or not r0["drops"][0]:
+        raise AssertionError(f"sharded MoE drops {[rk['drops'] for rk in recs]} against the "
+                             f"one-device {r0['one_device_drops']}")
+    losses = r0["losses"]
+    if any(rk["losses"] != losses for rk in recs):
+        raise AssertionError(f"sharded MoE: the ranks' losses differ: "
+                             f"{[rk['losses'] for rk in recs]}")
+    if not all(math.isfinite(x) for x in losses) or not all(rk["finite"] for rk in recs):
+        raise AssertionError(f"sharded MoE losses {losses} or parameters not finite")
+    if any(rk["launches"] for rk in recs):
+        raise AssertionError(f"the sharded MoE step launched {r0['launches']}")
+    if any(rk["comm"] != r0["comm"] for rk in recs):
+        raise AssertionError("sharded MoE: the ranks issued other collectives")
+    spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
+            for k, d in (("tokens", torch.int32), ("labels", torch.int32),
+                         ("mask", torch.float32))}
+    dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
+                            microbatch=SHARDED_MICRO, batch_override=spec)
+    if dry["collective_by_kind"] != r0["comm"]:
+        raise AssertionError(f"sharded MoE: the dry-run's collectives {dry['collective_by_kind']} "
+                             f"differ from the card's {r0['comm']}")
+    step_ms = [statistics.median(rk["step_s"]) * 1e3 for rk in recs]
+    out = {"loss_rel": loss_gap, "grad_rel_max": worst, "drops": r0["drops"],
+           "losses": losses, "step_ms_median_per_rank": step_ms,
+           "step_ms_per_rank": [[t * 1e3 for t in rk["step_s"]] for rk in recs],
+           "warmup_s": [rk["warmup_s"] for rk in recs], "setup_s": [rk["setup_s"] for rk in recs],
+           "collectives_per_step": r0["comm"], "peak_gb_per_rank": [rk["peak_gb"] for rk in recs],
+           "dryrun": {"collectives": dry["collective_by_kind"],
+                      "peak_gb_per_device": dry["peak_bytes"] / 1e9, "trace_s": dry["trace_s"]}}
+    log(f"sharded MoE train ({label}): {MOE_ARCH} {SHARDED_MOE_DEPTH} layer(s) f32, "
+        f"B={TRAIN_B}×S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; step "
+        f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_MOE_STEPS} per rank "
+        f"(synchronised); collectives a step {json.dumps(r0['comm'])} (the dry-run's on a fake "
+        f"world of 4: the same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB "
+        f"per rank (dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); the dropped share "
+        f"{r0['drops'][0] / r0['drops'][1]:.4f}; no kernel launched")
+    return out
 
 
 def main() -> int:
@@ -5199,6 +5633,7 @@ def main() -> int:
             n, calls = run()[:2]  # the rest holds the model: dropped before the next phase
             fa_launches += n
             fa_captured += calls
+        families_report = phase_train_families(smi)
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches)
         for k, n in list(stream_launches.items()) + list(spmd_launches.items()):
@@ -5209,6 +5644,8 @@ def main() -> int:
     report_kmeans(km_times)
     report_serve(serve_report)
     log("training: " + json.dumps(train_report))
+    log("training the MoE, VLM, hybrid and RWKV families: " + json.dumps(
+        {k: v["cell"] for k, v in families_report.items() if isinstance(v, dict)}))
     if a.profile:
         phase_profile({
             "one pass over the six queries": lambda: [f.collect(device="cuda")

@@ -29,6 +29,22 @@ elementwise FLOPs are added analytically (:func:`rwkv_scan_flops`, the
 port's ``_rwkv_wkv_correction``).  Other elementwise work is counted as
 bytes only (ROADMAP Queue 3 records how these numbers differ from XLA's).
 
+RWKV's train and prefill cells are traced with a time scan that runs only
+its first n steps (each a few local ops on every rank, since the scan runs
+per rank, ``sharding.per_rank_scan``; the rest of its output zeros made
+from the rest of its inputs in a few ops): all of the step but the scan is
+traced at the cell's own shapes and so with DTensor's own placements, and
+the scan's steps are alike and local.  The counts are affine in n, and at
+n = S the stand-in is the scan itself; a train step's microbatches are
+alike too.  So :func:`trace_affine` traces the cell at n =
+``SCAN_PROBE_STEPS`` (a train step at 2 and 3 microbatches of the cell's
+rows) and solves for the cell: the FLOPs, bytes and collective calls and
+bytes exactly, the peak by the same lines (an estimate).  This is the
+move of JAX's layer probes (XLA counts a ``lax.scan`` body once;
+``repro/launch/dryrun.py``), over the scan's steps.  The whole scan would
+take hours: some 60 local ops a (position, layer, microbatch) in train,
+each through the counting modes.
+
 A cell that traces for more than ``CELL_TIMEOUT_S`` is recorded as failed.
 
 Artifacts: ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
@@ -70,10 +86,10 @@ HBM_BW = 3.35e12             # bytes/s
 # such nodes.  Inside a node NVLink 4 gives 450 GB/s per direction.
 LINK_BW = 50e9
 #: seconds a cell may trace before it is recorded as failed: the slowest
-#: cell that ends traces for about 20 minutes on one CPU core (Zamba2-7B's
-#: train step), while RWKV's eager time scan over 4k-32k positions runs
-#: for hours
+#: cell traces for about 20 minutes on one CPU core (Zamba2-7B's train step)
 CELL_TIMEOUT_S = 1800
+#: the time-scan steps at which trace_affine traces RWKV's cells
+SCAN_PROBE_STEPS = (2, 4)
 
 
 @contextlib.contextmanager
@@ -93,9 +109,49 @@ def fake_world(n: int):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def _bookkeeping_marked(flag: list):
+    """``flag[0]`` true while DTensor moves a local tensor between
+    placements (``redistribute_local_tensor``, reached from a DTensor op's
+    argument and from ``redistribute``) or propagates an op's sharding on a
+    cache miss (``propagate_op_sharding_non_cached``): the local ops run
+    there are the moves' own (the fake world's all-to-all runs as an
+    all-gather, a ``cat`` and chunks) or DTensor's bookkeeping (shard
+    offsets by ``arange``, once per new shape in a process), not the
+    step's."""
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redist
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    def marked(inner):
+        def run(*args, **kwargs):
+            outer, flag[0] = flag[0], True
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                flag[0] = outer
+        return run
+
+    move = redist.redistribute_local_tensor
+    owners = [(m, "redistribute_local_tensor", move) for m in (redist, dispatch)
+              if getattr(m, "redistribute_local_tensor", None) is move]
+    if hasattr(ShardingPropagator, "propagate_op_sharding_non_cached"):
+        owners.append((ShardingPropagator, "propagate_op_sharding_non_cached",
+                       ShardingPropagator.propagate_op_sharding_non_cached))
+    for owner, name, inner in owners:
+        setattr(owner, name, marked(inner))
+    try:
+        yield
+    finally:
+        for owner, name, inner in owners:
+            setattr(owner, name, inner)
+
+
 def _local_ops():
     """A dispatch mode that adds up the FLOPs and bytes of the local ops
-    under it (DTensor ops are let through, to come back as local ops)."""
+    under it (DTensor ops are let through, to come back as local ops); the
+    local ops of a redistribution (its collectives are counted) and of
+    DTensor's bookkeeping are not counted."""
     from torch._guards import active_fake_mode
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -108,10 +164,20 @@ def _local_ops():
             self.flops = 0
             self.bytes = 0
             self._entry = None
+            self._moving = [False]
+            self._marks = None
 
         def __enter__(self):
             self._entry = active_fake_mode()
+            self._marks = _bookkeeping_marked(self._moving)
+            self._marks.__enter__()
             return super().__enter__()
+
+        def __exit__(self, *exc):
+            try:
+                return super().__exit__(*exc)
+            finally:
+                self._marks.__exit__(*exc)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -120,8 +186,8 @@ def _local_ops():
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
             out = func(*args, **kwargs)
-            if active_fake_mode() is not self._entry:
-                return out  # DTensor's sharding propagation on global shapes
+            if active_fake_mode() is not self._entry or self._moving[0]:
+                return out  # DTensor's propagation on global shapes, a move, bookkeeping
             packet = func._overloadpacket
             if packet in self.registry:
                 self.flops += int(self.registry[packet](*args, **kwargs, out_val=out))
@@ -250,6 +316,100 @@ def trace_cell(cfg, shape_name: str, mesh_shape: Sequence[int], axes: Sequence[s
                 "trace_s": time.perf_counter() - t0 - t_place}
 
 
+def traced_affine(cfg, shape_name: str) -> bool:
+    """Whether ``run_cell`` traces the cell through :func:`trace_affine`:
+    RWKV's train and prefill cells (a time scan over S positions)."""
+    return cfg.family == "rwkv" and SHAPES[shape_name].kind in ("train", "prefill")
+
+
+@contextlib.contextmanager
+def _scan_steps(n: int):
+    """Within the block RWKV's time scan runs its first ``n`` steps and
+    fills the rest of its output with zeros made from the rest of its
+    inputs in a few ops (so every step's gradient is defined, as in the
+    scan), stacked with them as the scan stacks its steps."""
+    from ..models import ssm
+
+    scan = ssm._wkv_scan
+
+    def first_steps(r, k, v, w, u, st):
+        steps = list(zip(*(t.unbind(1) for t in (r, k, v, w))))
+        outs = []
+        for rt, kt, vt, wt in steps[:n]:
+            out, st = ssm._wkv_step(rt, kt, vt, wt, u, st)
+            outs.append(out)
+        if steps[n:]:
+            rest = [torch.stack(list(x)) for x in zip(*steps[n:])]
+            outs += list(((rest[0] + rest[1] + rest[2] + rest[3]) * 0).unbind(0))
+        return torch.stack(outs, dim=1), st
+
+    ssm._wkv_scan = first_steps
+    try:
+        yield
+    finally:
+        ssm._wkv_scan = scan
+
+
+def trace_affine(cfg, shape_name: str, mesh_shape: Sequence[int],
+                 axes: Sequence[str]) -> Dict[str, Any]:
+    """``trace_cell``'s counts of an RWKV cell, solved from traces whose time
+    scan runs only ``SCAN_PROBE_STEPS`` = (n1, n2) of its S steps (the module's
+    docstring).  A prefill's count is affine in n: f(S) = f(n1) + (f(n2) −
+    f(n1))·(S − n1)/(n2 − n1).  A train step's m microbatches are alike, so
+    its count is A + m·B + m·n·K: it is traced at (m, n) = (2, n1), (2,
+    n2), (3, n1), each microbatch of the cell's rows, and solved for the
+    cell's m and S.  So for the FLOPs, bytes and each collective kind's
+    calls and bytes, and the peak (an estimate).  (The layers are not
+    alike enough to probe: a layer's cost moves with the depth.)"""
+    from fractions import Fraction
+
+    n1, n2 = SCAN_PROBE_STEPS
+    kind, specs = input_specs(cfg, shape_name)
+    s = next(iter(specs.values())).shape[1]
+
+    def traced(n, m=None):
+        batch = specs
+        if m is not None:
+            batch = {k: torch.empty((rows * m,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                    device="meta") for k, v in specs.items()}
+        with _scan_steps(n):
+            return trace_cell(cfg, shape_name, mesh_shape, axes, microbatch=m,
+                              batch_override=batch)
+
+    if kind == "train":
+        dp = math.prod(n for a, n in zip(axes, mesh_shape) if a in ("pod", "data"))
+        b = next(iter(specs.values())).shape[0]
+        m = max(1, b // dp)
+        rows = b // m
+        got = [traced(n1, 2), traced(n2, 2), traced(n1, 3)]
+
+        def solve(f1, f2, f3):  # A + m·B + m·n·K
+            k = Fraction(f2 - f1, 2 * (n2 - n1))
+            return f1 + (m - 2) * (f3 - f1) + k * m * (s - n1)
+    else:
+        got = [traced(n1), traced(n2)]
+
+        def solve(f1, f2):
+            return f1 + Fraction(f2 - f1, n2 - n1) * (s - n1)
+
+    def exact(*fs):
+        v = solve(*fs)
+        if v.denominator != 1:
+            raise ValueError(f"the counts {fs} are not affine in the scan's steps")
+        return int(v)
+
+    kinds = sorted(set().union(*(g["collective_by_kind"] for g in got)))
+    by_kind = {k: {q: exact(*(g["collective_by_kind"].get(k, {}).get(q, 0) for g in got))
+                   for q in ("calls", "bytes")} for k in kinds}
+    return {"kind": kind, "flops": exact(*(g["flops"] for g in got)),
+            "bytes": exact(*(g["bytes"] for g in got)), "collective_by_kind": by_kind,
+            "collectives": None, "peak_bytes": int(solve(*(g["peak_bytes"] for g in got))),
+            "place_s": sum(g["place_s"] for g in got), "trace_s": sum(g["trace_s"] for g in got),
+            "method": f"the time scan traced at {n1} and {n2} of its {s} steps"
+                      + (" and 2, 3 microbatches" if kind == "train" else "")
+                      + ", solved for the cell"}
+
+
 def rwkv_scan_flops(cfg, shape_name: str, mesh_shape: Sequence[int],
                     axes: Sequence[str]) -> int:
     """The elementwise FLOPs per device of RWKV's wkv time scan, which the
@@ -342,7 +502,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, save: bool 
             print(f"[dryrun] {arch} × {shape_name} × {mesh_name}: SKIP ({reason})")
         return rec
 
-    got = trace_cell(cfg, shape_name, mesh_shape, axes)
+    trace = trace_affine if traced_affine(cfg, shape_name) else trace_cell
+    got = trace(cfg, shape_name, mesh_shape, axes)
     chips = math.prod(mesh_shape)
     sh = SHAPES[shape_name]
     scan = rwkv_scan_flops(cfg, shape_name, mesh_shape, axes)
@@ -357,6 +518,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, save: bool 
     rec["device_mem_gib"] = round(got["peak_bytes"] / 2 ** 30, 3)
     rec["place_s"] = round(got["place_s"], 1)
     rec["trace_s"] = round(got["trace_s"], 1)
+    if "method" in got:
+        rec["method"] = got["method"]
     if save:
         _save(rec, out_dir)
     if verbose:

@@ -22,7 +22,7 @@ import torch
 
 from ..train.optimizer import AdamW, Optimizer, tree_leaves, tree_like, tree_map
 from . import hybrid, lm, ssm, whisper
-from .sharding import placed_like, replicated
+from .sharding import placed_like, replicated, vocab_parallel_argmax
 
 
 @dataclass(frozen=True)
@@ -242,9 +242,18 @@ def make_train_step(model: Model, optimizer: Optional[Optimizer] = None,
 
 
 def make_serve_step(model: Model):
+    """``(params, state, tokens) → (next token (B, 1) int32, logits,
+    state')``: greedy, the lowest index among equal maxima, as
+    ``jnp.argmax``.  On DTensor logits the argmax runs per rank
+    (``sharding.vocab_parallel_argmax``), never over gathered logits."""
+
     def serve_step(params, state, tokens):
         logits, new_state = model.decode(params, state, tokens)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        if hasattr(logits, "placements"):
+            next_tok = vocab_parallel_argmax(logits)
+        else:
+            next_tok = torch.argmax(logits, dim=-1)
+        next_tok = next_tok.to(torch.int32)[:, None]
         return next_tok, logits, new_state
 
     return serve_step

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .sharding import group_heads, merge_heads, per_rank_attention, split_heads
+from .sharding import (group_heads, merge_heads, per_rank_attention, per_rank_moe, split_heads,
+                       write_position)
 
 Params = Dict[str, Any]
 
@@ -197,8 +198,8 @@ def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
     write_pos = cache_len % cap
-    cache_k[:, :, write_pos] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[:, :, write_pos] = v[:, :, 0].to(cache_v.dtype)
+    write_position(cache_k, write_pos, k[:, :, 0])
+    write_position(cache_v, write_pos, v[:, :, 0])
     o = kops.decode_attention(group_heads(q, n_kv), cache_k, cache_v, min(cache_len + 1, cap))
     return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"], cache_k, cache_v
 
@@ -293,7 +294,8 @@ def moe_route(p: Params, xf: torch.Tensor, *, n_experts: int, top_k: int, capaci
 
 
 def moe_block(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25,
+              first_expert: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k capacity MoE.  x: (B, S, D) → (out (B, S, D), Switch's aux loss).
 
     Each (token, k) choice takes its place in its expert (``moe_route``);
@@ -305,18 +307,30 @@ def moe_block(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     batched products over E, (E, C, D) × (E, D, F).  The combine adds each
     token's K weighted rows in k order in x's dtype, ``0 + y_0 + y_1 +
     …``, which gives the bits of JAX's ``segment_sum`` on the CPU and, on
-    the card, the same bits run to run (no atomics)."""
+    the card, the same bits run to run (no atomics).
+
+    ``p``'s experts may be the range ``first_expert`` onwards of the
+    ``n_experts`` (``p["w_gate"].shape[0]`` of them): the routing is the
+    whole one, and ``out`` adds only the choices of the experts held (a
+    part of the sum that ``sharding.per_rank_moe`` completes).  On DTensors
+    the block runs per rank (``sharding.per_rank_moe``)."""
+    if hasattr(x, "placements"):
+        return per_rank_moe(moe_block, p, x, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     capacity = moe_capacity(t, top_k, n_experts, capacity_factor)
     probs, topw, topi, pos, keep = moe_route(p, xf, n_experts=n_experts, top_k=top_k,
                                              capacity=capacity)
-    flat_e = topi.reshape(-1)
-    slot = torch.where(keep, flat_e * capacity + pos, n_experts * capacity)   # (T·K,)
+    held = p["w_gate"].shape[0]
+    local_e = topi.reshape(-1) - first_expert
+    if held < n_experts:  # the other experts' choices are another rank's
+        keep = keep & (local_e >= 0) & (local_e < held)
+    slot = torch.where(keep, local_e * capacity + pos, held * capacity)     # (T·K,)
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
-    expert_in = xf.new_zeros((n_experts * capacity + 1, d)).index_put((slot,), xf[tok_idx])
-    expert_in = expert_in[:-1].reshape(n_experts, capacity, d)
+    expert_in = xf.new_zeros((held * capacity + 1, d)).index_put((slot,), xf[tok_idx])
+    expert_in = expert_in[:-1].reshape(held, capacity, d)
 
     h = F.silu(torch.bmm(expert_in, p["w_gate"])) * torch.bmm(expert_in, p["w_up"])
     out_e = torch.bmm(h, p["w_down"])                                 # (E, C, D)

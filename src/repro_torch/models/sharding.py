@@ -409,6 +409,112 @@ def per_rank_attention(fn, q, k, v):
                      in_grad_placements=(keep, keep, keep), device_mesh=q.device_mesh)(q, k, v)
 
 
+def per_rank_moe(block, p, x, **kw):
+    """``block(p, x, **kw)`` (``layers.moe_block``) on DTensors: the MoE of
+    the whole batch, as GSPMD runs JAX's, with each rank computing its own
+    experts.
+
+    x is gathered whole on every rank (an all-gather of (B, S, D) over the
+    mesh dims that split it): the capacity comes from the global T, and
+    each choice's place in its expert from one stable sort over all T·K
+    choices in (B, S) order, so every rank routes every token as one
+    device does.  Each rank then runs ``block`` on its own tensors: its
+    slice of the experts (expert-split over a mesh dim where E divides,
+    ``first_expert`` its first), or every expert with its slice of d_ff
+    (the fallback).  Its ``out`` holds its experts' or its d_ff slice's
+    part of each token's sum; the parts are summed over those mesh dims
+    (one all-reduce of (B, S, D) in x's dtype), so the combine's order
+    differs from one device's by the order of that sum.  Every rank of
+    the other mesh dims computes the same (GSPMD replicates these dispatch
+    buffers too).  ``out`` comes back split as x (a partial x's sum is
+    taken first).
+
+    Under autograd each rank's gradients of x and of the router are its
+    experts' part, summed over the experts' mesh dims; the aux loss,
+    which every rank computes whole, sends its gradient from the first
+    rank of those dims only.  The experts' gradients keep their leaves'
+    placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    w = p["w_gate"]
+    split = [i for i, pl in enumerate(w.placements) if isinstance(pl, Shard)
+             and mesh.size(i) > 1]
+    whole = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if i in split else Replicate() for i in range(mesh.ndim))
+    e_dim = w.ndim - 3
+    _, offset = compute_local_shape_and_global_offset(w.shape, mesh, w.placements)
+    groups = [mesh.get_group(i) for i in split]
+    first = all(mesh.get_local_rank(i) == 0 for i in split)
+    names = sorted(p)
+
+    def local(xl, *leaves):
+        y, aux = block(dict(zip(names, leaves)), xl, first_expert=offset[e_dim], **kw)
+        for group in groups:
+            y = _SumOver.apply(y, group)
+        return y, (aux if first else aux.detach())
+
+    pl = [p[k].placements for k in names]
+    grad = [part if k == "router" else p[k].placements for k in names]
+    y, aux = local_map(local, out_placements=(whole, whole), in_placements=(whole, *pl),
+                       in_grad_placements=(part, *grad), device_mesh=mesh,
+                       redistribute_inputs=True)(placed_to(x, whole), *(p[k] for k in names))
+    return placed_to(y, tuple(Replicate() if q.is_partial() else q for q in x.placements)), aux
+
+
+def per_rank_scan(fn, r, k, v, w, u, st):
+    """``fn(r, k, v, w, u, st)``, RWKV's time scan over (B, S, H, P) inputs,
+    u (H, P, 1) and the state st (B, H, P, P): on DTensors each rank scans
+    its own sequences and heads through ``local_map``, since the scan is
+    independent per sequence and per head (else every step of it would be
+    a handful of DTensor ops).  w is placed as r; on a mesh dim where r, k
+    and v are not split alike on B or on H (the sequence split, a partial
+    sum) the four are gathered.  Under autograd u's gradient is a partial
+    sum over the mesh dims that split B.  A plain call is ``fn`` itself."""
+    if not hasattr(r, "placements"):
+        return fn(r, k, v, w, u, st)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = r.device_mesh
+    keep = []
+    for pr, pk, pv in zip(r.placements, k.placements, v.placements):
+        same = pr == pk == pv and (pr.is_replicate() or (isinstance(pr, Shard) and pr.dim in (0, 2)))
+        keep.append(pr if same else Replicate())
+    keep = tuple(keep)
+    heads = tuple(Shard(0) if p == Shard(2) else Replicate() for p in keep)
+    state = tuple(Shard(1) if p == Shard(2) else p for p in keep)
+    u_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(keep, heads))
+    if not isinstance(st, DTensor):  # a state of zeros made on every rank
+        st = DTensor.from_local(st, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    args = [placed_to(t, keep) for t in (r, k, v, w)] + [placed_to(u, heads),
+                                                        placed_to(st, state)]
+    return local_map(fn, out_placements=(keep, state),
+                     in_placements=(keep,) * 4 + (heads, state),
+                     in_grad_placements=(keep,) * 4 + (u_grad, state),
+                     device_mesh=mesh)(*args)
+
+
+def write_position(cache, pos: int, value) -> None:
+    """``cache[:, :, pos] = value`` in place, cache (B, H, cap, D), value
+    (B, H, D) cast to its dtype.  On a DTensor whose positions are split
+    (a sequence-split decode cache) an index there would write into a
+    gathered copy and leave the cache as it was; it takes JAX's
+    mask-and-where over the whole cache instead, each rank on its own
+    positions."""
+    from torch.distributed.tensor import Shard
+
+    value = value.to(cache.dtype)
+    if hasattr(cache, "placements") and any(isinstance(p, Shard) and p.dim % cache.ndim == 2
+                                            for p in cache.placements):
+        at = torch.arange(cache.shape[2], device=cache.device) == pos
+        cache.copy_(torch.where(at[:, None], value[:, :, None, :], cache))
+    else:
+        cache[:, :, pos] = value
+
+
 def replicated(x):
     """The DTensor ``x`` gathered whole on every rank (a plain tensor as it is)."""
     if isinstance(x, torch.Tensor) and hasattr(x, "placements"):
@@ -537,6 +643,52 @@ def vocab_parallel_ce(plain, emb32, xs, labels, mask):
                      redistribute_inputs=True)(emb32, xs, labels, mask)
 
 
+def vocab_parallel_argmax(logits):
+    """``torch.argmax(logits, dim=-1)`` of the DTensor ``logits`` (..., V),
+    whose vocabulary may be split over mesh dims: each rank takes the max
+    of its own slice and its global index, and the ranks exchange these
+    (value, index) pairs over each mesh dim that splits the vocabulary (an
+    all-gather of (...,) values) — never the logits.  Among equal maxima
+    the lowest global index wins, as ``jnp.argmax``'s first occurrence: a
+    vocab rank's slice lies after its lower ranks', ``torch.argmax`` over
+    the gathered values takes the first, and the minor mesh dim is reduced
+    first (where two split the vocabulary, the major one's slices hold
+    the minor one's).  The result is split as the logits' leading dims; on
+    a vocabulary split over no mesh dim each rank runs the plain
+    ``torch.argmax`` on its rows."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    keep = tuple(Replicate() if p.is_partial() else p for p in logits.placements)
+    vocab = [i for i, p in enumerate(keep) if isinstance(p, Shard) and p.dim % logits.ndim == last
+             and mesh.size(i) > 1]
+    rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(keep))
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, keep)
+
+    def local(x):
+        idx = torch.argmax(x, dim=-1)
+        if not vocab:  # the whole vocabulary on this rank: the plain argmax's bits
+            return idx
+        val = torch.gather(x, -1, idx[..., None])[..., 0]
+        idx = idx + offset[last]
+        for i in reversed(vocab):
+            group = mesh.get_group(i)
+            vals = val.new_empty((mesh.size(i),) + tuple(val.shape))
+            idxs = idx.new_empty((mesh.size(i),) + tuple(idx.shape))
+            dist.all_gather_into_tensor(vals, val[None].contiguous(), group=group)
+            dist.all_gather_into_tensor(idxs, idx[None].contiguous(), group=group)
+            pick = torch.argmax(vals, dim=0, keepdim=True)
+            val = torch.gather(vals, 0, pick)[0]
+            idx = torch.gather(idxs, 0, pick)[0]
+        return idx
+
+    return local_map(local, out_placements=(rows,), in_placements=(keep,),
+                     device_mesh=mesh, redistribute_inputs=True)(logits)
+
+
 def dtensor_scope(tree):
     """Where ``tree`` holds DTensors, a context in which a plain tensor met
     beside one (an arange of positions, a mask, a scalar) counts as
@@ -586,6 +738,11 @@ def placed_like(x, like):
     return placed_to(x, like.placements) if isinstance(like, DTensor) else x
 
 
+#: c10d's own names for the collectives DTensor issues as functional ops
+_C10D_KINDS = {"_allgather_base_": "all_gather_into_tensor",
+               "_reduce_scatter_base_": "reduce_scatter_tensor"}
+
+
 def comm_bytes():
     """A ``CommDebugMode`` that also keeps each collective's kind, the
     DTensor op it was issued for, its output shape, dtype and bytes (the
@@ -611,6 +768,7 @@ def comm_bytes():
             if out is not NotImplemented and (packet in self.comm_registry
                                               or packet in c10d_collective_ops):
                 kind = NATIVE_TO_PY_MAPPING.get(packet, packet).__name__.split(".")[-1]
+                kind = _C10D_KINDS.get(kind, kind)
                 t = out[0] if isinstance(out, (list, tuple)) else out
                 if isinstance(t, torch.Tensor):
                     self.records.append({"kind": kind, "for": self._op, "shape": tuple(t.shape),

@@ -24,6 +24,7 @@ would cast to f32 (ROADMAP Queue 3 item 28).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .sharding import per_rank_scan
 
 #: Mamba2's head width, fixed as in JAX (``init_decode_state`` and
 #: ``mamba2_block``'s default): d_inner / 64 SSM heads
@@ -90,10 +92,12 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     (B, S, N).  Returns (y (B, S, H, P) in x's dtype, the final state
     (B, H, N, P) in the math dtype).
 
-    The state math is f32 (f64 for f64 inputs).  ``Lmat`` takes ``exp`` of
-    every (i, j) difference and then masks the upper triangle to 0, as JAX
-    does (an overflow to inf there is masked).  The three-operand einsums
-    may contract in another order than XLA's."""
+    The state math is f32 (f64 for f64 inputs).  ``Lmat`` masks the upper
+    triangle of the (i, j) differences to −inf before its ``exp``: JAX's
+    values (JAX takes ``exp`` of every difference, then masks to 0), but
+    no inf where the decay overflows, whose gradient would be NaN (ROADMAP
+    Queue 3).  The three-operand einsums may contract in another order
+    than XLA's."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     c = min(chunk, s)
@@ -110,7 +114,7 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     # intra-chunk (matmul-shaped)
     diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]           # (B,nc,c,c,H)
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    Lmat = torch.exp(torch.where(mask[None, None, :, :, None], diff, -math.inf))
     scores = torch.einsum("bniN,bnjN->bnij", Cr, Br)                 # (B,nc,c,c)
     y_intra = torch.einsum("bnij,bnijh,bnjhp->bnihp", scores, Lmat, xr)
 
@@ -210,11 +214,32 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
+def _wkv_step(rt, kt, vt, wt, u, st):
+    """One step of RWKV6's wkv scan, JAX's ``scan_fn``: kv = kᵀv, out =
+    r·(s + u·kv), s ← w·s + kv; rt, kt, vt, wt (B, H, P), st (B, H, P, P)."""
+    kv = kt[..., None] * vt[..., None, :]                             # (B,H,P,P)
+    return torch.einsum("bhp,bhpq->bhq", rt, st + u * kv), wt[..., None] * st + kv
+
+
+def _wkv_scan(r, k, v, w, u, st):
+    """RWKV6's wkv time scan: r, k, v, w (B, S, H, P), u (H, P, 1), the
+    state st (B, H, P, P) → (out (B, S, H, P), the last state), a
+    :func:`_wkv_step` a position.  One unbind per input: under autograd its
+    backward stacks the S steps' gradients once, where x[:, t] would build
+    a zero-filled gradient of the whole (B, S, H, P) input at every step
+    (quadratic in S)."""
+    outs = []
+    for rt, kt, vt, wt in zip(*(t.unbind(1) for t in (r, k, v, w))):
+        out, st = _wkv_step(rt, kt, vt, wt, u, st)
+        outs.append(out)
+    return torch.stack(outs, dim=1), st
+
+
 def rwkv6_time_mix(p, x: torch.Tensor, *, d_head: int = 64, state=None):
     """x: (B, S, D) → (y, (last x (a copy, as in ``_causal_conv``), wkv
-    state (B, H, P, P) in the math dtype)).  The time scan is a loop over S, each step JAX's ``scan_fn``:
-    kv = kᵀv, out = r·(s + u·kv), s ← w·s + kv, in f32 (f64 for f64
-    inputs)."""
+    state (B, H, P, P) in the math dtype)).  The time scan
+    (:func:`_wkv_scan`) runs in f32 (f64 for f64 inputs); on DTensors each
+    rank scans its own sequences and heads (``sharding.per_rank_scan``)."""
     b, s, d = x.shape
     h = d // d_head
     last_x = state[0] if state is not None else None
@@ -233,14 +258,8 @@ def rwkv6_time_mix(p, x: torch.Tensor, *, d_head: int = 64, state=None):
 
     st = (state[1] if state is not None
           else torch.zeros((b, h, d_head, d_head), dtype=cd, device=x.device))
-    u = p["u"][..., None]                                            # (H,P,1)
-    rs, ks, vs = r.to(cd), k.to(cd), v.to(cd)
-    outs = []
-    for t in range(s):
-        kv = ks[:, t, :, :, None] * vs[:, t, :, None, :]             # (B,H,P,P)
-        outs.append(torch.einsum("bhp,bhpq->bhq", rs[:, t], st + u * kv))
-        st = w[:, t, :, :, None] * st + kv
-    y = torch.stack(outs, dim=1).reshape(b, s, d).to(x.dtype)
+    out, st = per_rank_scan(_wkv_scan, r.to(cd), k.to(cd), v.to(cd), w, p["u"][..., None], st)
+    y = out.reshape(b, s, d).to(x.dtype)
     y = L.rmsnorm(y, p["ln_x"]) * g
     return y @ p["wo"], (x[:, -1:].clone(), st)
 

@@ -1027,6 +1027,66 @@ def test_whisper_encoder_pallas_matches_plain_on_card(card, dtype):
         assert float((got - want).abs().max()) <= 2.0 ** -5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen2-vl-7b", "zamba2-7b",
+                                  "rwkv6-1.6b"])
+def test_two_train_steps_of_each_family_on_card_match_cpu(card, arch):
+    """Two AdamW steps of the reduced MoE, VLM, hybrid and RWKV configs (f32,
+    remat on; the VLM on the launcher's stub embeddings and positions3),
+    each taken on the card and on the CPU from the CPU's parameters and
+    state before it: the loss rtol 1e-5, the new parameters by
+    tests/test_torch_train.py's update rule (‖Δ‖ ≤ 2e-3·‖u‖ + 1e-2·lr·√n
+    per leaf, u the CPU's update: AdamW sends g/(|g| + 1e-8), so a
+    gradient element near 1e-8 moves its update by up to lr, and a second
+    step from the card's own parameters would start that far apart),
+    full-f32 products (TF32 off).  Then the card's own second step, from
+    its own first step's state, against the CPU's step from that state:
+    the loss rtol 1e-5 (the two trajectories part by that first step's
+    rounding, which AdamW amplifies within the update rule above, and not
+    by the card's second step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
+
+    lr = 3e-3
+    model = build_model(dataclasses.replace(get_reduced(arch), remat=True, loss_chunk=16))
+    step, opt = make_train_step(model, AdamW(lr=lr))
+    params0 = params = model.init(torch.Generator().manual_seed(0))
+    state0 = state = opt.init(params)
+    pipe = TokenPipeline(vocab=model.cfg.vocab, seq_len=32, global_batch=2, seed=0)
+    to_card = lambda tree: tree_map(lambda t: t.to(card) if isinstance(t, torch.Tensor) else t,
+                                    tree)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(2):
+            got_p, _, got = step(to_card(params), to_card(state),
+                                 make_batch_fn(model.cfg, pipe, card)(i))
+            new_p, state, want = step(params, state, make_batch_fn(model.cfg, pipe, "cpu")(i))
+            g, w = float(got["loss"]), float(want["loss"])
+            assert abs(g - w) <= 1e-5 * abs(w), (i, g, w)
+            for a, b, p0 in zip(tree_leaves(got_p), tree_leaves(new_p), tree_leaves(params)):
+                assert a.device.type == "cuda"
+                u = (b - p0).double()
+                d = (a.cpu() - b).double()
+                assert float(d.norm()) <= 2e-3 * float(u.norm()) + 1e-2 * lr * u.numel() ** 0.5
+            params = new_p
+
+        to_cpu = lambda tree: tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                                       tree)
+        batch_at = {dev: make_batch_fn(model.cfg, pipe, dev) for dev in (card, "cpu")}
+        p1, s1, _ = step(to_card(params0), to_card(state0), batch_at[card](0))
+        _, _, got = step(p1, s1, batch_at[card](1))
+        _, _, want = step(to_cpu(p1), to_cpu(s1), batch_at["cpu"](1))
+        g, w = float(got["loss"]), float(want["loss"])
+        assert abs(g - w) <= 1e-5 * abs(w), (g, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def test_whisper_train_step_on_card_matches_host_f64(card):
     """A Whisper-base train step (AdamW, remat, chunked attention) at its
     widths and 2 + 2 layers in f32 on the card: its loss finite and within

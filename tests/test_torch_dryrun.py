@@ -172,3 +172,30 @@ def test_rwkv_scan_flops_are_the_scans_elementwise_work(kind, monkeypatch):
     assert dryrun.rwkv_scan_flops(cfg, "tiny", (1, 1), ("data", "model")) == count.n
     assert dryrun.rwkv_scan_flops(get_reduced("qwen2-1.5b"), "tiny", (1, 1),
                                   ("data", "model")) == 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_rwkv_cells_solved_from_scan_probes_equal_the_eager_trace(kind, monkeypatch):
+    """``trace_affine`` (how the CLI records RWKV's train and prefill cells:
+    their time scan traced at 2 and 4 of its steps, a train step at 2 and
+    3 of its microbatches) against the eager trace of the same cell, on
+    the reduced RWKV6 (remat on, a CE of 16-token chunks) on a (data 2,
+    model 2) mesh: a 48-token train cell of
+    4 microbatches and a prefill of 4 rows give their FLOPs, bytes and
+    collectives exactly, the peak within a quarter.  Decode cells are
+    traced whole."""
+    from repro_torch.configs.shapes import Shape
+
+    cfg = replace(get_reduced("rwkv6-1.6b"), loss_chunk=16, remat=True)
+    monkeypatch.setitem(dryrun.SHAPES, "tiny", Shape("tiny", 48, 8 if kind == "train" else 4,
+                                                     kind))
+    assert dryrun.traced_affine(cfg, "tiny")
+    got = dryrun.trace_affine(cfg, "tiny", (2, 2), ("data", "model"))
+    want = dryrun.trace_cell(cfg, "tiny", (2, 2), ("data", "model"))
+    assert got["flops"] == want["flops"] > 0
+    assert got["bytes"] == want["bytes"] > 0
+    assert got["collective_by_kind"] == want["collective_by_kind"]
+    assert got["collective_by_kind"]
+    assert abs(got["peak_bytes"] - want["peak_bytes"]) <= 0.25 * want["peak_bytes"]
+    assert not dryrun.traced_affine(cfg, "decode_32k")
+    assert not dryrun.traced_affine(get_reduced("zamba2-7b"), "train_4k")

@@ -1,6 +1,8 @@
 """The port's serve loop: admission, shedding and retries (the model-free
 cases of ``tests/test_robust.py::TestServeShedding``, on the port's
-``serve_loop``, fault injection and tracer), and the serve CLI on the CPU.
+``serve_loop``, fault injection and tracer), the serve CLI on the CPU, and
+the serve step's argmax over a vocabulary split across four gloo ranks
+(ties across the slices take the lowest index, as ``jnp.argmax``).
 """
 
 import os
@@ -180,3 +182,129 @@ def test_serve_cli_refuses_without_a_card():
     assert out.returncode != 0
     assert "none is visible" in out.stderr
     assert "requests ×" not in out.stdout
+
+
+ARGMAX_SCRIPT = '''
+import datetime, os, pickle
+import torch, torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+dist.init_process_group("gloo", init_method="file://" + os.environ["INIT_FILE"],
+                        rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
+                        timeout=datetime.timedelta(seconds=60))
+from repro_torch.configs import get_reduced
+from repro_torch.convert import params_from_jax
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import sharding as shd
+from repro_torch.models.api import build_model, make_serve_step
+
+work = os.environ["WORK"]
+with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+    inp = pickle.load(f)
+mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+dm = shd.device_mesh(mesh)
+out = {}
+# the function alone: the vocabulary split over model, the rows over data
+logits = torch.from_numpy(inp["logits"])
+for name, pl in (("rows replicated", [Replicate(), Shard(1)]),
+                 ("rows split", [Shard(0), Shard(1)]),
+                 ("vocab over both", [Shard(1), Shard(1)])):
+    x = distribute_tensor(logits, dm, pl, src_data_rank=None)
+    with shd.comm_bytes() as comm:
+        got = shd.vocab_parallel_argmax(x)
+    out[name] = (got.full_tensor().numpy(), [str(p) for p in got.placements], comm.by_kind())
+# a batch-1 serve step on the (2, 2) mesh: tokens and state placed as the
+# dry-run places them (batch 1 does not divide over data)
+model = build_model(get_reduced("qwen2-1.5b"))
+params = params_from_jax(inp["params"], "cpu")
+state = model.init_state(1, 8)
+tokens = torch.from_numpy(inp["tokens"])
+placed = shd.shard_tree(params, shd.tree_param_specs(params, mesh), dm)
+st = shd.shard_tree(state, shd.cache_specs(state, mesh, model.cfg), dm)
+tok = shd.shard_tree({"tokens": tokens}, shd.batch_specs({"tokens": (tokens.shape, tokens.dtype)},
+                                                        mesh), dm)["tokens"]
+with shd.dtensor_scope(placed), shd.comm_bytes() as comm:
+    nxt, lg, _ = make_serve_step(model)(placed, st, tok)
+out["serve"] = (nxt.full_tensor().numpy(), lg.full_tensor().numpy(),
+                [str(p) for p in lg.placements], comm.records)
+with open(os.path.join(work, f"rank{dist.get_rank()}.pkl"), "wb") as f:
+    pickle.dump(out, f)
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def vocab_split_argmax(tmp_path_factory):
+    """Four gloo ranks on a (data 2, model 2) mesh: ``vocab_parallel_argmax``
+    on logits with ties across the vocabulary's slices, and a batch-1 serve
+    step of the reduced Qwen2 (vocab 512, 256 a model rank) whose final
+    norm and embedding make two tokens in different slices tie for the
+    max; beside them JAX's ``make_serve_step`` on the same weights."""
+    import pickle
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_reduced as jax_reduced
+    from repro.models.api import build_model as jax_build
+    from repro.models.api import make_serve_step as jax_serve_step
+    from repro_torch.launch.hermetic import run_ranks
+
+    work = tmp_path_factory.mktemp("argmax_ranks")
+    logits = np.zeros((4, 512), np.float32)
+    logits[0, [10, 300]] = 3.0       # a tie across the model ranks' slices
+    logits[1, [300, 301, 511]] = 2.0  # within the upper slice
+    logits[2, [255, 256]] = 1.0       # at the slices' border
+    logits[3] = -1.0                  # all equal: index 0
+    jcfg = jax_reduced("qwen2-1.5b")
+    params = jax.device_get(jax_build(jcfg).init(jax.random.PRNGKey(1)))
+    j = 7                             # the final hidden state is x_j e_j; rows 10 and
+    params["final_norm"] = np.zeros_like(params["final_norm"])  # 300 give it its max
+    params["final_norm"][j] = 1.0     # if x_j > 0, rows 20 and 400 if x_j < 0
+    emb = np.array(params["emb"])
+    emb[:, j] = 0.0
+    emb[[10, 300], j] = 5.0
+    emb[[20, 400], j] = -5.0
+    params["emb"] = emb
+    tokens = np.array([[123]], np.int32)
+    jmodel = jax_build(jcfg)
+    jnext, jlogits, _ = jax_serve_step(jmodel)(params, jmodel.init_state(1, 8), jnp.asarray(tokens))
+    with open(work / "inputs.pkl", "wb") as f:
+        pickle.dump({"logits": logits, "params": params, "tokens": tokens}, f)
+    ranks = run_ranks(ARGMAX_SCRIPT, 4, work, ROOT, timeout=240, WORK=str(work))
+    for r, (rc, _, err) in enumerate(ranks):
+        assert rc == 0, f"rank {r} exited {rc}:\n{err[-4000:]}"
+    return {"ranks": [pickle.loads((work / f"rank{r}.pkl").read_bytes()) for r in range(4)],
+            "logits": logits, "jax_argmax": np.asarray(jnp.argmax(jnp.asarray(logits), axis=-1)),
+            "jax_next": np.asarray(jnext), "jax_logits": np.asarray(jlogits)}
+
+
+@pytest.mark.parametrize("placement", ["rows replicated", "rows split", "vocab over both"])
+def test_vocab_parallel_argmax_takes_the_lowest_index_among_ties(vocab_split_argmax, placement):
+    import numpy as np
+
+    want = vocab_split_argmax["jax_argmax"]
+    assert list(want) == [10, 300, 255, 0]
+    for out in vocab_split_argmax["ranks"]:
+        got, pl, kinds = out[placement]
+        np.testing.assert_array_equal(got, want)
+        assert "S(1)" not in pl               # the answer is whole over the vocabulary
+        assert set(kinds) == {"all_gather_into_tensor"}  # (value, index) pairs, not logits
+
+
+def test_batch_one_serve_step_on_a_vocab_split_mesh_gives_jaxs_token(vocab_split_argmax):
+    import numpy as np
+
+    want = vocab_split_argmax["jax_next"]
+    assert int(want[0, 0]) in (10, 20)       # JAX's first of two tied maxima
+    for out in vocab_split_argmax["ranks"]:
+        nxt, logits, pl, records = out["serve"]
+        np.testing.assert_array_equal(nxt, want)
+        assert logits[0, 10] == logits[0, 300] and logits[0, 20] == logits[0, 400]
+        assert "S(1)" in pl                   # the logits stay split over the vocabulary
+        gathered = [r for r in records if r["kind"] == "all_gather_into_tensor"
+                    and r["shape"][-1:] in ((512,), (256,))]
+        assert not gathered, gathered
+        np.testing.assert_allclose(logits, vocab_split_argmax["jax_logits"], rtol=1e-5,
+                                   atol=1e-5)

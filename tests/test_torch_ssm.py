@@ -251,3 +251,35 @@ def test_params_from_jax_keeps_the_decays_f32():
     for k, t in tp.items():
         assert t.dtype == (torch.float32 if k in KEEP_F32 else torch.bfloat16), k
     assert {"A_log", "D", "dt_bias", "w0", "u"} <= set(KEEP_F32)
+
+
+def test_ssd_gradients_stay_finite_where_a_chunks_decay_overflows():
+    """A chunk whose log-decay sums past f32's exp range (here −8 a step
+    over 16 steps): the upper triangle's exp(diff) is inf.  The JAX
+    package masks it to 0 after the exp, so its f32 gradient is NaN
+    (0·inf); the port masks before the exp: the same outputs, and f32
+    gradients that are finite and within 1e-4 of the port's f64 ones."""
+    rng = np.random.default_rng(7)
+    b, s, h, p, n, c = 1, 32, 2, 4, 3, 16
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    a = np.full((b, s, h), -8.0, np.float32)
+    bm = rng.normal(size=(b, s, n)).astype(np.float32)
+    cm = rng.normal(size=(b, s, n)).astype(np.float32)
+
+    jg = jax.grad(lambda a: jnp.sum(jssm.ssd_chunked(x, a, bm, cm, chunk=c)[0]))(a)
+    assert np.isnan(np.asarray(jg)).any()          # the reference's NaN, through the decay
+
+    def grad(dtype):
+        t = torch.from_numpy(a).to(dtype).requires_grad_()
+        y, _ = ssm.ssd_chunked(torch.from_numpy(x).to(dtype), t,
+                               *(torch.from_numpy(v).to(dtype) for v in (bm, cm)), chunk=c)
+        y.sum().backward()
+        return y.detach(), t.grad
+
+    y32, g32 = grad(torch.float32)
+    y64, g64 = grad(torch.float64)
+    jy = np.asarray(jssm.ssd_chunked(x, a, bm, cm, chunk=c)[0])
+    _close_f32(y32, jy)                              # JAX's outputs
+    assert bool(torch.isfinite(g32).all())
+    np.testing.assert_allclose(g32.double().numpy(), g64.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(g64.abs().max()))
