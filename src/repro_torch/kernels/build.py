@@ -51,7 +51,8 @@ ENTRY = {
 #: other C functions a library exports: name → (argument types, result type)
 HELPERS = {
     "kmeans_step": {"kms_route": ([_I, _I], _I), "kms_tc_tile_points": ([_I], _I),
-                    "kms_tc_grid": ([_L, _I, _I, _I], _I), "kms_scratch_bytes": ([_I, _I, _I], _L)},
+                    "kms_tc_grid": ([_L, _I, _I, _I], _I),
+                    "kms_scratch_bytes": ([_L, _I, _I, _I], _L)},
     "segsum": {"seg_route": ([_I, _I], _I), "seg_scratch_bytes": ([_I, _I, _I], _L)},
 }
 

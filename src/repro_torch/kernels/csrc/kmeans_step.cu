@@ -68,6 +68,7 @@
 
 #include <cstdint>
 
+#include "fixsum.cuh"
 #include "onehot.cuh"
 
 #define KMS_TPB 256
@@ -371,11 +372,13 @@ int kms_tc_tile_points(int d) { return oh_tile_points(oh_dp(d)); }
 // `sms` SMs: one per tile, at most oh_blocks_per_sm on each SM
 int kms_tc_grid(long long n, int d, int k, int sms) { return oh_grid(n, d, k, sms); }
 
-// the bytes of scratch kms_launch needs for width d, k centroids and, on
-// the kms_tc route, a grid of `grid` blocks (kms_main: k int32 counts)
-long long kms_scratch_bytes(int grid, int d, int k) {
-  if (k < 1) return 0;
-  if (!kms_route(d, k)) return static_cast<long long>(sizeof(int)) * k;
+// the bytes of scratch kms_launch needs for n points of width d, k
+// centroids and, on the kms_tc route, a grid of `grid` blocks (kms_main:
+// its k·d sums' accumulators, k int32 counts and n int32 labels)
+long long kms_scratch_bytes(long long n, int grid, int d, int k) {
+  if (k < 1 || d < 1) return 0;
+  if (!kms_route(d, k))
+    return fix_seg_bytes(static_cast<long long>(k) * d) + static_cast<long long>(sizeof(int)) * (k + n);
   return oh_scratch_bytes(grid, oh_kp(k), oh_dp(d), true);
 }
 }
@@ -400,34 +403,30 @@ static cudaError_t ktc_launch(const float* x, const float* c, long long n, int d
 
 // ---- kms_main: the CUDA-core route ------------------------------------------
 //
-// One thread per point in a grid-stride loop.  Each block copies the
-// centroids into shared memory and computes ‖c_j‖² once.  A thread loads its
-// point's d values into registers, forms ‖x‖² and each x·c_j as sums in
-// index order, d² = (‖x‖² − 2·x·c_j) + ‖c_j‖² with the _rn intrinsics (the
-// build runs --fmad=false), and keeps the first minimum (strict <, from
-// j = 0), so duplicate centroids resolve to the lowest index as jnp.argmin
-// does.  Sums go into per-block shared accumulators (k·d f32) and counts
-// into int32 shared counts, flushed once per block with global atomics.
-// When accumulators and centroids together pass the opt-in shared memory
-// (227 KB on sm_90), only the centroids stay in shared memory and points add
-// into the global accumulators.  Sums are added in an order that changes
-// from run to run.
+// Two steps.  kms_main labels the points: one thread per point in a
+// grid-stride loop; each block copies the centroids into shared memory and
+// computes ‖c_j‖² once; a thread loads its point's d values into registers,
+// forms ‖x‖² and each x·c_j as sums in index order, d² = (‖x‖² − 2·x·c_j) +
+// ‖c_j‖² with the _rn intrinsics (the build runs --fmad=false), and keeps
+// the first minimum (strict <, from j = 0), so duplicate centroids resolve
+// to the lowest index as jnp.argmin does.  It writes the label to the
+// scratch and counts it in int32 (in shared memory where k more words fit
+// beside the centroids, flushed once per block; else in the global counts).
+// Then the sums are fixsum.cuh's segment sums of the points by label
+// (fix_seg_sum): integer adds at each (centroid, column)'s scale, the same
+// bits on every run.
 
 // DMAX: the point width rounded up to the next instantiated size, so that a
-// point's values live in registers; SMEM: per-block shared accumulators.
+// point's values live in registers; SMEM: per-block shared counts.
 template <int DMAX, bool SMEM>
 __global__ void __launch_bounds__(KMS_TPB)
 kms_main(const float* __restrict__ x, const float* __restrict__ c, long long n, int d, int k,
-         float* __restrict__ sums, int* __restrict__ counts) {
+         int* __restrict__ labels, int* __restrict__ counts) {
   extern __shared__ float smem[];
   float* cs = smem;               // k·d centroids
   float* c2 = cs + k * d;         // k squared norms
-  float* sacc = c2 + k;           // k·d sums (SMEM only)
-  int* scnt = reinterpret_cast<int*>(sacc + k * d);  // k counts (SMEM only)
-  for (int t = threadIdx.x; t < k * d; t += blockDim.x) {
-    cs[t] = c[t];
-    if (SMEM) sacc[t] = 0.f;
-  }
+  int* scnt = reinterpret_cast<int*>(c2 + k);  // k counts (SMEM only)
+  for (int t = threadIdx.x; t < k * d; t += blockDim.x) cs[t] = c[t];
   if (SMEM)
     for (int j = threadIdx.x; j < k; j += blockDim.x) scnt[j] = 0;
   __syncthreads();
@@ -437,7 +436,6 @@ kms_main(const float* __restrict__ x, const float* __restrict__ c, long long n, 
     c2[j] = s;
   }
   __syncthreads();
-  float* tacc = SMEM ? sacc : sums;
   int* tcnt = SMEM ? scnt : counts;
   const long long stride = static_cast<long long>(gridDim.x) * KMS_TPB;
   for (long long i = blockIdx.x * static_cast<long long>(KMS_TPB) + threadIdx.x; i < n;
@@ -464,16 +462,11 @@ kms_main(const float* __restrict__ x, const float* __restrict__ c, long long n, 
         best_d2 = d2;
       }
     }
+    labels[i] = best;
     atomicAdd(tcnt + best, 1);
-    float* acc = tacc + best * d;
-#pragma unroll
-    for (int t = 0; t < DMAX; ++t)
-      if (t < d) atomicAdd(acc + t, xv[t]);
   }
   if (SMEM) {
     __syncthreads();
-    for (int t = threadIdx.x; t < k * d; t += blockDim.x)
-      if (scnt[t / d] != 0) atomicAdd(sums + t, sacc[t]);
     for (int j = threadIdx.x; j < k; j += blockDim.x)
       if (scnt[j] != 0) atomicAdd(counts + j, scnt[j]);
   }
@@ -487,46 +480,57 @@ __global__ void kms_counts(const int* __restrict__ icounts, float* __restrict__ 
 
 template <int DMAX, bool SMEM>
 static cudaError_t kms_run(const float* x, const float* c, long long n, int d, int k,
-                           float* sums, int* counts, size_t bytes, int grid, cudaStream_t s) {
+                           int* labels, int* counts, size_t bytes, int grid, cudaStream_t s) {
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kms_main<DMAX, SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
   }
-  kms_main<DMAX, SMEM><<<grid, KMS_TPB, bytes, s>>>(x, c, n, d, k, sums, counts);
+  kms_main<DMAX, SMEM><<<grid, KMS_TPB, bytes, s>>>(x, c, n, d, k, labels, counts);
   return cudaGetLastError();
 }
 
 template <int DMAX>
 static cudaError_t kms_pick(bool smem, const float* x, const float* c, long long n, int d, int k,
-                            float* sums, int* counts, size_t bytes, int grid, cudaStream_t s) {
-  return smem ? kms_run<DMAX, true>(x, c, n, d, k, sums, counts, bytes, grid, s)
-              : kms_run<DMAX, false>(x, c, n, d, k, sums, counts, bytes, grid, s);
+                            int* labels, int* counts, size_t bytes, int grid, cudaStream_t s) {
+  return smem ? kms_run<DMAX, true>(x, c, n, d, k, labels, counts, bytes, grid, s)
+              : kms_run<DMAX, false>(x, c, n, d, k, labels, counts, bytes, grid, s);
 }
 
+// The labels and int32 counts into the scratch, then the sums: `scratch`
+// holds kms_scratch_bytes (the sums' accumulators, the counts, the labels).
 static cudaError_t kms_main_launch(const float* x, const float* c, long long n, int d, int k,
-                                  float* sums, int* icounts, cudaStream_t s) {
+                                  float* sums, void* scratch, int** icounts, cudaStream_t s) {
   int dev = 0, optin = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t table = sizeof(float) * static_cast<size_t>(k) * (d + 1);
   if (table > static_cast<size_t>(optin)) return cudaError_t(KMS_ERR_TABLE);
-  const bool smem = 2 * table <= static_cast<size_t>(optin);
-  const size_t bytes = smem ? 2 * table : table;
-  cudaError_t e = cudaMemsetAsync(sums, 0, sizeof(float) * static_cast<size_t>(k) * d, s);
+  const bool smem = table + sizeof(int) * k <= static_cast<size_t>(optin);
+  const size_t bytes = smem ? table + sizeof(int) * k : table;
+  const long long cells = static_cast<long long>(k) * d;
+  int* counts = reinterpret_cast<int*>(static_cast<char*>(scratch) + fix_seg_bytes(cells));
+  int* labels = counts + k;
+  *icounts = counts;
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(k), s);
   if (e != cudaSuccess) return e;
-  e = cudaMemsetAsync(icounts, 0, sizeof(int) * static_cast<size_t>(k), s);
-  if (e != cudaSuccess || n == 0) return e;
-  const long long need = (n + KMS_TPB - 1) / KMS_TPB;
+  if (n > 0) {
+    const long long need = (n + KMS_TPB - 1) / KMS_TPB;
+    const long long most = static_cast<long long>(sms) * KMS_BLOCKS_PER_SM;
+    const int grid = static_cast<int>(need < most ? need : most);
+    if (d <= 4) e = kms_pick<4>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    else if (d <= 8) e = kms_pick<8>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    else if (d <= 16) e = kms_pick<16>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    else if (d <= 32) e = kms_pick<32>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    else if (d <= 64) e = kms_pick<64>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    else e = kms_pick<128>(smem, x, c, n, d, k, labels, counts, bytes, grid, s);
+    if (e != cudaSuccess) return e;
+  }
+  const long long need = (n * d + KMS_TPB - 1) / KMS_TPB;
   const long long most = static_cast<long long>(sms) * KMS_BLOCKS_PER_SM;
-  const int grid = static_cast<int>(need < most ? need : most);
-  if (d <= 4) return kms_pick<4>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
-  if (d <= 8) return kms_pick<8>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
-  if (d <= 16) return kms_pick<16>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
-  if (d <= 32) return kms_pick<32>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
-  if (d <= 64) return kms_pick<64>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
-  return kms_pick<128>(smem, x, c, n, d, k, sums, icounts, bytes, grid, s);
+  const int blocks = static_cast<int>(need < 1 ? 1 : (need < most ? need : most));
+  return fix_seg_sum(x, labels, n, d, k, sums, scratch, blocks, s);
 }
 
 // x (n, d) and c (k, d) f32, row-major and contiguous; sums (k, d) f32 and
@@ -535,8 +539,9 @@ static cudaError_t kms_main_launch(const float* x, const float* c, long long n, 
 // route (kms_route) the kernel runs `grid` blocks (kms_tc_grid for the
 // card's SMs; 1 to 512) and ticket is KMS_TICKETS unsigned zeros that each
 // launch leaves at 0 (one set per stream: launches that overlap must not
-// share it, nor scratch); kms_main takes neither, counts in the scratch,
-// zeroed first, and converts them in a second small kernel.  Returns
+// share it, nor scratch); kms_main takes no ticket, labels and counts the
+// points in the scratch (kms_scratch_bytes for n points), adds the sums
+// there, and converts the counts in a last small kernel.  Returns
 // KMS_ERR_TABLE when kms_main's centroids alone do not fit in the opt-in
 // shared memory, cudaErrorInvalidValue for a shape neither route takes or
 // a grid out of range, else the first CUDA error it meets (memsets,
@@ -553,8 +558,8 @@ extern "C" int kms_launch(const float* x, const float* c, long long n, int d, in
     return ktc_launch(x, c, n, d, k, sums, counts, static_cast<float*>(scratch), ticket, grid,
                       s);
   }
-  int* icounts = static_cast<int*>(scratch);
-  const cudaError_t e = kms_main_launch(x, c, n, d, k, sums, icounts, s);
+  int* icounts = nullptr;
+  const cudaError_t e = kms_main_launch(x, c, n, d, k, sums, scratch, &icounts, s);
   if (e != cudaSuccess) return e;
   kms_counts<<<(k + 255) / 256, 256, 0, s>>>(icounts, counts, k);
   return cudaGetLastError();

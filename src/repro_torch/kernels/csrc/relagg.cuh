@@ -21,10 +21,10 @@ __device__ __forceinline__ void rel_atomic_max(float* a, float v) {
   else atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
 }
 
-// fn: 0 sum, 1 min, 2 max (gen_fn's codes, codegen._FN)
+// fn: 1 min, 2 max (gen_fn's codes, codegen._FN); a sum (0) takes
+// fixsum.cuh's integers instead, whose bits do not depend on the order
 __device__ __forceinline__ void rel_atomic(int fn, float* a, float v) {
-  if (fn == 0) atomicAdd(a, v);
-  else if (fn == 1) rel_atomic_min(a, v);
+  if (fn == 1) rel_atomic_min(a, v);
   else rel_atomic_max(a, v);
 }
 

@@ -27,20 +27,23 @@
 //   As on the TPU, a non-finite value reaches the other segments' sums of
 //   its column within its 16 rows (0·inf is NaN): finite data only.
 //   ref.segsum_tiled is this arithmetic in plain torch.
-// * seg_main, on the CUDA cores, for every other shape: one thread per
-//   element of data, (row, column), in a grid-stride loop over n·d, so
-//   neighbouring threads read neighbouring addresses; the d threads of a row
-//   share its id through the cache.  Each block keeps K·d shared
-//   accumulators (dynamic shared memory up to the opt-in limit, 227 KB on
-//   sm_90), adds into them with shared atomics, and flushes its non-zero
-//   entries once with global atomics; past that limit elements add into the
-//   global sums directly.  Sums are added in an order that changes from run
-//   to run.  Contention of the atomics on K·d addresses sets its pace: on
-//   the k-means SegSum it ran at 5.4 times the bound (PERF.md).
+// * seg_main, on the CUDA cores, for every other shape: fixsum.cuh's
+//   segment sums (fix_seg_sum), one thread per element of data, (row,
+//   column), in a grid-stride loop over n·d, so neighbouring threads read
+//   neighbouring addresses; the d threads of a row share its id through
+//   the cache.  Two passes over the data: each (segment, column)'s largest
+//   exponent, then each element added as an int64 at that scale, per block
+//   in shared memory (up to the opt-in limit, 227 KB on sm_90) and merged
+//   into the global accumulators at the block's end; then the f32 of each.
+//   Integer adds do not depend on their order, so the sums are the same
+//   bits on every run.
+//   Contention of the atomics on K·d addresses sets its pace: on the
+//   k-means SegSum the f32 atomics ran at 5.4 times the bound (PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "fixsum.cuh"
 #include "onehot.cuh"
 
 #define SEG_TPB 256
@@ -217,80 +220,37 @@ extern "C" {
 int seg_route(int d, int k) { return oh_in_range(d, k); }
 
 // the bytes of scratch seg_launch needs for width d, K segments and, on the
-// seg_tc route, a grid of `grid` blocks (seg_main: none)
+// seg_tc route, a grid of `grid` blocks (seg_main: its K·d accumulators)
 long long seg_scratch_bytes(int grid, int d, int k) {
-  if (k < 1 || !seg_route(d, k)) return 0;
+  if (k < 1 || d < 1) return 0;
+  if (!seg_route(d, k)) return fix_seg_bytes(static_cast<long long>(k) * d);
   return oh_scratch_bytes(grid, oh_kp(k), oh_dp(d), false);
 }
 }
 
-// ---- seg_main: the CUDA-core route -------------------------------------------
-
-template <bool SMEM>
-__global__ void __launch_bounds__(SEG_TPB)
-seg_main(const float* __restrict__ data, const int* __restrict__ ids, long long n, int d, int K,
-         float* __restrict__ out) {
-  extern __shared__ float sacc[];
-  const long long cells = static_cast<long long>(K) * d;
-  if (SMEM) {
-    for (long long t = threadIdx.x; t < cells; t += blockDim.x) sacc[t] = 0.f;
-    __syncthreads();
-  }
-  float* acc = SMEM ? sacc : out;
-  const long long total = n * d;
-  const long long stride = static_cast<long long>(gridDim.x) * SEG_TPB;
-  for (long long e = blockIdx.x * static_cast<long long>(SEG_TPB) + threadIdx.x; e < total;
-       e += stride) {
-    const long long row = e / d;
-    const int id = __ldg(ids + row);
-    if (id < 0 || id >= K) continue;
-    atomicAdd(acc + static_cast<long long>(id) * d + (e - row * d), __ldg(data + e));
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (long long t = threadIdx.x; t < cells; t += blockDim.x) {
-      const float v = sacc[t];
-      if (v != 0.f) atomicAdd(out + t, v);
-    }
-  }
-}
-
 // data (n, d) f32 and ids (n,) int32, contiguous; out (K, d) f32 is
-// written.  On the seg_tc route (seg_route) the kernel runs `grid` blocks
-// (kmeans_step.cu's kms_tc_grid for the card's SMs; 1 to 512), scratch
-// holds seg_scratch_bytes(grid, d, K) bytes of anything and ticket is
+// written.  scratch holds seg_scratch_bytes(grid, d, K) bytes of anything.
+// On the seg_tc route (seg_route) the kernel runs `grid` blocks
+// (kmeans_step.cu's kms_tc_grid for the card's SMs; 1 to 512) and ticket is
 // seg_tickets unsigned zeros that each launch leaves at 0 (one set per
 // stream: launches that overlap must not share it, nor scratch); seg_main
-// takes neither, and zeroes out first.  Returns cudaErrorInvalidValue for a
-// grid out of range, else the first CUDA error it meets.
+// takes no ticket and zeroes its scratch first.  Returns
+// cudaErrorInvalidValue for a grid out of range, else the first CUDA error
+// it meets.
 extern "C" int seg_launch(const float* data, const int* ids, long long n, int d, int K,
                           float* out, void* scratch, unsigned* ticket, int grid, void* stream) {
-  if (n < 0 || d < 1 || K < 1) return cudaErrorInvalidValue;
+  if (n < 0 || d < 1 || K < 1 || scratch == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seg_route(d, K)) {
-    if (scratch == nullptr || ticket == nullptr || grid < 1 || grid > OH_GROUP * OH_MAX_GROUPS)
+    if (ticket == nullptr || grid < 1 || grid > OH_GROUP * OH_MAX_GROUPS)
       return cudaErrorInvalidValue;
     return stc_launch(data, ids, n, d, K, out, static_cast<float*>(scratch), ticket, grid, s);
   }
-  const size_t bytes = sizeof(float) * static_cast<size_t>(K) * d;
-  cudaError_t e = cudaMemsetAsync(out, 0, bytes, s);
-  if (e != cudaSuccess || n == 0) return e;
-  int dev = 0, optin = 0, sms = 1;
+  int dev = 0, sms = 1;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long need = (n * d + SEG_TPB - 1) / SEG_TPB;
   const long long most = static_cast<long long>(sms) * SEG_BLOCKS_PER_SM;
-  const int blocks = static_cast<int>(need < most ? need : most);
-  if (bytes <= static_cast<size_t>(optin)) {
-    if (bytes > 48 * 1024) {
-      e = cudaFuncSetAttribute(seg_main<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-      if (e != cudaSuccess) return e;
-    }
-    seg_main<true><<<blocks, SEG_TPB, bytes, s>>>(data, ids, n, d, K, out);
-  } else {
-    seg_main<false><<<blocks, SEG_TPB, 0, s>>>(data, ids, n, d, K, out);
-  }
-  return cudaGetLastError();
+  const int blocks = static_cast<int>(need < 1 ? 1 : (need < most ? need : most));
+  return fix_seg_sum(data, ids, n, d, K, out, scratch, blocks, s);
 }

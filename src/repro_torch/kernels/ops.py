@@ -14,7 +14,9 @@ keeps the JAX package's contract (``repro/kernels/ops.py``): the kernels'
 ±3e38 sentinels for empty min/max map back to ±inf, the count comes
 first, bucket ids decode back to key values, and the result is compacted
 to ``max_groups``.  There is no lane padding and no bucket
-limit: the relational kernels accumulate with atomics instead of a one-hot.
+limit: the relational kernels accumulate with atomics instead of a one-hot,
+their f32 sums as integers (``csrc/fixsum.cuh``, ``ref.fixed_sum``) or in
+a fixed order, so every route gives the same bits on every run.
 
 ``LAUNCHES`` counts, per kernel, the calls that launched it,
 ``KMEANS_LAUNCHES`` and ``SEGSUM_LAUNCHES`` the ``kmeans_step`` and
@@ -543,7 +545,8 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     counts (k,) f32) over each point's nearest centroid (``la.KMeansStep``
     under ``use_kernels``).  On the card the shape picks the kernel
     (``kmeans_step_route``); the tensor-core one's arithmetic is
-    ``ref.kmeans_step_tiled``, and its sums are the same on every run."""
+    ``ref.kmeans_step_tiled``, the other's sums ``ref.fixed_sum`` of the
+    points by label, and both give the same bits on every run."""
     if not _on_card(x, c):
         return ref.kmeans_step(x, c)
     from .build import constant, entry, library
@@ -561,7 +564,7 @@ def kmeans_step(x: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     stream = _stream(x.device)
     tickets, scratch = _tc_workspace(
         x.device, stream, _cached("kms_tickets", lambda: constant("kmeans_step", "kms_tickets")),
-        library("kmeans_step").kms_scratch_bytes(grid, d, k))
+        library("kmeans_step").kms_scratch_bytes(n, grid, d, k))
     out = torch.empty(k * d + k, dtype=torch.float32, device=x.device)  # sums, then counts
     err = entry("kmeans_step")(x.data_ptr(), c.data_ptr(), n, d, k, out.data_ptr(),
                                out.data_ptr() + 4 * k * d, scratch.data_ptr(),
@@ -588,7 +591,8 @@ def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torc
     """(n, d) f32 rows summed by segment id (n,) int32 → (num_segments, d)
     f32; ids outside [0, num_segments) are dropped.  On the card the shape
     picks the kernel (``segsum_route``); the tensor-core one's arithmetic
-    is ``ref.segsum_tiled``, and its sums are the same on every run."""
+    is ``ref.segsum_tiled``, the other's ``ref.fixed_sum``, and both give
+    the same bits on every run."""
     if not _on_card(data, seg_ids):
         return ref.segsum(data, seg_ids, num_segments)
     from .build import constant, entry, library

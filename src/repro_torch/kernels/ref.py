@@ -23,6 +23,12 @@ def segsum(data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torc
     return rt.segment_sum(data, seg_ids, num_segments)
 
 
+#: the plain version of ``csrc/fixsum.cuh`` (the atomic routes' f32 sums
+#: as integers, bit for bit), which the sorted tiers' segment sums run on
+#: the card too
+fixed_sum = rt.fixed_sum
+
+
 def cdist2(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared distances (n, k): ‖x‖² − 2·x@cᵀ + ‖c‖², in that expansion,
     the product a full-f32 ``torch.matmul`` (TF32 stays off)."""

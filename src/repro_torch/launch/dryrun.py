@@ -45,6 +45,21 @@ move of JAX's layer probes (XLA counts a ``lax.scan`` body once;
 take hours: some 60 local ops a (position, layer, microbatch) in train,
 each through the counting modes.
 
+The hybrid family's train cells (Zamba2-7B: 81 layers, 16 or 8
+microbatches a step) are solved over their microbatches and their depth,
+as JAX's layer probes solve the hybrid (``corrected_vector`` with
+``attn_every``): traced at 2 and 3 microbatches of the cell's rows and at
+two depths of the cell's residue modulo ``attn_every`` (so that the shared
+block's points grow by one with each ``attn_every`` layers: 9 and 15 of
+Zamba2-7B's 81), whose layers are alike (stacked leaves, placed by their
+trailing dims), and solved for the cell's m and depth.  Traced whole the 16 × 16 cell
+took about 2,000 s on one CPU core, longer than ``CELL_TIMEOUT_S``; its
+probes take about 130 s.  On 2 × 16 × 16 a single probe still does not
+end within ``CELL_TIMEOUT_S`` (a trace of 3 layers and 2 microbatches ran
+past 28 minutes): DTensor plans the redistributions of the SSD's
+strided-shard specs on the 3-D mesh by a graph search, once per new spec
+in a process, and that planning, not the layers, takes the time.
+
 A cell that traces for more than ``CELL_TIMEOUT_S`` is recorded as failed.
 
 Artifacts: ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
@@ -64,6 +79,7 @@ import math
 import sys
 import time
 import traceback
+from dataclasses import replace
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -86,7 +102,8 @@ HBM_BW = 3.35e12             # bytes/s
 # such nodes.  Inside a node NVLink 4 gives 450 GB/s per direction.
 LINK_BW = 50e9
 #: seconds a cell may trace before it is recorded as failed: the slowest
-#: cell traces for about 20 minutes on one CPU core (Zamba2-7B's train step)
+#: cell traced for about 29 minutes on one CPU core (RWKV6-1.6B's train
+#: step on 2 × 16 × 16, its probes one after another)
 CELL_TIMEOUT_S = 1800
 #: the time-scan steps at which trace_affine traces RWKV's cells
 SCAN_PROBE_STEPS = (2, 4)
@@ -318,8 +335,11 @@ def trace_cell(cfg, shape_name: str, mesh_shape: Sequence[int], axes: Sequence[s
 
 def traced_affine(cfg, shape_name: str) -> bool:
     """Whether ``run_cell`` traces the cell through :func:`trace_affine`:
-    RWKV's train and prefill cells (a time scan over S positions)."""
-    return cfg.family == "rwkv" and SHAPES[shape_name].kind in ("train", "prefill")
+    RWKV's train and prefill cells (a time scan over S positions) and the
+    hybrid family's train cells (its microbatches)."""
+    kind = SHAPES[shape_name].kind
+    return ((cfg.family == "rwkv" and kind in ("train", "prefill"))
+            or (cfg.family == "hybrid" and kind == "train"))
 
 
 @contextlib.contextmanager
@@ -350,47 +370,80 @@ def _scan_steps(n: int):
         ssm._wkv_scan = scan
 
 
+def _probe(cfg, shape, mesh_shape: Sequence[int], axes: Sequence[str],
+           n: Optional[int], m: Optional[int], rows: Optional[int]) -> Dict[str, Any]:
+    """One of :func:`trace_affine`'s traces of the cell of ``shape`` (a
+    ``Shape``, registered in ``SHAPES`` here if a spawned process lacks
+    it) for the model ``cfg`` (a probe's depth): RWKV's time scan cut to
+    its first ``n`` steps (``None``: no scan to cut), a train step of ``m``
+    microbatches of ``rows`` rows (``None``: the cell's own batch)."""
+    shape_name = shape.name
+    SHAPES.setdefault(shape_name, shape)
+    _, specs = input_specs(cfg, shape_name)
+    batch = specs
+    if m is not None:
+        batch = {k: torch.empty((rows * m,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                device="meta") for k, v in specs.items()}
+    with _scan_steps(n) if n is not None else contextlib.nullcontext():
+        return trace_cell(cfg, shape_name, mesh_shape, axes, microbatch=m,
+                          batch_override=batch)
+
+
 def trace_affine(cfg, shape_name: str, mesh_shape: Sequence[int],
                  axes: Sequence[str]) -> Dict[str, Any]:
-    """``trace_cell``'s counts of an RWKV cell, solved from traces whose time
-    scan runs only ``SCAN_PROBE_STEPS`` = (n1, n2) of its S steps (the module's
-    docstring).  A prefill's count is affine in n: f(S) = f(n1) + (f(n2) −
-    f(n1))·(S − n1)/(n2 − n1).  A train step's m microbatches are alike, so
-    its count is A + m·B + m·n·K: it is traced at (m, n) = (2, n1), (2,
-    n2), (3, n1), each microbatch of the cell's rows, and solved for the
-    cell's m and S.  So for the FLOPs, bytes and each collective kind's
-    calls and bytes, and the peak (an estimate).  (The layers are not
-    alike enough to probe: a layer's cost moves with the depth.)"""
+    """``trace_cell``'s counts of a cell that :func:`traced_affine` names,
+    solved from shorter traces (the module's docstring).  RWKV's time scan
+    runs only ``SCAN_PROBE_STEPS`` = (n1, n2) of its S steps: a prefill's
+    count is affine in n, f(S) = f(n1) + (f(n2) − f(n1))·(S − n1)/(n2 −
+    n1).  A train step's m microbatches are alike, so its count is A + m·B
+    + m·n·K: it is traced at (m, n) = (2, n1), (2, n2), (3, n1), each
+    microbatch of the cell's rows, and solved for the cell's m and S.  The
+    hybrid family's train step is A + m·B + L·C + m·L·D over its depth L
+    on the cell's residue modulo ``attn_every``: traced at m = 2, 3 and L
+    = L1, L1 + ``attn_every`` (``_hybrid_depths``) and solved for the
+    cell's m and L.  So for the FLOPs, bytes and each collective kind's
+    calls and bytes, and the peak (an estimate).  (RWKV's layers are not alike enough
+    to probe: a layer's cost moves with the depth.)  The traces run at
+    once, each in a process of its own (spawned, so each has its own fake
+    world): the wall time is the longest trace's, which ``trace_s`` records."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from fractions import Fraction
 
     n1, n2 = SCAN_PROBE_STEPS
     kind, specs = input_specs(cfg, shape_name)
     s = next(iter(specs.values())).shape[1]
-
-    def traced(n, m=None):
-        batch = specs
-        if m is not None:
-            batch = {k: torch.empty((rows * m,) + tuple(v.shape[1:]), dtype=v.dtype,
-                                    device="meta") for k, v in specs.items()}
-        with _scan_steps(n):
-            return trace_cell(cfg, shape_name, mesh_shape, axes, microbatch=m,
-                              batch_override=batch)
-
-    if kind == "train":
-        dp = math.prod(n for a, n in zip(axes, mesh_shape) if a in ("pod", "data"))
-        b = next(iter(specs.values())).shape[0]
-        m = max(1, b // dp)
-        rows = b // m
-        got = [traced(n1, 2), traced(n2, 2), traced(n1, 3)]
+    scan = cfg.family == "rwkv"
+    dp = math.prod(n for a, n in zip(axes, mesh_shape) if a in ("pod", "data"))
+    b = next(iter(specs.values())).shape[0]
+    m = max(1, b // dp)
+    rows = b // m
+    if kind == "train" and scan:
+        probes = [(n1, 2), (n2, 2), (n1, 3)]
 
         def solve(f1, f2, f3):  # A + m·B + m·n·K
             k = Fraction(f2 - f1, 2 * (n2 - n1))
             return f1 + (m - 2) * (f3 - f1) + k * m * (s - n1)
+    elif kind == "train":
+        l1, l2 = _hybrid_depths(cfg)
+        probes = [(None, 2, l1), (None, 3, l1), (None, 2, l2), (None, 3, l2)]
+
+        def solve(a, b, c, e):  # A + m·B + L·C + m·L·D
+            t = Fraction(cfg.n_layers - l1, l2 - l1)
+            return a + (c - a) * t + (m - 2) * ((b - a) + ((e - c) - (b - a)) * t)
     else:
-        got = [traced(n1), traced(n2)]
+        probes = [(n1, None), (n2, None)]
 
         def solve(f1, f2):
             return f1 + Fraction(f2 - f1, n2 - n1) * (s - n1)
+
+    calls = [(replace(cfg, n_layers=p[2]) if len(p) > 2 else cfg, SHAPES[shape_name],
+              tuple(mesh_shape), tuple(axes), p[0], p[1], rows if p[1] else None)
+             for p in probes]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(calls), mp_context=multiprocessing.get_context("spawn")) as pool:
+        got = list(pool.map(_probe, *zip(*calls)))
+    wall = time.perf_counter() - t0
 
     def exact(*fs):
         v = solve(*fs)
@@ -404,10 +457,23 @@ def trace_affine(cfg, shape_name: str, mesh_shape: Sequence[int],
     return {"kind": kind, "flops": exact(*(g["flops"] for g in got)),
             "bytes": exact(*(g["bytes"] for g in got)), "collective_by_kind": by_kind,
             "collectives": None, "peak_bytes": int(solve(*(g["peak_bytes"] for g in got))),
-            "place_s": sum(g["place_s"] for g in got), "trace_s": sum(g["trace_s"] for g in got),
-            "method": f"the time scan traced at {n1} and {n2} of its {s} steps"
-                      + (" and 2, 3 microbatches" if kind == "train" else "")
-                      + ", solved for the cell"}
+            "place_s": max(g["place_s"] for g in got),
+            "trace_s": wall - max(g["place_s"] for g in got),
+            "method": (f"the time scan traced at {n1} and {n2} of its {s} steps"
+                       + (" and 2, 3 microbatches" if kind == "train" else "")
+                       + ", solved for the cell") if scan
+                      else (f"the train step traced at 2 and 3 microbatches and {l1} and "
+                            f"{l2} layers, solved for the cell's m and {cfg.n_layers} layers; "
+                            "the peak an estimate")}
+
+
+def _hybrid_depths(cfg) -> Tuple[int, int]:
+    """The two depths ``trace_affine`` probes a hybrid train cell at: the
+    least above ``attn_every`` on the cell's residue modulo ``attn_every``
+    (two points of the shared block at least), and ``attn_every`` more."""
+    k = cfg.attn_every
+    l1 = k + (cfg.n_layers % k or k)
+    return l1, l1 + k
 
 
 def rwkv_scan_flops(cfg, shape_name: str, mesh_shape: Sequence[int],

@@ -18,6 +18,7 @@ from the JAX package:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -426,8 +427,8 @@ def group_agg_sorted(t: VecTable, keys: Sequence[str], aggs: Sequence[AggSpec],
                          device=t.device).scatter_reduce_(0, seg, vals, "amax",
                                                           include_self=False)
         out_cols[k] = red[:max_groups].to(c.dtype)
-    for a in aggs:
-        out_cols[a.name] = _segment_agg(a, t.cols, t.valid, seg, max_groups + 1)[:max_groups]
+    for name, col in _segment_aggs(aggs, t.cols, t.valid, seg, max_groups + 1).items():
+        out_cols[name] = col[:max_groups]
     n_groups = change.sum()
     return VecTable(out_cols, torch.arange(max_groups, device=t.device) < n_groups)
 
@@ -446,13 +447,107 @@ def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> to
     group at sf=5, on an H100).  So the rows are cut into chunks of ``_SUM_CHUNK_ROWS`` (fewer,
     longer chunks when the chunks × segments partials would pass
     ``_SUM_MAX_PARTIALS``), each chunk sums into partials of its own, and
-    torch's reduction adds the partials of each segment."""
+    torch's reduction adds the partials of each segment.
+
+    That is the CPU's path, where ``index_add_`` adds the rows in turn, so
+    the same inputs give the same bits on every run, as
+    ``jax.ops.segment_sum``'s do.  On a card ``index_add_`` adds f32 with
+    atomics in any order; there the sums are ``fixed_sum``'s, integers at
+    each segment's largest exponent (exact to 2^(2·bitlen(n) − 64) of it
+    before the f32 rounding, tighter than the two levels), whose bits no
+    order of the adds changes (ROADMAP Queue 3 item 17)."""
+    if vals.device.type != "cpu":
+        return fixed_sum(vals, seg, num_segments)
     n, rest = vals.shape[0], tuple(vals.shape[1:])
     chunks = max(1, min(-(-n // _SUM_CHUNK_ROWS), _SUM_MAX_PARTIALS // num_segments))
     rows = max(1, -(-n // chunks))
     slot = torch.arange(n, device=vals.device) // rows * num_segments + seg
     part = torch.zeros((chunks * num_segments,) + rest, dtype=vals.dtype, device=vals.device)
     return part.index_add_(0, slot, vals).view((chunks, num_segments) + rest).sum(0)
+
+
+#: the most rows of a (chunk, segment) slot of ``fixed_sum`` (on average)
+_FIXED_SLOT_ROWS = 256
+
+
+def fixed_sum(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
+              rows: Optional[int] = None) -> torch.Tensor:
+    """f32 sums whose bits do not depend on the order of the adds, as
+    ``kernels/csrc/fixsum.cuh`` computes them, in plain torch, bit for bit
+    (``kernels.ref.fixed_sum``): the rows of ``vals`` ((n,) or (n, d) f32)
+    summed by ``seg`` (n,) into ``num_segments`` slots, ids outside [0,
+    num_segments) dropped.  Each (segment, column) takes the largest binary
+    exponent E of its values; each value becomes its 24-bit significand in
+    units of 2^(E − 150 − F), rounded to nearest (ties away from zero), F =
+    39 − bitlen(rows); the int64 sums go to f32 through f64.  A segment
+    with a NaN, or with +inf and −inf, gives NaN, one with infinities of one
+    sign that infinity.  ``rows`` (default n) is the row count the kernel
+    sizes F by (its pass's capacity).
+
+    The maxima and the integers gather in (chunk, segment) slots first, as
+    many chunks as keep a slot near ``_FIXED_SLOT_ROWS`` rows, then reduce
+    over the chunks: on a card the atomics of a scatter into a few segments
+    wait on each other, and the chunks spread them; a max and an integer
+    sum are the same in any grouping, so the result is too."""
+    n = vals.shape[0]
+    rows = n if rows is None else int(rows)
+    frac = 39 - max(rows, 0).bit_length()
+    d = math.prod(vals.shape[1:])
+    v = vals.reshape(n, d).to(torch.float32).contiguous()
+    cells = num_segments * d
+    dev = v.device
+    chunks = max(1, -(-n * d // (_FIXED_SLOT_ROWS * max(cells, 1))))
+    seg = seg.to(torch.int64).reshape(n, 1)
+    # each value's (chunk, cell) slot; ids outside the segments to a dump slot
+    slot = seg * d + torch.arange(d, device=dev) if d > 1 else seg
+    if chunks > 1:
+        slot = slot + torch.arange(n, device=dev).reshape(n, 1) * chunks // n * cells
+    slot = torch.where((seg >= 0) & (seg < num_segments), slot, chunks * cells).reshape(-1)
+    bits = v.view(torch.int32).reshape(-1)
+    ef = (bits >> 23) & 0xFF
+    mant = bits & 0x7FFFFF
+    # a value's word: its exponent (0 for a zero), or 256 for +inf, 257 for
+    # −inf, 259 for NaN, above every exponent; infinities of both signs
+    # show as a largest word of 257 beside a least infinity word of 256
+    word = torch.where(ef != 0xFF, torch.where((bits & 0x7FFFFFFF) != 0, ef.clamp(min=1), 0),
+                       torch.where(mant != 0, 259, torch.where(bits < 0, 257, 256))
+                       .to(torch.int32))
+
+    def by_cell(init: int, x: torch.Tensor, how: str) -> torch.Tensor:
+        out = torch.full((chunks * cells + 1,), init, dtype=torch.int32, device=dev)
+        out = out.scatter_reduce_(0, slot, x, how)[:-1].view(chunks, cells)
+        return out.amax(0) if how == "amax" else out.amin(0)
+
+    big = by_cell(0, word, "amax")
+    least_inf = by_cell(1023, torch.where((word == 256) | (word == 257), word, 1023), "amin")
+    nan = (big >= 259) | ((big == 257) & (least_inf == 256))
+    pos, ninf = big == 256, (big == 257) & ~nan
+    del least_inf
+    # the scale of each cell (0 where flagged: its sum is not read), one
+    # past the last for the dump slot
+    scale = torch.cat([torch.where(big <= 254, big, 0), big.new_zeros(1)])
+    del big
+    e = torch.where(word <= 254, word, 0)
+    del word
+    cell = slot if chunks == 1 else torch.where(slot < chunks * cells, slot % cells, cells)
+    shift = e - scale[cell] + frac
+    del cell
+    m = (mant | torch.where(ef != 0, 1 << 23, 0)).to(torch.int64)
+    del ef, mant
+    down = (-shift).clamp(1, 30)  # past 30 the value rounds to 0 (dropped below)
+    q = torch.where(shift >= 0, m << shift.clamp(0, 39), (m + (1 << (down - 1))) >> down)
+    del m, down
+    q = torch.where((e > 0) & (shift >= -30), torch.where(bits < 0, -q, q), 0)
+    del e, shift
+    total = torch.zeros(chunks * cells + 1, dtype=torch.int64, device=dev).index_add_(
+        0, slot, q)[:-1].view(chunks, cells).sum(0)
+    del q
+    out = torch.ldexp(total.to(torch.float64),
+                      (scale[:-1] - 150 - frac).to(torch.float64)).to(torch.float32)
+    out = torch.where(pos, float("inf"), out)
+    out = torch.where(ninf, float("-inf"), out)
+    out = torch.where(nan, float("nan"), out)
+    return out.reshape((num_segments,) + tuple(vals.shape[1:]))
 
 
 def _dump_outside(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -479,6 +574,35 @@ def segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     return counts[:num_segments].to(torch.float32)
 
 
+def _segment_aggs(aggs: Sequence[AggSpec], cols: Mapping[str, torch.Tensor],
+                  valid: torch.Tensor, seg: torch.Tensor,
+                  num_segments: int) -> Dict[str, torch.Tensor]:
+    """Every aggregate's masked segment reduction into ``num_segments`` dense
+    slots, by name in ``aggs``' order.  On a card the sums go through one
+    ``_segment_sum`` of their stacked columns: ``fixed_sum`` sums each
+    column apart, so the bits are each column's own, and one call costs the
+    host one pass of its some ninety launches, not one a sum."""
+    sums = [a for a in aggs if a.fn == "sum"]
+    out: Dict[str, torch.Tensor] = {}
+    if valid.device.type != "cpu" and len(sums) > 1:
+        total = _segment_sum(torch.stack([_masked_values(a, cols, valid) for a in sums], 1),
+                             seg, num_segments)
+        out.update((a.name, total[:, j].contiguous()) for j, a in enumerate(sums))
+    for a in aggs:
+        if a.name not in out:
+            out[a.name] = _segment_agg(a, cols, valid, seg, num_segments)
+    return {a.name: out[a.name] for a in aggs}
+
+
+def _masked_values(a: AggSpec, cols: Mapping[str, torch.Tensor],
+                   valid: torch.Tensor) -> torch.Tensor:
+    """A sum's f32 column, 0 where the row is not valid."""
+    arr = eval_expr(a.expr, cols)
+    if not isinstance(arr, torch.Tensor) or arr.dim() == 0:
+        arr = _full(valid.shape[0], arr, valid.device)
+    return torch.where(valid, _as_f32(arr), 0.0)
+
+
 def _segment_agg(a: AggSpec, cols: Mapping[str, torch.Tensor], valid: torch.Tensor,
                  seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """One masked segment reduction into ``num_segments`` dense slots."""
@@ -486,12 +610,12 @@ def _segment_agg(a: AggSpec, cols: Mapping[str, torch.Tensor], valid: torch.Tens
     if a.fn == "count":
         return torch.zeros(num_segments, dtype=torch.int32, device=dev).index_add_(
             0, seg, valid.to(torch.int32))
+    if a.fn == "sum":
+        return _segment_sum(_masked_values(a, cols, valid), seg, num_segments)
     arr = eval_expr(a.expr, cols)
     if not isinstance(arr, torch.Tensor) or arr.dim() == 0:
         arr = _full(valid.shape[0], arr, dev)
     arr = _as_f32(arr)
-    if a.fn == "sum":
-        return _segment_sum(torch.where(valid, arr, 0.0), seg, num_segments)
     if a.fn == "min":
         return torch.full((num_segments,), _F32_INF, device=dev).scatter_reduce_(
             0, seg, torch.where(valid, arr, _F32_INF), "amin")
@@ -545,9 +669,8 @@ def group_agg_direct(t: VecTable, keys: Sequence[str], aggs: Sequence[AggSpec],
         0, seg, valid.to(torch.int32))[:num_buckets]
     out_cols = decode_bucket_keys(keys, key_domains, [t.cols[k].dtype for k in keys],
                                   num_buckets, t.device)
-    for a in aggs:
-        out_cols[a.name] = _segment_agg(a, t.cols, valid, seg,
-                                        num_buckets + 1)[:num_buckets]
+    for name, col in _segment_aggs(aggs, t.cols, valid, seg, num_buckets + 1).items():
+        out_cols[name] = col[:num_buckets]
     return compact(VecTable(out_cols, counts > 0), max_groups)
 
 

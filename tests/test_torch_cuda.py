@@ -6,11 +6,14 @@ machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integers exact; floats within rtol 1e-4, because the kernels add float
-sums with atomics, in an order that changes from run to run (the
+Integers exact; floats within rtol 1e-4 of the plain versions, which add
+in another order.  Every route gives the same bits on two runs: the
 tensor-core kmeans_step and segsum, fused_select_agg and the register
-route of grouped_select_agg and grouped_join_agg add in a fixed order: two
-runs agree bit for bit).  k-means
+route of grouped_select_agg and grouped_join_agg add in a fixed order, the
+atomic routes (grouped smem and global, kms_main, seg_main) add integers
+(``csrc/fixsum.cuh``, held bit for bit to ``ref.fixed_sum``), and the
+torch segment sums of the sorted tiers add the same integers
+(``runtime.fixed_sum``).  k-means
 steps go by the tie-margin rule of ``repro_torch.kmeans`` at rtol 1e-4:
 counts add up to n and sums to Σx whatever the ties, and each count and
 sum may move by what the points within a few f32 roundings of a tie carry.
@@ -26,7 +29,7 @@ from repro_torch.convert import tensors_from_arrays, vectable_from_arrays  # noq
 from repro_torch import kmeans  # noqa: E402
 from repro_torch.core.expr import AggSpec, col, const  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.relational import tpch  # noqa: E402
+from repro_torch.relational import runtime as rt, tpch  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -335,11 +338,10 @@ def test_merge_join_and_dynamic_hash_join_on_card(card, nb):
 
 def test_plan_cache_hit_on_card(card):
     """A repeated collect on the card hits the plan cache and runs the
-    miss's plan: under the port's tiers and encode=dict the same bits (the
-    generated kernels add in a fixed order, Q4's atomic route counts
-    integers); under the sorted tiers, whose torch segment sums add with
-    atomics in any order, integers exact and floats within rtol 1e-5.
-    The CPU's plan is another entry."""
+    miss's plan, with the same bits under the port's tiers, encode=dict
+    and the sorted tiers (the generated kernels add in a fixed order or as
+    integers; the sorted tiers' segment sums are integers too, ROADMAP
+    Queue 3 item 17).  The CPU's plan is another entry."""
     from repro_torch.compiler import PlanCache
 
     tables = tpch.generate(sf=0.05, seed=1)
@@ -354,10 +356,7 @@ def test_plan_cache_hit_on_card(card):
             again = f(ctx).collect(device=card, strategy=strategy, cache=cache)
             for k in first:
                 a, b = np.asarray(first[k]), np.asarray(again[k])
-                if strategy == strategies[-1] and a.dtype.kind == "f":
-                    np.testing.assert_allclose(b, a, rtol=1e-5, err_msg=f"{q}.{k}")
-                else:
-                    assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (q, k)
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), (strategy, q, k)
             assert not ctx.compile(f(ctx), device="cpu", strategy=strategy,
                                    cache=cache).cache_hit
     assert cache.stats["hits"] == 2 * len(strategies) * len(tpch.QUERIES)
@@ -562,6 +561,134 @@ def test_segsum_routes_and_recipe_on_card(card, n, d, k, shift):
         scale = ref.segsum(dt.abs(), it, k)
         assert bool(((got - recipe).abs() <= 1e-5 * recipe.abs() + 4e-6 * scale).all())
         assert torch.equal(got, ops.segsum(dt, it, k))
+
+
+# ---------------------------------------------------------------------------
+# the same bits on every run (ROADMAP Queue 3 item 17)
+# ---------------------------------------------------------------------------
+
+
+def _summands(kind, n, buckets, seed):
+    """Values and bucket ids: ``ordered`` puts a wide dynamic range (1e8,
+    v, −1e8, … with v normal times 10^U(−4, 8)) into four buckets, where
+    a sum's bits depend on the order of its adds; ``random`` spreads
+    normal values over every bucket."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.normal(size=n).astype(np.float32), rng.integers(0, buckets, n)
+    v = (rng.normal(size=n) * 10.0 ** rng.uniform(-4, 8, n)).astype(np.float32)
+    m = 3 * (n // 3)
+    v[:m] = np.where(np.arange(m) % 3 == 1, v[:m], np.tile(np.float32([1e8, 0, -1e8]), n // 3))
+    return v, rng.integers(0, min(buckets, 4), n)
+
+
+def _against_f64(got, v, g, buckets, bound):
+    """Each sum within ``bound`` of the Σ|v| of its bucket from the f64 sum."""
+    want, scale = np.zeros(buckets), np.zeros(buckets)
+    np.add.at(want, g, v.astype(np.float64))
+    np.add.at(scale, g, np.abs(v.astype(np.float64)))
+    got = np.asarray(got, np.float64).reshape(want.shape)
+    assert np.all(np.abs(got - want) <= bound * scale), float(np.max(np.abs(got - want) / scale))
+
+
+def _grouped_sums(r, nb):
+    s = torch.zeros(nb, dtype=torch.float32, device=r.valid.device)
+    n = int(r.valid.sum())
+    s[r.cols["g"][:n].long()] = r.cols["s"][:n]
+    return s
+
+
+@pytest.mark.parametrize("kind", ["ordered", "random"])
+@pytest.mark.parametrize("route,nb", [("gsa_smem", 1000), ("gsa_global", 750_000),
+                                      ("gja_smem", 1000), ("gja_global", 750_000)])
+def test_grouped_atomic_routes_give_the_same_bits_twice_on_card(card, route, nb, kind):
+    """The grouped kernels' atomic routes at 2^20 rows: the same bits on
+    two calls, the sums bit for bit ``ref.fixed_sum`` of the rows (the
+    kernel's integers at the kernel's scale), within 1e-6 of Σ|v| of the
+    f64 sums (an f32 sum in any order may be off by n·2^-24 of it)."""
+    n = 1 << 20
+    v, g = _summands(kind, n, nb, seed=nb + len(kind))
+    aggs = (AggSpec("sum", col("v"), "s"), AggSpec("min", col("v"), "m"),
+            AggSpec("count", const(1), "c"))
+    cols = {"g": torch.from_numpy(g.astype(np.int32)).to(card), "v": torch.from_numpy(v).to(card)}
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=card)  # noqa: E731
+    if route.startswith("gsa"):
+        args = (rt.VecTable(cols, ones(n)), None, ("g",), aggs, nb, ((0, nb - 1),), nb)
+        fn = ops.grouped_select_agg
+    else:
+        m = 1 << 16
+        fk = np.random.default_rng(7).integers(0, m + 100, n).astype(np.int32)  # some unmatched
+        left = rt.VecTable(dict(cols, fk=torch.from_numpy(fk).to(card)), ones(n))
+        right = rt.VecTable({"rk": torch.arange(m, dtype=torch.int32, device=card)}, ones(m))
+        args = (left, right)
+        fn = lambda l, r: ops.grouped_join_agg(  # noqa: E731
+            l, r, left_on=("fk",), right_on=("rk",), join_key_domains=((0, m - 1),),
+            join_num_buckets=m, keys=("g",), aggs=aggs, max_groups=nb,
+            key_domains=((0, nb - 1),), num_buckets=nb)
+        keep = fk < m
+        v, g = v[keep], g[keep]
+    (first, took), (second, _) = _routed(fn, *args), _routed(fn, *args)
+    assert took == route
+    for k in first.cols:
+        assert torch.equal(first.cols[k], second.cols[k]), k
+    sums = _grouped_sums(first, nb)
+    assert torch.equal(sums.cpu(), ref.fixed_sum(torch.from_numpy(v), torch.from_numpy(g), nb,
+                                                 rows=n))
+    _against_f64(sums.cpu(), v, g, nb, 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["ordered", "random"])
+@pytest.mark.parametrize("n,d,k", [(1 << 18, 8, 100), (5000, 64, 256), (3000, 64, 1024)])
+def test_seg_main_gives_the_same_bits_twice_on_card(card, kind, n, d, k):
+    """seg_main (shared accumulators, and global ones past the opt-in
+    shared memory): the same bits twice, bit for bit ``ref.fixed_sum``."""
+    rng = np.random.default_rng(n + k)
+    data = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(-2, k + 2, n).astype(np.int32)
+    if kind == "ordered":
+        data *= (10.0 ** rng.uniform(-4, 8, (n, 1))).astype(np.float32)
+        ids = rng.integers(0, 3, n).astype(np.int32)
+    dt, it = tensors_from_arrays(data, ids, device=card)
+    assert ops.segsum_route(d, k) == "seg_main"
+    got = ops.segsum(dt, it, k)
+    assert torch.equal(got, ops.segsum(dt, it, k))
+    assert torch.equal(got.cpu(), ref.fixed_sum(dt.cpu(), it.cpu(), k))
+    _segsum_check(got, dt, it, k)
+
+
+@pytest.mark.parametrize("kind", ["ordered", "random"])
+def test_kms_main_gives_the_same_bits_twice_on_card(card, kind):
+    """kms_main at d = 64, k = 256: the same sums and counts twice, and
+    the sums bit for bit ``ref.fixed_sum`` of the points by the kernel's
+    labels, where the plain version's labels agree with them."""
+    n, d, k = 1 << 16, 64, 256
+    x, c = _clusters(n, d, k, seed=5)
+    if kind == "ordered":
+        x *= (10.0 ** np.random.default_rng(1).uniform(-4, 8, (n, 1))).astype(np.float32)
+        c = x[np.random.default_rng(2).choice(n, k, replace=False)].copy()
+    xt, ct = tensors_from_arrays(x, c, device=card)
+    (first, took), (second, _) = _routed_step(xt, ct), _routed_step(xt, ct)
+    assert took == "kms_main"
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    labels = torch.argmin(ref.cdist2(xt, ct), dim=1)
+    if torch.equal(torch.bincount(labels, minlength=k).float(), first[1]):
+        assert torch.equal(first[0].cpu(), ref.fixed_sum(xt.cpu(), labels.cpu(), k))
+    _assert_step_agrees(first, ref.kmeans_step(xt, ct), x, c)
+
+
+@pytest.mark.parametrize("kind", ["ordered", "random"])
+def test_segment_sum_gives_the_same_bits_twice_on_card(card, kind):
+    """``runtime._segment_sum`` (the sorted tiers' and the plain direct
+    tier's sums) on the card: the same bits twice, bit for bit
+    ``runtime.fixed_sum`` (which it runs there), within 2e-4 of Σ|v| of
+    the f64 sums (the query tolerance)."""
+    n = 1 << 20
+    v, g = _summands(kind, n, 7, seed=3)
+    vt, gt = torch.from_numpy(v).to(card), torch.from_numpy(g).to(card)
+    got = rt._segment_sum(vt, gt, 7)
+    assert torch.equal(got, rt._segment_sum(vt, gt, 7))
+    assert torch.equal(got.cpu(), ref.fixed_sum(vt.cpu(), gt.cpu(), 7))
+    _against_f64(got.cpu(), v, g, 7, 2e-4)
 
 
 def test_kmeans_program_on_card_matches_cpu(card):

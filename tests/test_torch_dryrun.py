@@ -198,4 +198,33 @@ def test_rwkv_cells_solved_from_scan_probes_equal_the_eager_trace(kind, monkeypa
     assert got["collective_by_kind"]
     assert abs(got["peak_bytes"] - want["peak_bytes"]) <= 0.25 * want["peak_bytes"]
     assert not dryrun.traced_affine(cfg, "decode_32k")
-    assert not dryrun.traced_affine(get_reduced("zamba2-7b"), "train_4k")
+    assert not dryrun.traced_affine(get_reduced("qwen2-1.5b"), "train_4k")
+
+
+def test_hybrid_train_cell_solved_from_microbatch_probes_equals_the_eager_trace(monkeypatch):
+    """``trace_affine`` on the hybrid family's train cells (how the CLI
+    records Zamba2-7B × train_4k: the step traced at 2 and 3 microbatches
+    and at two depths on the cell's residue modulo ``attn_every``, solved
+    for the cell's m and depth) against the eager trace of the same cell:
+    the reduced Zamba2 at 9 layers (the shared attention every 2; probes at
+    3 and 5 layers) on a (data 2, model 2) mesh, a 32-token cell of 8 rows
+    in 4 microbatches, gives its FLOPs, bytes and each collective kind's
+    calls and bytes exactly, the peak within a quarter.  Its prefill and
+    decode cells are traced whole."""
+    from repro_torch.configs.shapes import Shape
+
+    cfg = replace(get_reduced("zamba2-7b"), n_layers=9)
+    monkeypatch.setitem(dryrun.SHAPES, "tiny", Shape("tiny", 32, 8, "train"))
+    assert dryrun.traced_affine(cfg, "tiny") and dryrun.traced_affine(cfg, "train_4k")
+    assert not dryrun.traced_affine(cfg, "prefill_32k")
+    assert not dryrun.traced_affine(cfg, "decode_32k")
+    assert dryrun._hybrid_depths(cfg) == (3, 5)
+    assert dryrun._hybrid_depths(get_config("zamba2-7b")) == (9, 15)
+    got = dryrun.trace_affine(cfg, "tiny", (2, 2), ("data", "model"))
+    want = dryrun.trace_cell(cfg, "tiny", (2, 2), ("data", "model"))
+    assert got["flops"] == want["flops"] > 0
+    assert got["bytes"] == want["bytes"] > 0
+    assert got["collective_by_kind"] == want["collective_by_kind"]
+    assert got["collective_by_kind"]
+    assert abs(got["peak_bytes"] - want["peak_bytes"]) <= 0.25 * want["peak_bytes"]
+    assert "peak an estimate" in got["method"]

@@ -180,8 +180,9 @@ def test_opcodes_match_the_cuda_header():
 def test_wrapper_limits_match_the_cuda_header():
     """Each generated family's template exports its scratch helper, which
     the wrapper reads to size the partials (and, for the join, the
-    first-row table); the generated code encodes the aggregates as
-    ``relagg.cuh``'s atomics read them (0 sum, 1 min, 2 max)."""
+    first-row table); the generated code encodes the aggregates as the
+    atomic routes read them: 0 a sum (``fixsum.cuh``'s integers, in
+    ``grouped.cuh``), 1 min and 2 max (``relagg.cuh``'s atomics)."""
     from repro_torch.kernels import codegen, ops
 
     csrc = Path(exprcode.__file__).parent / "csrc"
@@ -193,6 +194,9 @@ def test_wrapper_limits_match_the_cuda_header():
         assert f".{helper}" in Path(ops.__file__).read_text()
     relagg = (csrc / "relagg.cuh").read_text()
     atomics = dict(re.findall(r"if \(fn == (\d)\) (\w+)\(", relagg))
-    assert atomics == {"0": "atomicAdd", "1": "rel_atomic_min"}
+    assert atomics == {"1": "rel_atomic_min"}
     assert "else rel_atomic_max(a, v);" in relagg
+    grouped = (csrc / "grouped.cuh").read_text()
+    assert "if (gen_fn(k) == 0) fix_add(" in grouped
+    assert "else rel_atomic(gen_fn(k)," in grouped
     assert codegen._FN == {"sum": 0, "min": 1, "max": 2}
