@@ -2,8 +2,9 @@
 """On-card check of the torch port: TPC-H, k-means, serving and training
 Qwen2-1.5B (its train step also sharded over four ranks sharing the
 card), serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
-Zamba2-7B and RWKV6-1.6B, serving and training Whisper-base through
-``repro_torch`` on one GPU.
+Zamba2-7B and RWKV6-1.6B, serving and training Whisper-base, serving
+StarCoder2-15B, GLM4-9B and Granite-34B whole, and training each family
+at full width through ``repro_torch`` on one GPU.
 
     python3 chip_smoke.py [--sf 5] [--reps 5] [--profile]
 
@@ -163,7 +164,8 @@ Phases, each printing its own lines:
    a cache of 2080, through ``launch.serve``'s ``make_run_wave`` and
    ``serve_loop`` after one warm-up wave; ``flash_attention`` launched 28
    times per wave; then the same parameters and prompts with the plain
-   attention (``ref``) and with ``chunked``, each path held against the
+   attention (``ref``, a batch row at a time) and with ``chunked``, each
+   path held against the
    plain one; the kernel against its plain version on edge cases first
    (S ∈ {1, 77, 200, 2048}, D ∈ {32, 64, 128}, group ∈ {1, 6}, f32 on the
    CUDA-core kernel and bf16 on the tensor-core one, non-causal, windows
@@ -288,19 +290,35 @@ Phases, each printing its own lines:
    full model in bf16 (AdamW lr 3e-3, remat, ``chunked``) for a warm-up
    and 4 steps at B = 16, S = 448, launching no kernel: losses finite and
    falling, step ms, tokens/s, peak GB, model-FLOPs share;
-27. training the MoE, VLM, hybrid and RWKV families (``FAMILY_TRAIN``):
+26b. the dense family's other configs at full width and depth
+   (``DENSE_SERVE``), as phase 18 serves Qwen2-1.5B but with 16 greedy
+   tokens: StarCoder2-15B (40 layers, group 12) and GLM4-9B (40, group 16)
+   8 requests in waves of 4, Granite-34B (88, MQA: group 48; 67.32 GB) one
+   wave of 4; ``flash_attention`` once per layer per
+   wave, the first wave's first and last layer's calls recorded; the
+   plain path, f64 attention (a batch row and at most 1 GB of f64 scores
+   at a time) and chunked, held by phase 18's rule; ``init``'s temporaries
+   within two f32 copies of its largest single draw (one layer of a
+   stacked leaf), the phase's peak beside the card's memory, the prefill
+   and decode floors beside the times;
+27. training the MoE, VLM, hybrid and RWKV families and the three dense
+   configs (``FAMILY_TRAIN``):
    Moonlight-16B-A3B, Qwen2-VL-7B (the launcher's stub embeddings and
    ``positions3``), Zamba2-7B (``chunked`` attention: the kernel has no
-   backward) and RWKV6-1.6B, each at full width: 1 or 2 layers in f32 on
+   backward), RWKV6-1.6B, StarCoder2-15B, GLM4-9B and Granite-34B, each
+   at full width: 1 or 2 layers in f32 on
    the card against f64 on the host (the train phase's rule, or up to
    WITNESS_FACTOR times the host's own f32 distance from f64 where that
    is larger) and in f64 on the card against the same (the train phase's
    rule); Moonlight at capacity factor 0.5 with its drops counted, the
    host's routing pinned to the card's; then in bf16 at the depth that
-   fits 80 GB (2, 8, 24 and all 24 layers) with the train phase's traffic
-   (RWKV6 at S = 256: its scan's backward is the host's; Qwen2-VL-7B at lr
-   3e-5: at 3e-3 its losses climb after the first step), launching no
-   kernel: losses finite and the last below the first, step ms, tokens/s,
+   fits 80 GB (2, 8, 24, 5, 8 and 5 layers; RWKV6 at 8 of 24 for the
+   script's time) with the train phase's traffic (RWKV6 at S = 256: its
+   scan's backward is the host's; Qwen2-VL-7B and the three dense configs
+   at lr 3e-5: at 3e-3 the last loss ends above the first, and at 3e-5
+   StarCoder2-15B's and Granite-34B's still climb at the second step),
+   launching no kernel: losses finite and the last below the first, step
+   ms, tokens/s,
    peak GB by part, the model-FLOPs
    share (the MoE's of its active parameters) and Moonlight's dropped
    share;
@@ -312,11 +330,13 @@ Phases, each printing its own lines:
    same function; for ``kmeans_step`` the read floor, ``torch.sum`` over
    each call's points (the card's achieved read rate, not a library call); each served attention call's distance from the
    tensor-core recipe beside its distance from the plain version; then one
-   served call under ``torch.profiler``, which must show the tensor-core
-   kernel (``fa_wgmma``) and not the CUDA-core one (``fa_main``), once per
-   head width (128, 112 from Zamba2-7B and 64 from Whisper-base); the MoE,
-   VLM, hybrid and enc-dec phases add the first and last layer's
-   (attention point's) call of their counted run;
+   served call of each head width (128, 112 from Zamba2-7B and 64 from
+   Whisper-base) in one ``torch.profiler`` window, which must show the
+   tensor-core kernel (``fa_wgmma<D>``) and not the CUDA-core one
+   (``fa_main``); the MoE,
+   VLM, hybrid, enc-dec and 26b's phases add the first and last layer's
+   (attention point's) call of their counted run; per shape, the calls'
+   mean wrapper, plain, SDPA and bound ms;
 29. per-query latency (median over ``--reps`` after a warm-up, each run
    compiled anew: the plan cache's misses), sequential and with ``parallel=4``, lineitem rows/s, the k-means step time and
    points/s, and the serving numbers (prefill ms per wave, decode ms per
@@ -328,7 +348,8 @@ Then the card's line, the ``kernels`` JSON line (the relational kernels'
 launches count the TPC-H path's run, the stream phase's counted folds and
 the spmd ranks' main runs; ``kmeans_step``'s the k-means path's and the
 spmd ranks' steps; ``flash_attention``'s the served Qwen2-1.5B, Moonlight,
-Mixtral, Qwen2-VL, Zamba2-7B and Whisper-base runs) and, last,
+Mixtral, Qwen2-VL, Zamba2-7B, Whisper-base, StarCoder2-15B, GLM4-9B and
+Granite-34B runs) and, last,
 ``{"ok": true, "device": ...}``.  Any failed check raises, so the exit code
 is not 0 and no result line is printed; without a visible CUDA device the
 script exits with code 2.
@@ -454,6 +475,10 @@ RESUME_LOSS_RTOL = 2.0 ** -7
 #: MIXTRAL_LAYERS of its 32 layers (all 32 are 93.1 GB in bf16), one wave
 #: of SERVE_BATCH prompts and MIXTRAL_GEN decode steps
 MOE_ARCH = "moonshot-v1-16b-a3b"
+#: the three large dense configs' generated tokens: half the serving
+#: traffic's, for the script's time limit (their decode is the host's,
+#: 65-144 ms a step on an H100)
+DENSE_GEN = 16
 MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_GEN = "mixtral-8x7b", 8, 8
 #: moe_block alone, f32 against f64 on the card: the routing may differ
 #: only where the f64 top-k margin p_(k) − p_(k+1) is at most MOE_F64_MARGIN
@@ -491,6 +516,14 @@ RWKV_F32_REL, RWKV_BF16_RMS = 1e-4, 0.15
 WHISPER_ARCH = "whisper-base"
 WHISPER_REQUESTS, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN, WHISPER_CAP = 32, 16, 1500, 64, 448
 WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 16, 4
+#: the dense family's other three configs at full width and depth through
+#: flash_attention at D = 128 and groups 12, 16 and 48: StarCoder2-15B and
+#: GLM4-9B with the serving path's requests (SERVE_*), Granite-34B (67.32
+#: GB in bf16, the largest config one card holds whole) one wave of
+#: SERVE_BATCH; DENSE_GEN tokens each
+DENSE_SERVE = {"starcoder2-15b": {}, "glm4-9b": {}, "granite-34b": {"requests_n": SERVE_BATCH}}
+#: exact_attention's f64 scores per slice: at most this many bytes
+EXACT_SLICE_BYTES = 1 << 30
 #: the sharded train step: Qwen2-1.5B's full widths at SHARDED_DEPTH of its
 #: 28 layers over a (data 2, model 2) mesh of SHARDED_RANKS gloo ranks on
 #: the card, TRAIN_B × TRAIN_S tokens in SHARDED_MICRO microbatches (so the
@@ -514,13 +547,14 @@ SHARDED_JOIN_S = 900
 #: B = TRAIN_B, S = TRAIN_S, microbatch SHARDED_MICRO: the f32 step against
 #: the one-device step, then SHARDED_MOE_STEPS timed f32 steps
 SHARDED_MOE_DEPTH, SHARDED_MOE_STEPS = 1, 2
-#: training the MoE, VLM, hybrid and RWKV families on the card, per arch:
+#: training the MoE, VLM, hybrid and RWKV families and the dense configs
+#: other than Qwen2-1.5B on the card, per arch:
 #: (the card-vs-host check's depth and S at B = 1, the bf16 cell's depth,
 #: S, timed steps, AdamW's lr and the reason for its cuts).  The cell's depth is what
 #: fits 80 GB at about 22 bytes a parameter (bf16 parameter and gradient,
 #: f32 moments, and AdamW's new state beside the old) beside the
 #: activations of B = TRAIN_B × S tokens; the check's what the host's f64
-#: autograd does within a minute or two
+#: autograd does within seconds
 FAMILY_TRAIN = {
     "moonshot-v1-16b-a3b": (1, 256, 2, TRAIN_S, 3, TRAIN_LR,
                             "27.72 B parameters are about 610 GB at 22 B each; 3 of 48 layers "
@@ -535,10 +569,25 @@ FAMILY_TRAIN = {
     "zamba2-7b": (2, 256, 24, TRAIN_S, 3, TRAIN_LR,
                   "6.64 B parameters are about 146 GB; 24 of 81 layers (4 shared-attention "
                   "points, 2.19 B) fit"),
-    "rwkv6-1.6b": (2, 256, 24, 256, 2, TRAIN_LR,
-                   "not cut in depth (1.45 B); S cut to 256: the time scan's backward is an "
+    "rwkv6-1.6b": (2, 256, 8, 256, 2, TRAIN_LR,
+                   "8 of 24 layers (0.57 B) and S cut to 256: the time scan's backward is an "
                    "S-step autograd chain a layer at the host's launch rate, 58.0 s a step at "
-                   "S = 2048 and 14.6-16.1 s at 512 on an H100, past the script's time"),
+                   "S = 2048 and 14.6-16.1 s at 512 on an H100, 9.0 s at 256 and 24 layers, "
+                   "past the script's time"),
+    # lr 3e-5 for the three, as Qwen2-VL-7B: at 3e-3 StarCoder2-15B's first
+    # AdamW step (every weight moved by about lr, at d = 6144) drops the
+    # loss far and the next climbs past the first (12.47, 4.90, 20.18 on an
+    # H100 80GB HBM3 at 700 W).  At 3e-5 the second step still climbs for
+    # StarCoder2-15B (12.47, 2.33, 8.22) and Granite-34B (11.89, 3.09,
+    # 5.62), and only ends below the first; GLM4-9B falls at every step
+    # (PERF.md §6)
+    "starcoder2-15b": (1, 256, 5, TRAIN_S, 2, 3e-5,
+                       "15.65 B parameters are about 344 GB at 22 B each; 5 of 40 layers "
+                       "(2.22 B) fit"),
+    "glm4-9b": (1, 256, 8, TRAIN_S, 2, 3e-5,
+                "8.78 B parameters are about 193 GB; 8 of 40 layers (2.25 B) fit"),
+    "granite-34b": (1, 256, 5, TRAIN_S, 2, 3e-5,
+                    "33.66 B parameters are about 741 GB; 5 of 88 layers (2.20 B) fit"),
 }
 #: the MoE check's capacity factor: low enough that choices are dropped
 FAMILY_MOE_CHECK_CF = 0.5
@@ -569,6 +618,19 @@ GROUP_KEYS = {"q1": ("l_returnflag", "l_linestatus"), "q4": ("o_orderpriority",)
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+#: ``time.perf_counter()`` when ``main`` started
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Log the seconds since the script started and the generated kernels
+    built so far, at the end of ``what``."""
+    from repro_torch.kernels import build
+
+    log(f"[{time.perf_counter() - T_START:.1f} s since the start] {what} done "
+        f"({build.GEN_STATS['built']} generated kernels built)")
 
 
 # ---------------------------------------------------------------------------
@@ -943,6 +1005,30 @@ def phase_edges() -> None:
         "mixed": (col("d") <= 0.07) & (col("a") > -10.5) & ~col("flag"),
         "empty": col("a") > 1000,
     }
+    aggs3 = (AggSpec("sum", col("x") * 2.0, "s"), AggSpec("min", col("a"), "mn"),
+             AggSpec("max", col("x"), "mx"), AggSpec("count", const(1), "c"))
+    deep = deep_predicate()
+    gsa_args = {label: [] for label in preds}
+    for label, pred in preds.items():
+        for nb_keys, doms in ((("k",), ((0, 6),)), (("k", "a"), ((0, 6), (-50, 49))),
+                              (("fk", "a"), ((0, 99), (-2000, 1999)))):
+            nb = math.prod(hi - lo + 1 for lo, hi in doms)
+            gsa_args[label].append((t, pred, nb_keys, aggs, min(nb, 64), doms, nb))
+    border_args = [(t, col("a") > -20, ("fk",), aggs3, nb, ((-3, nb - 4),), nb)
+                   for nb, _ in GSA_BORDERS]
+    deep_args = (t, deep, ("k",), aggs3, 7, ((0, 6),), 7)
+    right, join_kws = _edge_join_cases(t, preds, rng)
+    # every kernel of the phase built at once (one nvcc each) before the
+    # first launch
+    t0 = time.perf_counter()
+    n_built = build_at_once(
+        [lambda pred=pred: ops.fused_select_agg(t, pred, aggs) for pred in preds.values()]
+        + [lambda: ops.fused_select_agg(t, deep, aggs3)]
+        + [lambda args=args: ops.grouped_select_agg(*args)
+           for args in [a for v in gsa_args.values() for a in v] + border_args + [deep_args]]
+        + [lambda kw=kw: ops.grouped_join_agg(t, right, **kw) for _, kw in join_kws])
+    log(f"edge cases: {n_built} generated kernels built at once in "
+        f"{time.perf_counter() - t0:.1f} s")
     checked = 0
     routes = {}
     for label, pred in preds.items():
@@ -953,13 +1039,8 @@ def phase_edges() -> None:
         if label == "empty" and not (float(got["mn"]) == float("inf")
                                      and float(got["mx"]) == float("-inf")):
             raise AssertionError("empty selection must give min=+inf, max=-inf")
-        for nb_keys, doms in ((("k",), ((0, 6),)),
-                              (("k", "a"), ((0, 6), (-50, 49))),
-                              (("fk", "a"), ((0, 99), (-2000, 1999)))):
-            nb = 1
-            for lo, hi in doms:
-                nb *= hi - lo + 1
-            args = (t, pred, nb_keys, aggs, min(nb, 64), doms, nb)
+        for args in gsa_args[label]:
+            nb = args[-1]
             got, took = routed(ops.grouped_select_agg, *args)
             compare_outputs(f"grouped_select_agg[{label},nb={nb}]", got,
                             ref.grouped_select_agg(*args))
@@ -967,22 +1048,18 @@ def phase_edges() -> None:
             checked += 1
     # the routes at their borders, a predicate deeper than the interpreter's
     # stack, and the fixed-order kernels run twice
-    aggs3 = (AggSpec("sum", col("x") * 2.0, "s"), AggSpec("min", col("a"), "mn"),
-             AggSpec("max", col("x"), "mx"), AggSpec("count", const(1), "c"))
-    for nb, route in GSA_BORDERS:
-        args = (t, col("a") > -20, ("fk",), aggs3, nb, ((-3, nb - 4),), nb)
+    for args, (nb, route) in zip(border_args, GSA_BORDERS):
         got, took = routed(ops.grouped_select_agg, *args)
         if took != [route]:
             raise AssertionError(f"grouped_select_agg with {nb} buckets took {took}, not {route}")
         compare_outputs(f"grouped_select_agg[border nb={nb}]", got, ref.grouped_select_agg(*args))
         routes[f"border, nb={nb}"] = took
         checked += 1
-    deep = deep_predicate()
     compare_outputs("fused_select_agg[deep predicate]", ops.fused_select_agg(t, deep, aggs3),
                     ref.fused_select_agg(t, deep, aggs3))
-    args = (t, deep, ("k",), aggs3, 7, ((0, 6),), 7)
-    got, took = routed(ops.grouped_select_agg, *args)
-    compare_outputs("grouped_select_agg[deep predicate]", got, ref.grouped_select_agg(*args))
+    got, took = routed(ops.grouped_select_agg, *deep_args)
+    compare_outputs("grouped_select_agg[deep predicate]", got,
+                    ref.grouped_select_agg(*deep_args))
     routes["deep predicate, nb=7"] = took
     checked += 2
     same_bits("fused_select_agg[mixed]", ops.fused_select_agg(t, preds["mixed"], aggs),
@@ -991,36 +1068,16 @@ def phase_edges() -> None:
     same_bits("grouped_select_agg[mixed, reg]", ops.grouped_select_agg(*args),
               ops.grouped_select_agg(*args))
     log(f"edge cases, grouped_select_agg routes: {json.dumps(routes)}")
-    # build side: duplicate keys (first occurrence wins), keys outside the
-    # probe's domain, a group key and a value on the build side
-    m = 64
-    rkeys = rng.integers(0, 30, m).astype(np.int32)
-    right = vectable_from_arrays(
-        {"rk": rkeys, "g": rng.integers(0, 3, m).astype(np.int32),
-         "w": rng.uniform(0, 5, m).astype(np.float32)},
-        rng.random(m) < 0.9, "cuda")
-    jaggs = (AggSpec("count", const(1), "c"), AggSpec("sum", col("w") * col("x"), "s"),
-             AggSpec("max", col("w"), "mx"), AggSpec("min", col("a"), "mn"))
-    # with three values, 7 groups take the reg route, 21 the smem one, and
-    # 400,000 (past the 48 KB of shared accumulators) the global one
     join_routes = {}
-    for label, pred in (("mixed", preds["mixed"]), ("none", None), ("empty", preds["empty"])):
-        for keys, doms in ((("k",), ((0, 6),)), (("g", "k"), ((0, 2), (0, 6))),
-                           (("fk", "a"), ((0, 99), (-2000, 1999)))):
-            nb = 1
-            for lo, hi in doms:
-                nb *= hi - lo + 1
-            kw = dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 29),),
-                      join_num_buckets=30, keys=keys, aggs=jaggs, max_groups=nb,
-                      key_domains=doms, num_buckets=nb, pred=pred)
-            got, took = routed(ops.grouped_join_agg, t, right, **kw)
-            compare_outputs(f"grouped_join_agg[{label},{'+'.join(keys)}]", got,
-                            ref.grouped_join_agg(t, right, **kw))
-            join_routes[f"{label}, nb={nb}"] = took
-            checked += 1
-            if label == "mixed" and took == ["gja_reg"]:
-                same_bits(f"grouped_join_agg[{label}, reg]", got,
-                          ops.grouped_join_agg(t, right, **kw))
+    for label, kw in join_kws:
+        got, took = routed(ops.grouped_join_agg, t, right, **kw)
+        compare_outputs(f"grouped_join_agg[{label},{'+'.join(kw['keys'])}]", got,
+                        ref.grouped_join_agg(t, right, **kw))
+        join_routes[f"{label}, nb={kw['num_buckets']}"] = took
+        checked += 1
+        if label == "mixed" and took == ["gja_reg"]:
+            same_bits(f"grouped_join_agg[{label}, reg]", got,
+                      ops.grouped_join_agg(t, right, **kw))
     want = {"gja_reg", "gja_smem", "gja_global"}
     if {r for took in join_routes.values() for r in took} != want:
         raise AssertionError(f"grouped_join_agg's edge cases took {join_routes}, not all of {want}")
@@ -1029,6 +1086,78 @@ def phase_edges() -> None:
         "and the reg routes of grouped_select_agg and grouped_join_agg give the same bits "
         "twice")
     report_generated("after the edge cases")
+
+
+class _Recorded(BaseException):
+    """Raised by ``build_at_once``'s first pass in place of a generated
+    kernel's build (not an ``Exception``: the wrappers' fault handling
+    lets it by)."""
+
+
+def build_at_once(calls) -> int:
+    """Build the generated kernels that ``calls`` (thunks of the relational
+    wrappers) would build at their first launch, one nvcc each and all at
+    once, so that the calls then find them built: a first pass runs each
+    call up to its kernel's build and notes the kernel's text instead, then
+    each distinct text not built yet is built in a thread of its own.  A
+    call whose kernel is already loaded runs whole in the first pass.
+    Returns how many kernels it built."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    real, texts = build.build_generated, {}
+
+    def note(family, text):
+        path = build.generated_path(family, text)
+        if not path.exists():
+            texts.setdefault(path, (family, text))
+        raise _Recorded
+
+    build.build_generated = note
+    try:
+        for call in calls:
+            try:
+                call()
+            except _Recorded:
+                pass
+    finally:
+        build.build_generated = real
+    if texts:
+        with ThreadPoolExecutor(len(texts)) as pool:
+            list(pool.map(lambda ft: real(*ft), texts.values()))
+    return len(texts)
+
+
+def _edge_join_cases(t, preds, rng):
+    """The edge phase's grouped_join_agg cases: the build side (duplicate
+    keys, first occurrence wins; keys outside the probe's domain; a group
+    key and a value on the build side) and [(label, keywords)].  With three
+    values, 7 groups take the reg route, 21 the smem one, and 400,000 (past
+    the 48 KB of shared accumulators) the global one."""
+    import numpy as np
+
+    from repro_torch.convert import vectable_from_arrays
+    from repro_torch.core.expr import AggSpec, col, const
+
+    m = 64
+    rkeys = rng.integers(0, 30, m).astype(np.int32)
+    right = vectable_from_arrays(
+        {"rk": rkeys, "g": rng.integers(0, 3, m).astype(np.int32),
+         "w": rng.uniform(0, 5, m).astype(np.float32)},
+        rng.random(m) < 0.9, "cuda")
+    jaggs = (AggSpec("count", const(1), "c"), AggSpec("sum", col("w") * col("x"), "s"),
+             AggSpec("max", col("w"), "mx"), AggSpec("min", col("a"), "mn"))
+    cases = []
+    for label, pred in (("mixed", preds["mixed"]), ("none", None), ("empty", preds["empty"])):
+        for keys, doms in ((("k",), ((0, 6),)), (("g", "k"), ((0, 2), (0, 6))),
+                           (("fk", "a"), ((0, 99), (-2000, 1999)))):
+            nb = math.prod(hi - lo + 1 for lo, hi in doms)
+            cases.append((label, dict(left_on=("fk",), right_on=("rk",),
+                                      join_key_domains=((0, 29),), join_num_buckets=30,
+                                      keys=keys, aggs=jaggs, max_groups=nb, key_domains=doms,
+                                      num_buckets=nb, pred=pred)))
+    return right, cases
 
 
 def phase_edges_la(pool) -> None:
@@ -2173,20 +2302,43 @@ def logit_rms_gap(glog, wlog) -> float:
 
 def exact_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     """Attention in f64, rounded once to q's dtype: the exactly rounded
-    answer, the yardstick of how far correct bf16 paths drift apart."""
+    answer, the yardstick of how far correct bf16 paths drift apart.  One
+    batch row and at most EXACT_SLICE_BYTES of f64 scores at a time: the
+    slices are independent, so the answer is one call's (Granite-34B's
+    (4, 48, 2048, 2048) scores are 6.4 GB in f64, and a call makes about
+    three such tensors)."""
     import math
 
     import torch
 
     from repro_torch.kernels import ref
 
-    d = q.shape[-1]
-    group = q.shape[1] // k.shape[1]
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    logits = (q.double() * scale) @ k.double().repeat_interleave(group, 1).transpose(-1, -2)
-    mask = ref.attention_mask(q.shape[2], causal, window, q.device)
-    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
-    return (p @ v.double().repeat_interleave(group, 1)).to(q.dtype)
+    mask = ref.attention_mask(s, causal, window, q.device)
+    step = max(1, EXACT_SLICE_BYTES // (s * s * 8))
+    out = torch.empty_like(q)
+    for i in range(b):
+        for h in range(0, hq, step):
+            kv = torch.arange(h, min(h + step, hq), device=q.device) // group
+            logits = (q[i, h:h + step].double() * scale) @ k[i, kv].double().transpose(-1, -2)
+            p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+            out[i, h:h + step] = (p @ v[i, kv].double()).to(q.dtype)
+    return out
+
+
+def ref_by_row(q, k, v, **kw):
+    """``ref.flash_attention`` one batch row at a time: the same function
+    (rows are independent), with one row's scores in memory at once
+    (Granite-34B's (4, 48, 2048, 2048) f32 scores whole, about three live
+    at once, would sit beside its 67.32 GB of weights)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    return torch.cat([ref.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                      for i in range(q.shape[0])])
 
 
 def compare_paths(label: str, got, want, exact, noise: float, gen: int = SERVE_GEN, *,
@@ -2244,9 +2396,12 @@ def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
     before and read just after (``flash_attention`` once per layer per
     wave; every call recorded, or with ``sample_calls`` the first wave's
     first and last layer's); then the
-    same parameters and prompts with the plain attention (``ref``), with
-    ``chunked`` where asked, and with f64 attention (the noise floor), each
-    path held to the plain one by phase 18's rule.  For an MoE config the
+    same parameters and prompts with the plain attention (``ref``, one
+    batch row at a time: ``ref_by_row``), with ``chunked`` where asked, and
+    with f64 attention (the noise floor), each path held to the plain one
+    by phase 18's rule.  ``init``'s temporaries are held to two f32
+    copies of its largest single draw (one layer of a stacked leaf), and
+    the phase's peak to the card's memory.  For an MoE config the
     plain and chunked paths first run as they fall: each path's routing
     flips against the plain path are counted and checked, and the logits
     they move printed; then f64 attention and each path run with the
@@ -2274,9 +2429,19 @@ def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
         base = replace(base, n_layers=layers_cut)
     t0 = time.perf_counter()
     model = build_model(replace(base, attn_mode="pallas"))
+    torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(_bytes(t) for t in _leaves(params))
+    init_temp = torch.cuda.max_memory_allocated() - held - param_bytes
+    draw = _largest_draw(params)
+    if init_temp > 8 * draw + (1 << 26):
+        raise AssertionError(f"{arch}: init held {init_temp / 1e9:.3f} GB of temporaries, over "
+                             f"two f32 copies of its largest single draw ({draw} elements)")
+    log(f"init {arch}: {init_temp / 1e9:.3f} GB of temporaries beside the "
+        f"{param_bytes / 1e9:.3f} GB of parameters; largest single draw {draw} elements "
+        f"({4 * draw / 1e9:.3f} GB in f32)")
     prompts = np.random.default_rng(0).integers(0, base.vocab, (requests_n, SERVE_PROMPT))
 
     def requests():
@@ -2285,7 +2450,7 @@ def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
     log(f"serving {arch}{f' at {layers_cut} layers' if layers_cut else ''}: "
         f"{n_params / 1e9:.4f} B parameters (ModelConfig.n_params(), which counts no norm or "
         f"bias: {base.n_params()}), {base.n_active_params() / 1e9:.4f} B active per token "
-        f"({base.dtype}, {sum(_bytes(t) for t in _leaves(params)) / 1e9:.3f} GB; "
+        f"({base.dtype}, {param_bytes / 1e9:.3f} GB; "
         f"{held / 1e9:.2f} GB held by earlier phases); {requests_n} requests × {SERVE_PROMPT} "
         f"prompt tokens, batch {SERVE_BATCH}, {gen} generated, cache {SERVE_CAP}; set-up "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2317,15 +2482,17 @@ def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
         f"{launches}; peak allocated {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held")
     report = {"card": smi, "pallas": _serve_numbers(tracer, wall, len(out), gen),
               "peak_allocated_gb": peak / 1e9, "held_gb": held / 1e9,
+              "init_temporaries_gb": init_temp / 1e9,
               "n_params": n_params, "n_active_params": base.n_active_params()}
     # the plain path and chunked as they run (for an MoE config: each
     # path's routing flips against the plain path's, and the logits those
     # flips move)
     runs = {"pallas": (out, logits, rec)}
+    modes = {"ref": ref_by_row, "chunked": "chunked"}
     for name in ("ref", "chunked") if chunked else ("ref",):
         with routing() as r:
-            res = _serve_once(build_model(replace(base, attn_mode=name)), params, requests(),
-                              gen)
+            res = _serve_once(build_model(replace(base, attn_mode=modes[name])), params,
+                              requests(), gen)
         runs[name] = (res[0], res[1], r)
         report[name] = _serve_numbers(res[2], res[3], len(res[0]), gen)
     plain = runs["ref"]
@@ -2382,6 +2549,29 @@ def serve_cell(arch: str, smi: str, *, layers_cut: int = 0,
             log(f"serving {arch} ({name} attention): prefill {x['prefill_ms_per_wave']:.3f} ms "
                 f"per wave, decode {x['decode_ms_per_step']:.3f} ms per step, "
                 f"{x['tokens_per_s']:.6g} tokens/s")
+    else:
+        r = report["pallas"]
+        flop = 2 * n_params * SERVE_BATCH * SERVE_PROMPT
+        report["bounds"] = {"prefill_flop": flop, "prefill_floor_ms": flop / PEAK_BF16_TC * 1e3,
+                            "decode_weight_bytes": param_bytes,
+                            "decode_floor_ms": param_bytes / PEAK_BYTES * 1e3}
+        log(f"serving {arch} ({smi}): prefill {r['prefill_ms_per_wave']:.3f} ms per wave "
+            f"({flop / r['prefill_ms_per_wave'] / 1e9:.1f} TFLOP/s of 2·N·tokens = {flop:.4g}; "
+            f"floor {flop / PEAK_BF16_TC * 1e3:.3f} ms at 989 TFLOP/s); decode "
+            f"{r['decode_ms_per_step']:.3f} ms per step (reads {param_bytes / 1e9:.2f} GB of "
+            f"weights: floor {param_bytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s); "
+            f"{r['tokens_per_s']:.6g} generated tokens/s; request latency p50 "
+            f"{r['latency_p50_s']:.4f} s, p99 {r['latency_p99_s']:.4f} s")
+        for name in paths[1:] + ["ref"]:
+            x = report[name]
+            log(f"serving {arch} ({name} attention): prefill {x['prefill_ms_per_wave']:.3f} ms "
+                f"per wave, decode {x['decode_ms_per_step']:.3f} ms per step, "
+                f"{x['tokens_per_s']:.6g} tokens/s")
+    phase_peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    report["phase_peak_gb"], report["card_gb"] = phase_peak / 1e9, card / 1e9
+    log(f"serving phase {arch}: peak allocated {phase_peak / 1e9:.3f} GB over every path "
+        f"({held / 1e9:.2f} GB held by earlier phases) of the card's {card / 1e9:.3f} GB")
     if check_block:
         x0 = rec["first"].reshape(SERVE_BATCH, SERVE_PROMPT, base.d_model)
         lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
@@ -2398,6 +2588,14 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+def _largest_draw(params) -> int:
+    """The elements of ``init``'s largest single draw: one layer of a
+    leaf stacked under ``"layers"`` (``stacked_init``), any other leaf
+    whole."""
+    return max([t[0].numel() for t in _leaves(params["layers"])]
+               + [t.numel() for k, v in params.items() if k != "layers" for t in _leaves(v)])
 
 
 def _serve_numbers(tracer, wall: float, served: int, gen: int = SERVE_GEN,
@@ -2509,6 +2707,17 @@ def phase_kernels(captured, launches, pool):
         for key, x in extra.items():
             a[key] = a.get(key, 0.0) + x if key == "read_floor_ms" else max(a.get(key, 0.0), x)
     log("kernel calls: " + json.dumps(rows))
+    own = phase_attention_route([c for c in captured if c[0] == "flash_attention"])
+    by_shape = {}
+    for r in rows:
+        if r["kernel"] == "flash_attention":
+            by_shape.setdefault(json.dumps(r["shapes"][:2]), []).append(r)
+    for shape, rs in by_shape.items():
+        log(f"flash_attention at q, k {shape}: {len(rs)} calls; mean wrapper "
+            + ", ".join(f"{k} {statistics.mean(r[k] for r in rs):.4f}"
+                        for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
+            + f" (library: SDPA with enable_gqa); own device ms of the first call "
+            + (f"{own[shape]:.4f}" if shape in own else "not measured (not bf16)"))
     out = []
     for name in REPLACES:
         a = agg[name]
@@ -2534,35 +2743,58 @@ def phase_kernels(captured, launches, pool):
         f"({km['bytes_ms'] * PEAK_BYTES / 1e3 / km['read_floor_ms'] / 1e9:.4g} TB/s); "
         f"kmeans_step wrapper {km['ms']:.4f} ms, {km['ms'] / km['read_floor_ms']:.3f}x the floor, "
         f"bound {km['bytes_ms']:.4f} ms")
-    own = phase_attention_route([c for c in captured if c[0] == "flash_attention"])
-    next(r for r in out if r["name"] == "flash_attention")["own_ms_by_head_width"] = own
+    next(r for r in out if r["name"] == "flash_attention")["own_ms_by_shape"] = own
     return out
 
 
 def phase_attention_route(calls) -> dict:
-    """The first served flash_attention call (bf16) of each head width (128;
-    112 from Zamba2-7B; 64 from Whisper-base) under torch.profiler, after a
-    warm-up window: its
-    device kernels must be the tensor-core kernel and not the CUDA-core
-    one.  Returns {D: {"shape", "own_ms"}}: the tensor-core kernel's own
-    device ms per call."""
+    """The first served flash_attention call (bf16) of each q and k shape
+    (head width 128 from the dense, MoE and VLM models, 112 from Zamba2-7B,
+    64 from Whisper-base), all in one torch.profiler window after a warm-up
+    window, each three times: each call's device kernel must be the
+    tensor-core one for its width (``fa_wgmma<D>``), and none the CUDA-core
+    one.  The calls run in order on one stream, so the n-th kernel of the
+    window is the n-th call's.  Returns {json of [q shape, k shape]:
+    ``fa_wgmma<D>``'s own device ms per call}."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
     from repro_torch.kernels import ops
 
+    reps = 3
     firsts = {}
     for _, args, kw in calls:
-        firsts.setdefault(args[0].shape[-1], (args, kw))
+        if args[0].dtype == torch.bfloat16:
+            firsts.setdefault(json.dumps([list(args[0].shape), list(args[1].shape)]),
+                              (args, kw))
+
+    def run():
+        for _ in range(reps):
+            for a, k in firsts.values():
+                ops.flash_attention(*a, **k)
+        torch.cuda.synchronize()
+
+    events = sorted((e for e in _profiled(run, [ProfilerActivity.CUDA]).events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = sorted({e.name for e in events})
+    if any(FA_CUDA_CORE in n for n in names):
+        raise AssertionError(f"served flash_attention calls ran {names}: {FA_CUDA_CORE} among "
+                             "them")
+    mine = [e for e in events if FA_TENSOR_CORE in e.name]
+    if len(mine) != reps * len(firsts):
+        raise AssertionError(f"{reps} × {len(firsts)} served flash_attention calls ran "
+                             f"{len(mine)} {FA_TENSOR_CORE} kernels ({names})")
     own = {}
-    for d, (args, kw) in sorted(firsts.items()):
-        times = device_ms_by_kernel(lambda: ops.flash_attention(*args, **kw))
-        names = sorted(times)
-        if not any(FA_TENSOR_CORE in n for n in names) or any(FA_CUDA_CORE in n for n in names):
-            raise AssertionError(f"a served flash_attention call at D = {d} ran {names}, not "
-                                 f"{FA_TENSOR_CORE}")
-        own[d] = {"shape": list(args[0].shape),
-                  "own_ms": sum(t for n, t in times.items() if FA_TENSOR_CORE in n)}
-        log(f"served flash_attention call (q {tuple(args[0].shape)}, {args[0].dtype}) ran on the "
-            f"card as: {names}; {FA_TENSOR_CORE}'s own device time {own[d]['own_ms']:.4f} ms a "
-            "call")
+    for j, (shape, (args, kw)) in enumerate(firsts.items()):
+        d = args[0].shape[-1]
+        ran = mine[j::len(firsts)]
+        if any(f"{FA_TENSOR_CORE}<{d}>" not in e.name for e in ran):
+            raise AssertionError(f"a served flash_attention call at q, k {shape} ran "
+                                 f"{[e.name for e in ran]}, not {FA_TENSOR_CORE}<{d}>")
+        own[shape] = sum(e.time_range.elapsed_us() for e in ran) / reps / 1e3
+        log(f"served flash_attention call (q, k {shape}, {args[0].dtype}) ran on the card as "
+            f"{ran[0].name}; its own device time {own[shape]:.4f} ms a call")
     return own
 
 
@@ -2762,10 +2994,13 @@ def phase_profile(workloads, captured) -> None:
 
 
 def _rel_gap(got, want) -> float:
-    """‖got − want‖ / ‖want‖ of two tensors, in f64 on the host."""
+    """‖got − want‖ / ‖want‖ of two tensors, in f64, on the card where
+    either is there (on the host that takes seconds a billion elements)."""
+    import torch
     from torch.linalg import vector_norm
 
-    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    dev = got.device if got.is_cuda else want.device
+    g, w = (t.detach().to(dev, torch.float64) for t in (got, want))
     return float(vector_norm(g - w) / max(float(vector_norm(w)), 1e-300))
 
 
@@ -3968,22 +4203,30 @@ def train_family(arch: str, smi: str) -> dict:
                          tree_map(lambda t: t.detach().double().cpu(), p2),
                          _family_batch(cfg2, 1, c_s, "cpu"))
     t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with routing(pin=pin if moe else None):
         host32 = _grads_of(build_model(cfg2), tree_map(lambda t: t.detach().cpu(), p2),
                            _family_batch(cfg2, 1, c_s, "cpu"))
+    t_host32 = time.perf_counter() - t0
     # the same code in f64 on the card: what parts it from the host's f64 is
     # the rounding of the f32 the models keep at f64 (norms, RoPE, logits)
+    t0 = time.perf_counter()
     with routing(pin=[(None, ti, po, ke) for _, ti, po, ke in rec["calls"]] if moe else None):
         card64 = _grads_of(build_model(replace(cfg2, dtype="float64")),
                            tree_map(lambda t: t.detach().double(), p2),
                            _family_batch(cfg2, 1, c_s, "cuda"))
+    torch.cuda.synchronize()
+    t_card64 = time.perf_counter() - t0
+    # the host's gradients on the card, once, for the gaps' f64 arithmetic
+    host, host32 = ((loss, tree_map(lambda t: t.cuda(), g)) for loss, g in (host, host32))
     what = (f"{c_depth} layers at full width, B=1, S={c_s}"
             + (f", capacity factor {FAMILY_MOE_CHECK_CF}, the host's routing pinned to the "
                f"card's" if moe else ""))
     rep["card_f64_vs_host_f64"] = _gap_report(f"{arch} card f64 vs host f64 ({what})", card64,
                                               host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL)
     rep["card_vs_host_f64"] = _gap_report(
-        f"{arch} card f32 vs host f64 ({what}; card {t_card:.2f} s, host {t_host:.1f} s)",
+        f"{arch} card f32 vs host f64 ({what}; card {t_card:.2f} s, host {t_host:.1f} s; host "
+        f"f32 {t_host32:.1f} s, card f64 {t_card64:.2f} s)",
         card, host, TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, witness=host32)
     if moe:
         dropped, made = _dropped(rec)
@@ -3996,6 +4239,7 @@ def train_family(arch: str, smi: str) -> dict:
     del card, card64, host, host32, p2, model2, rec, pin
     gc.collect()
     torch.cuda.empty_cache()
+    rep["check_s"] = time.perf_counter() - t_fam
 
     # 2. the bf16 cell at the depth that fits
     cfg = replace(base, n_layers=depth)
@@ -4078,7 +4322,7 @@ def train_family(arch: str, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     rep["phase_s"] = time.perf_counter() - t_fam
-    log(f"train {arch} took {rep['phase_s']:.1f} s")
+    log(f"train {arch} took {rep['phase_s']:.1f} s (the check {rep['check_s']:.1f} s)")
     return rep
 
 
@@ -5784,6 +6028,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
     a = ap.parse_args()
+    global T_START
+    T_START = time.perf_counter()
 
     # The families' training runs within a few GB of the card's memory; with
     # fixed-size segments the caching allocator once left 18 GB reserved
@@ -5813,13 +6059,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
+    stamp("build")
     with ThreadPoolExecutor(8) as pool:
         phase_edges()
         phase_edges_la(pool)
         phase_edges_attention()
+        stamp("edge cases")
         tables, ctx, frames, launches, captured = phase_main_path(a.sf)
         km_launches, km_captured, seg_inputs, km_times, km_step = phase_kmeans(pool)
         seg_launches, seg_captured = phase_segsum(seg_inputs)
+        stamp("TPC-H, k-means and segsum paths")
         t0 = time.perf_counter()
         determinism = phase_determinism()
         log(f"determinism phase took {time.perf_counter() - t0:.1f} s: " + json.dumps(determinism))
@@ -5828,6 +6077,7 @@ def main() -> int:
         phase_plan_cache(frames, a.reps)
         phase_dict(a.reps)
         phase_sql(tables, ctx)
+        stamp("parallel, tiers, plan cache, dict and SQL")
         driver_s = {}
         for name, run in (("cost", lambda: phase_cost(tables, ctx, frames, min(a.reps, 3))),
                           ("admission", lambda: phase_admission(tables, ctx, frames)),
@@ -5844,29 +6094,40 @@ def main() -> int:
         stream_launches = phase_stream(tables, ctx, frames, a.reps)
         log(f"stream phase took {time.perf_counter() - t0:.1f} s")
         spmd_launches = phase_spmd(tables, frames, a.reps, pool, smi)
+        stamp("driver, stream and spmd phases")
         fa_launches, fa_captured, serve_report, serve_wave = serve_cell(SERVE_ARCH, smi)
         train_report = phase_train(smi, a.profile)
         if not a.profile:
             serve_wave = None  # frees Qwen2-1.5B's served parameters before the MoE phases
+        stamp("Qwen2-1.5B served and trained")
         phase_sharded_train(smi)
-        for run in (lambda: serve_cell(MOE_ARCH, smi, check_block=True, sample_calls=True),
-                    lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
-                                       requests_n=SERVE_BATCH, gen=MIXTRAL_GEN, chunked=False,
-                                       sample_calls=True),
-                    lambda: phase_vlm(smi),
-                    lambda: phase_zamba2(smi),
-                    lambda: phase_rwkv(smi),
-                    lambda: phase_whisper(smi)):
+        stamp("sharded training")
+        phases = {
+            MOE_ARCH: lambda: serve_cell(MOE_ARCH, smi, check_block=True, sample_calls=True),
+            MIXTRAL_ARCH: lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
+                                             requests_n=SERVE_BATCH, gen=MIXTRAL_GEN,
+                                             chunked=False, sample_calls=True),
+            VLM_ARCH: lambda: phase_vlm(smi),
+            ZAMBA_ARCH: lambda: phase_zamba2(smi),
+            RWKV_ARCH: lambda: phase_rwkv(smi),
+            WHISPER_ARCH: lambda: phase_whisper(smi),
+            **{a: lambda a=a, kw=kw: serve_cell(a, smi, gen=DENSE_GEN, sample_calls=True, **kw)
+               for a, kw in DENSE_SERVE.items()},
+        }
+        for arch, run in phases.items():
             n, calls = run()[:2]  # the rest holds the model: dropped before the next phase
             fa_launches += n
             fa_captured += calls
+            stamp(f"{arch}'s phase")
         families_report = phase_train_families(smi)
+        stamp("training the families")
         launches.update(kmeans_step=km_launches["kmeans_step"], segsum=seg_launches["segsum"],
                         flash_attention=fa_launches)
         for k, n in list(stream_launches.items()) + list(spmd_launches.items()):
             launches[k] += n
         captured += km_captured + seg_captured + fa_captured
         kernels = phase_kernels(captured, launches, pool)
+        stamp("kernels against their plain versions")
     phase_queries(tables, frames, a.reps)
     report_kmeans(km_times)
     report_serve(serve_report)

@@ -17,7 +17,8 @@ one query's kernel
 use into ``gen/<family>-<hash>.so`` under the same directory, named by a
 hash of the flags, the text and every header of ``csrc/`` it includes,
 and reuses a library that exists.  Each family has one fixed C entry
-point (``GEN_ENTRY``), so the ctypes signatures stay static.
+point (``GEN_ENTRY``), so the ctypes signatures stay static.  Several
+threads may build distinct texts at once.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -73,6 +75,7 @@ GEN_HELPERS = {
 #: generated libraries compiled and reused by this process, and the
 #: seconds spent in nvcc for them
 GEN_STATS: Dict[str, float] = {"built": 0, "reused": 0, "nvcc_s": 0.0, "nvcc_max_s": 0.0}
+_GEN_STATS_LOCK = threading.Lock()
 
 #: where the CUDA toolkit installs nvcc by default
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -203,7 +206,8 @@ def build_generated(family: str, text: str) -> ctypes.CDLL:
     with card_fault(KernelBuildError, f"generated {family} kernel"):
         path = generated_path(family, text)
         if path.exists():
-            GEN_STATS["reused"] += 1
+            with _GEN_STATS_LOCK:
+                GEN_STATS["reused"] += 1
         else:
             path.parent.mkdir(parents=True, exist_ok=True)
             src = path.with_suffix(".cu")
@@ -213,15 +217,17 @@ def build_generated(family: str, text: str) -> ctypes.CDLL:
             proc = subprocess.run([nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             took = time.perf_counter() - t0
-            GEN_STATS["nvcc_s"] += took
-            GEN_STATS["nvcc_max_s"] = max(GEN_STATS["nvcc_max_s"], took)
+            with _GEN_STATS_LOCK:
+                GEN_STATS["nvcc_s"] += took
+                GEN_STATS["nvcc_max_s"] = max(GEN_STATS["nvcc_max_s"], took)
             path.with_suffix(".log").write_text(proc.stdout)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise KernelBuildError(f"generated {family} kernel build failed (nvcc "
                                        f"exit {proc.returncode}, source {src}):\n{proc.stdout}")
             os.replace(tmp, path)
-            GEN_STATS["built"] += 1
+            with _GEN_STATS_LOCK:
+                GEN_STATS["built"] += 1
         lib = ctypes.CDLL(str(path))
         fn_name, argtypes = GEN_ENTRY[family]
         getattr(lib, fn_name).argtypes = argtypes

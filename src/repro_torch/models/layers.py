@@ -4,8 +4,8 @@ The port's copy of ``repro/models/layers.py``: pure functions over
 explicit parameter dicts of tensors.  Initialisers take a
 ``torch.Generator`` and a ``lead`` shape, so the per-layer leaves of a
 model are made stacked on a leading ``L`` axis (the JAX package stacks
-them with ``jax.vmap``): the dense leaves in one draw, the experts' one
-leading index at a time (``stacked_init``).  On DTensors (the sharded train
+them with ``jax.vmap``), each stacked leaf drawn one leading index at a
+time (``stacked_init``).  On DTensors (the sharded train
 step) the attention's head views and the attention itself go through
 ``models/sharding.py``'s helpers; on plain tensors they are the plain
 reshapes and call.
@@ -46,7 +46,8 @@ def stacked_init(gen: torch.Generator, lead: Tuple[int, ...], shape: Sequence[in
     """``dense_init`` of ``lead + shape``, drawn one leading index at a
     time into a leaf of ``dtype``: the f32 draw is one index's, not the
     whole leaf's (at Moonlight's width one stacked expert leaf is 8.86 G
-    elements, a 35.4 GB f32 draw)."""
+    elements, a 35.4 GB f32 draw; Granite-34B's stacked ``w_up`` is a
+    53.15 GB one, and a layer of it 0.60 GB)."""
     shape = tuple(shape)
     if not lead:
         return dense_init(gen, shape, dtype=dtype)
@@ -134,10 +135,10 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int, 
                    qkv_bias: bool = False, dtype: torch.dtype = torch.float32,
                    lead: Tuple[int, ...] = ()) -> Params:
     p = {
-        "wq": dense_init(gen, lead + (d_model, n_heads * d_head), dtype=dtype),
-        "wk": dense_init(gen, lead + (d_model, n_kv * d_head), dtype=dtype),
-        "wv": dense_init(gen, lead + (d_model, n_kv * d_head), dtype=dtype),
-        "wo": dense_init(gen, lead + (n_heads * d_head, d_model), dtype=dtype),
+        "wq": stacked_init(gen, lead, (d_model, n_heads * d_head), dtype),
+        "wk": stacked_init(gen, lead, (d_model, n_kv * d_head), dtype),
+        "wv": stacked_init(gen, lead, (d_model, n_kv * d_head), dtype),
+        "wo": stacked_init(gen, lead, (n_heads * d_head, d_model), dtype),
     }
     if qkv_bias:
         for name, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
@@ -226,13 +227,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str = "swi
              dtype: torch.dtype = torch.float32, lead: Tuple[int, ...] = ()) -> Params:
     if mlp_type == "swiglu":
         return {
-            "w_gate": dense_init(gen, lead + (d_model, d_ff), dtype=dtype),
-            "w_up": dense_init(gen, lead + (d_model, d_ff), dtype=dtype),
-            "w_down": dense_init(gen, lead + (d_ff, d_model), dtype=dtype),
+            "w_gate": stacked_init(gen, lead, (d_model, d_ff), dtype),
+            "w_up": stacked_init(gen, lead, (d_model, d_ff), dtype),
+            "w_down": stacked_init(gen, lead, (d_ff, d_model), dtype),
         }
     return {
-        "w_up": dense_init(gen, lead + (d_model, d_ff), dtype=dtype),
-        "w_down": dense_init(gen, lead + (d_ff, d_model), dtype=dtype),
+        "w_up": stacked_init(gen, lead, (d_model, d_ff), dtype),
+        "w_down": stacked_init(gen, lead, (d_ff, d_model), dtype),
     }
 
 

@@ -746,6 +746,19 @@ def test_flash_attention_on_card(card, s, d, group, dtype, causal, window, scale
                                                      sm_scale=scale), v)
 
 
+@pytest.mark.parametrize("hq,hkv", [(48, 4), (32, 2), (48, 1)])
+def test_flash_attention_at_the_dense_configs_served_heads_on_card(card, hq, hkv):
+    """StarCoder2-15B's (group 12), GLM4-9B's (16) and Granite-34B's (MQA,
+    48) query and kv heads at D = 128, causal, S = 2048 in bf16: one
+    launch of the tensor-core kernel, against the plain version."""
+    q, k, v = _attention_inputs(card, 1, hq, hkv, 2048, 128, torch.bfloat16, seed=hq + hkv)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    _assert_attention_close(got, ref.flash_attention(q, k, v, causal=True), v)
+
+
 @pytest.mark.parametrize("s,group", [(1, 1), (200, 4), (2048, 1), (2048, 4)])
 @pytest.mark.parametrize("window", [None, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

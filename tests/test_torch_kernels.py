@@ -329,6 +329,54 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
         build.nvcc()
 
 
+def test_chip_smoke_builds_each_distinct_kernel_once_and_at_once(monkeypatch):
+    """``chip_smoke.py``'s ``build_at_once`` builds the kernel each
+    relational call would build at its first launch, each distinct text
+    once and all at once (each build here waits at a barrier for the
+    others), and leaves the builder as it found it.  Two calls whose
+    queries differ only in an aggregate's name give one text and one
+    build; a call whose kernel is loaded already runs whole."""
+    import importlib.util
+    import threading
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    (lcols, lvalid), (rcols, rvalid) = _tables()
+    left, right = _torch_table(lcols, lvalid), _torch_table(rcols, rvalid)
+    pred = (texpr.col("d") <= 0.07) & (texpr.col("a") > -10.5)
+    one = (texpr.AggSpec("sum", texpr.col("x"), "a"),)
+    two = one + (texpr.AggSpec("sum", texpr.col("x"), "b"),)
+    jkw = dict(left_on=("fk",), right_on=("rk",), join_key_domains=((0, 29),),
+               join_num_buckets=30, keys=("g",), aggs=one, max_groups=3,
+               key_domains=((0, 2),), num_buckets=3, pred=pred)
+    calls = [lambda: ops.fused_select_agg(left, pred, one),
+             lambda: ops.fused_select_agg(left, pred, two),  # the same text as the first
+             lambda: ops.grouped_select_agg(left, pred, ("k",), one, 7, ((0, 6),), 7),
+             lambda: ops.grouped_join_agg(left, right, **jkw)]
+    built = []
+    barrier = threading.Barrier(3, timeout=30)
+
+    def fake_build(family, text):
+        barrier.wait()  # returns only once all three builds run at once
+        built.append((family, text))
+        raise RuntimeError("built, not loaded")
+
+    monkeypatch.setattr(ops, "_QUERIES", {})
+    monkeypatch.setattr(ops, "_on_card", lambda *tables: True)
+    monkeypatch.setattr(build, "build_generated", fake_build)
+    with pytest.raises(RuntimeError, match="built, not loaded"):
+        smoke.build_at_once(calls)
+    assert build.build_generated is fake_build
+    assert sorted(f for f, _ in built) == ["fused_select_agg", "grouped_join_agg",
+                                           "grouped_select_agg"]
+    assert len({build.generated_path(*b) for b in built}) == 3
+    ran = []
+    assert smoke.build_at_once([lambda: ran.append(1)]) == 0 and ran == [1]
+
+
 # ---------------------------------------------------------------------------
 # segsum on the tensor cores: its recipe against the Pallas kernel
 # ---------------------------------------------------------------------------

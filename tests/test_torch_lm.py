@@ -6,7 +6,8 @@ that path untested), and ``params_from_jax`` carries the tree across.
 Forward logits, prefill logits and cache, and teacher-forced decode steps
 are held to JAX at rtol/atol 2e-3 (``tests/test_models_smoke.py``), with
 the port's attention as the kernel's plain version (``pallas``) and as
-``chunked``; one served wave gives JAX's greedy tokens exactly.
+``chunked``; one served wave of each dense config gives JAX's greedy
+tokens exactly.
 """
 
 import dataclasses
@@ -177,8 +178,9 @@ def test_rmsnorm_casts_back_before_the_weight():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=0)
 
 
-def test_served_wave_gives_jax_greedy_tokens():
-    jcfg, params, tcfg, tp = _models("qwen2-1.5b", "pallas", seed=7)
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_reduced(a).family == "dense"])
+def test_served_wave_gives_jax_greedy_tokens(arch):
+    jcfg, params, tcfg, tp = _models(arch, "pallas", seed=7)
     batch, plen, gen, cap = 4, 8, 6, 16
     prompts = np.random.default_rng(0).integers(0, jcfg.vocab, (3, plen))
 
@@ -199,6 +201,39 @@ def test_served_wave_gives_jax_greedy_tokens():
     assert sorted(got) == [10, 11, 12]
     for i in range(3):
         np.testing.assert_array_equal(got[10 + i], want[i])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "glm4-9b"])
+def test_dense_init_draws_one_layer_at_a_time(arch, monkeypatch):
+    """The stacked attention and MLP leaves are drawn one layer at a time
+    (``stacked_init``): the largest f32 draw is one layer's leaf, never the
+    whole stack, each layer is a draw of its own, and each layer's values
+    have std 1/√fan_in with fan_in the per-layer shape's rows."""
+    cfg = dataclasses.replace(get_reduced(arch), n_layers=3)
+    sizes = []
+    randn = torch.randn
+
+    def counted(*shape, **kw):
+        out = randn(*shape, **kw)
+        sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "randn", counted)
+    gen = torch.Generator("cpu").manual_seed(0)
+    lead = (cfg.n_layers,)
+    attn = layers.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                 dtype=torch.float32, lead=lead)
+    mlp = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype=torch.float32,
+                          lead=lead)
+    leaves = {**attn, **mlp}
+    assert len(sizes) == len(leaves) * cfg.n_layers
+    assert max(sizes) == max(t[0].numel() for t in leaves.values())
+    for name, t in leaves.items():
+        assert t.shape[0] == cfg.n_layers, name
+        for i in range(cfg.n_layers):
+            std = float(t[i].std())
+            assert abs(std * np.sqrt(t.shape[-2]) - 1.0) < 0.05, (name, i, std)
+        assert not torch.equal(t[0], t[1]), name
 
 
 def test_serve_step_is_greedy():

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, on the CPU.
 
-Reduced dense configs (Qwen2-1.5B's, with QKV biases, and StarCoder2's,
-with a GELU MLP) in f32.  JAX initialises the parameters and makes the
+Reduced dense configs (Qwen2-1.5B's, with QKV biases, StarCoder2's, with
+a GELU MLP, GLM4's, with no QKV bias, and Granite's, MQA over 3 layers)
+in f32.  JAX initialises the parameters and makes the
 batches; the QKV biases are then set to random values (JAX makes them
 zero, which would leave their gradients untested), and
 ``params_from_jax`` carries parameters and AdamW state across.
@@ -44,7 +45,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.api import build_model, make_train_step, value_and_grad  # noqa: E402
 from repro_torch.train.optimizer import SGD, AdamW, tree_leaves  # noqa: E402
 
-ARCHS = ["qwen2-1.5b", "starcoder2-15b"]
+ARCHS = ["qwen2-1.5b", "starcoder2-15b", "glm4-9b", "granite-34b"]
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6
 UPD_RTOL, UPD_ATOL = 2e-3, 1e-2
