@@ -217,14 +217,35 @@ Phases, each printing its own lines:
    the one-device step (rtol 1e-5, ‖Δ‖/‖g‖ ≤ 1e-5), the dropped choices
    on every rank equal to the one-device step's, then a warm-up and 2
    AdamW steps: step ms, the collectives a step (equal to the dry-run's
-   of the cut cell) and peak GB per rank;
-21. the MoE family at full width and depth: Moonlight-16B-A3B
-   (``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 48 layers, 64 experts,
+   of the cut cell) and peak GB per rank; last the hybrid over the same
+   mesh: Zamba2-7B's widths at 2 of 81 layers (the shared block at layer
+   0), the Mamba2 mixer per rank (``sharding.per_rank_mamba``: in_proj's
+   output gathered over model, 56 of 112 SSM heads a rank, the norm's sum
+   of squares all-reduced); in f32 the loss and each gradient leaf against
+   the one-device step on rank 0 (rtol 1e-5; each leaf within 1e-5 or 4×
+   the one-device f32 step's own distance from its f64 step), then a
+   warm-up and 2 timed bf16 AdamW steps (step ms, the collectives a step
+   equal to the dry-run's of the cut cell, peak GB per rank); then the
+   bf16 prefill of 4 × 2048 seeded tokens with attn_mode="pallas" over the
+   mesh, each rank launching flash_attention (fa_wgmma<112>, 16 of 32
+   heads) once (checked; the launches added to the kernels line), that
+   call's local inputs (2, 16, 2048, 112) held to the plain version on
+   every rank by phase 28's bf16 rule (rank 0's call also timed and
+   reported there, its own row of the kernels line's shapes), its
+   state in ``cache_specs``' placements (checked), and 4 decode steps fed
+   the same seeded tokens, the logits' RMS distance from the one-device
+   run of the same weights in f32 within 1.5× the one-device bf16 run's
+   (or 5 % of their std: phase 18's rule over RMS distances from f32,
+   since the sharded run rounds every row-split product's partial sums to
+   bf16 and this random hybrid's bf16 logits lie tenths of their std from
+   f32's);
+21. the MoE family at full width: Moonlight-16B-A3B at 24 of its 48 layers
+   (``MOE_SERVE_LAYERS``; ``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 64 experts,
    top-6, bf16, parameters from ``model.init`` with seed 0), after the
    earlier phases' models are freed, served with ``attn_mode="pallas"``
    as phase 18 serves Qwen2-1.5B (the same traffic, ``make_run_wave`` and
-   ``serve_loop``, a warm-up wave), ``flash_attention`` launched 48 times a
-   wave; the plain path (``ref``) and ``chunked`` as they run, each
+   ``serve_loop``, a warm-up wave), ``flash_attention`` launched once a
+   layer a wave; the plain path (``ref``) and ``chunked`` as they run, each
    path's (token, layer) routing flips against the plain path counted over
    the prefill's tokens and the decode steps fed the same tokens, each flip
    at a plain-path top-k margin p_(k) − p_(k+1) no larger than the two
@@ -251,11 +272,11 @@ Phases, each printing its own lines:
    18's rule; then ``serve_loop`` through ``make_run_wave``'s vlm branch,
    which decodes from an empty cache with a zero token and no prefill, as
    JAX's launcher does: every request the same tokens;
-24. the hybrid family: Zamba2-7B (``configs/zamba2_7b.py`` ``CONFIG``, 81
-   Mamba2 layers, the shared attention + MLP at 14 points with d_head 112,
-   bf16, 6.63 B parameters from ``model.init`` with seed 0, drawn layer by
-   layer): ``model.prefill`` on 4 × 2048 numpy-seeded tokens, then 32 greedy
-   decode steps from that state; pallas (``flash_attention`` 14 times at
+24. the hybrid family: Zamba2-7B (``configs/zamba2_7b.py`` ``CONFIG`` at 39
+   of its 81 Mamba2 layers, the shared attention + MLP at 7 points with
+   d_head 112, bf16, parameters from ``model.init`` with seed 0, drawn layer
+   by layer): ``model.prefill`` on 4 × 2048 numpy-seeded tokens, then 32
+   greedy decode steps from that state; pallas (``flash_attention`` 7 times at
    (4, 32, 2048, 112), counted), the plain path, f64 attention and
    chunked, held by phase 18's rule; the D = 112 call's ms and TFLOP/s
    beside the same shape at D = 128; ``ssd_chunked`` alone at a layer's
@@ -290,10 +311,10 @@ Phases, each printing its own lines:
    full model in bf16 (AdamW lr 3e-3, remat, ``chunked``) for a warm-up
    and 4 steps at B = 16, S = 448, launching no kernel: losses finite and
    falling, step ms, tokens/s, peak GB, model-FLOPs share;
-26b. the dense family's other configs at full width and depth
-   (``DENSE_SERVE``), as phase 18 serves Qwen2-1.5B but with 16 greedy
-   tokens: StarCoder2-15B (40 layers, group 12) and GLM4-9B (40, group 16)
-   8 requests in waves of 4, Granite-34B (88, MQA: group 48; 67.32 GB) one
+26b. the dense family's other configs at full width (``DENSE_SERVE``), as
+   phase 18 serves Qwen2-1.5B but with 16 greedy tokens: StarCoder2-15B
+   (group 12) and GLM4-9B (group 16) whole (40 layers each), 8 requests
+   in waves of 4, Granite-34B (88, MQA: group 48; 67.32 GB) one
    wave of 4; ``flash_attention`` once per layer per
    wave, the first wave's first and last layer's calls recorded; the
    plain path, f64 attention (a batch row and at most 1 GB of f64 scores
@@ -306,8 +327,8 @@ Phases, each printing its own lines:
    Moonlight-16B-A3B, Qwen2-VL-7B (the launcher's stub embeddings and
    ``positions3``), Zamba2-7B (``chunked`` attention: the kernel has no
    backward), RWKV6-1.6B, StarCoder2-15B, GLM4-9B and Granite-34B, each
-   at full width: 1 or 2 layers in f32 on
-   the card against f64 on the host (the train phase's rule, or up to
+   at full width: 1 layer in f32 on the card (cut from 2 for the
+   script's time) against f64 on the host (the train phase's rule, or up to
    WITNESS_FACTOR times the host's own f32 distance from f64 where that
    is larger) and in f64 on the card against the same (the train phase's
    rule); Moonlight at capacity factor 0.5 with its drops counted, the
@@ -470,8 +491,9 @@ REMAT_RTOL, MICRO_LOSS_RTOL, MICRO_GRAD_REL = 1e-6, 1e-5, 1e-4
 #: the launcher's bf16 resume against the uninterrupted run: loss rtol of
 #: two bf16 roundings (the embedding's gradient is added by atomics)
 RESUME_LOSS_RTOL = 2.0 ** -7
-#: the MoE family: Moonlight-16B-A3B served at full width and depth with the
-#: serving path's traffic (SERVE_*); Mixtral-8x7B at full width and
+#: the MoE family: Moonlight-16B-A3B served at full width and
+#: MOE_SERVE_LAYERS of its 48 layers with the serving path's traffic
+#: (SERVE_*); Mixtral-8x7B at full width and
 #: MIXTRAL_LAYERS of its 32 layers (all 32 are 93.1 GB in bf16), one wave
 #: of SERVE_BATCH prompts and MIXTRAL_GEN decode steps
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -490,12 +512,13 @@ MOE_F64_MARGIN, MOE_F32_REL = 1e-5, 1e-5
 #: SERVE_PROMPT stub embeddings, a VLM_GRID × VLM_GRID image then text,
 #: VLM_GEN decode steps
 VLM_ARCH, VLM_GRID, VLM_GEN = "qwen2-vl-7b", 32, 32
-#: the hybrid family: Zamba2-7B at full width and depth (81 Mamba2 layers,
-#: the shared attention at 14 points with d_head 112), SERVE_BATCH ×
+#: the hybrid family: Zamba2-7B at full width and ZAMBA_SERVE_LAYERS of its
+#: 81 Mamba2 layers (the shared attention at 7 of its 14 points, d_head 112;
+#: cut for the script's time, as MOE_SERVE_LAYERS), SERVE_BATCH ×
 #: SERVE_PROMPT tokens, ZAMBA_GEN decode steps; ssd_chunked alone, f32
 #: against f64 on the card, within ‖Δ‖ ≤ SSD_REL·‖y‖ (f32 rounding of a
 #: 64-term chunk sum gives about 1e-6)
-ZAMBA_ARCH, ZAMBA_GEN, SSD_REL = "zamba2-7b", 32, 1e-5
+ZAMBA_ARCH, ZAMBA_SERVE_LAYERS, ZAMBA_GEN, SSD_REL = "zamba2-7b", 39, 32, 1e-5
 #: the RWKV family: RWKV6-1.6B at full width and depth, SERVE_BATCH ×
 #: RWKV_PROMPT tokens, RWKV_GEN decode steps; against the same weights in
 #: f64 on the card, over the steps fed the same tokens: the f32 logits
@@ -516,12 +539,17 @@ RWKV_F32_REL, RWKV_BF16_RMS = 1e-4, 0.15
 WHISPER_ARCH = "whisper-base"
 WHISPER_REQUESTS, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN, WHISPER_CAP = 32, 16, 1500, 64, 448
 WHISPER_TRAIN_B, WHISPER_TRAIN_STEPS = 16, 4
-#: the dense family's other three configs at full width and depth through
+#: the dense family's other three configs at full width through
 #: flash_attention at D = 128 and groups 12, 16 and 48: StarCoder2-15B and
-#: GLM4-9B with the serving path's requests (SERVE_*), Granite-34B (67.32
-#: GB in bf16, the largest config one card holds whole) one wave of
-#: SERVE_BATCH; DENSE_GEN tokens each
+#: GLM4-9B whole (40 layers each) with the serving path's
+#: requests (SERVE_*), Granite-34B whole (67.32 GB in bf16, the largest
+#: config one card holds whole) one wave of SERVE_BATCH; DENSE_GEN tokens
+#: each
 DENSE_SERVE = {"starcoder2-15b": {}, "glm4-9b": {}, "granite-34b": {"requests_n": SERVE_BATCH}}
+#: Moonlight-16B-A3B's served depth: cut from 48 for the script's time
+#: beside the sharded hybrid phase, on a card whose host builds and runs
+#: slower (PERF.md §6)
+MOE_SERVE_LAYERS = 24
 #: exact_attention's f64 scores per slice: at most this many bytes
 EXACT_SLICE_BYTES = 1 << 30
 #: the sharded train step: Qwen2-1.5B's full widths at SHARDED_DEPTH of its
@@ -547,6 +575,26 @@ SHARDED_JOIN_S = 900
 #: B = TRAIN_B, S = TRAIN_S, microbatch SHARDED_MICRO: the f32 step against
 #: the one-device step, then SHARDED_MOE_STEPS timed f32 steps
 SHARDED_MOE_DEPTH, SHARDED_MOE_STEPS = 1, 2
+#: the sharded hybrid: Zamba2-7B's full widths at SHARDED_HYBRID_DEPTH of its
+#: 81 layers (the shared block at layer 0) on the same mesh, the Mamba2 mixer
+#: per rank (sharding.per_rank_mamba: 56 of 112 SSM heads a rank).  The f32
+#: step against the one-device step on rank 0, B = TRAIN_B, S = TRAIN_S,
+#: microbatch SHARDED_MICRO: the loss rtol TRAIN_LOSS_RTOL, each gradient
+#: leaf ‖Δ‖/‖g‖ within TRAIN_GRAD_REL or WITNESS_FACTOR × the one-device f32
+#: step's own distance from its f64 step on the card (the random Mamba
+#: layers carry f32's rounding past TRAIN_GRAD_REL: WITNESS_FACTOR's note);
+#: then a warm-up and SHARDED_HYBRID_STEPS timed bf16 AdamW steps; then the
+#: bf16 prefill of TRAIN_B × TRAIN_S numpy-seeded tokens with
+#: attn_mode="pallas" over the mesh (the shared attention per rank:
+#: flash_attention at 16 of 32 heads a rank, once a prefill) and
+#: SHARDED_DECODE_STEPS decode steps fed the same seeded tokens: the logits'
+#: RMS distance from the one-device run of the same weights in f32 within the
+#: larger of LOGIT_STD_SHARE of their std and NOISE_FACTOR × the one-device
+#: bf16 run's own (phase 18's rule over RMS distances from f32: this random
+#: hybrid's bf16 logits lie tenths of their std from f32's, and the sharded
+#: run rounds every row-split product's partial sums to bf16 before they
+#: are added over the ranks, so two bf16 runs differ by about twice that)
+SHARDED_HYBRID_DEPTH, SHARDED_HYBRID_STEPS, SHARDED_DECODE_STEPS = 2, 2, 4
 #: training the MoE, VLM, hybrid and RWKV families and the dense configs
 #: other than Qwen2-1.5B on the card, per arch:
 #: (the card-vs-host check's depth and S at B = 1, the bf16 cell's depth,
@@ -564,12 +612,12 @@ FAMILY_TRAIN = {
     # moved by about lr, at d = 3584) drops the loss far and the next steps
     # climb (3e-3: 12.56, 7.22, 28.58, 15.78 on an H100 80GB HBM3 at 700 W);
     # at 3e-5 it falls at every step (PERF.md §6, PR 27)
-    "qwen2-vl-7b": (2, 256, 8, TRAIN_S, 3, 3e-5,
+    "qwen2-vl-7b": (1, 256, 8, TRAIN_S, 3, 3e-5,
                     "7.07 B parameters are about 156 GB; 8 of 28 layers (2.41 B) fit"),
-    "zamba2-7b": (2, 256, 24, TRAIN_S, 3, TRAIN_LR,
+    "zamba2-7b": (1, 256, 24, TRAIN_S, 3, TRAIN_LR,
                   "6.64 B parameters are about 146 GB; 24 of 81 layers (4 shared-attention "
                   "points, 2.19 B) fit"),
-    "rwkv6-1.6b": (2, 256, 8, 256, 2, TRAIN_LR,
+    "rwkv6-1.6b": (1, 256, 8, 256, 2, TRAIN_LR,
                    "8 of 24 layers (0.57 B) and S cut to 256: the time scan's backward is an "
                    "S-step autograd chain a layer at the host's launch rate, 58.0 s a step at "
                    "S = 2048 and 14.6-16.1 s at 512 on an H100, 9.0 s at 256 and 24 layers, "
@@ -1129,6 +1177,25 @@ def build_at_once(calls) -> int:
     return len(texts)
 
 
+def prebuild_plans(frames) -> int:
+    """``build_at_once`` over whole plans: each frame collected on the card
+    (no plan cache) under the strategies the later phases collect the six
+    queries under stops at its first generated kernel not yet built, so
+    passes repeat, each building what it noted at once, until a pass notes
+    none; a plan left out builds its kernels at first use.  Returns how
+    many it built."""
+    variants = ({}, {"parallel": PARALLEL}, {"strategy": SORTED},
+                {"parallel": PARALLEL, "strategy": SORTED},
+                {"strategy": {"fuse": "unfused"}}, {"strategy": {"encode": "dict"}})
+    calls = [lambda f=f, kw=kw: f.collect(device="cuda", cache=False, **kw)
+             for f in frames.values() for kw in variants]
+    total = n = build_at_once(calls)
+    while n:
+        n = build_at_once(calls)
+        total += n
+    return total
+
+
 def _edge_join_cases(t, preds, rng):
     """The edge phase's grouped_join_agg cases: the build side (duplicate
     keys, first occurrence wins; keys outside the probe's domain; a group
@@ -1277,6 +1344,10 @@ def phase_main_path(sf: float):
     log(f"tpch sf={sf} seed=0: {sizes}; {dev_bytes / 1e6:.1f} MB of columns on the card; "
         f"set-up {time.perf_counter() - t0:.1f} s")
     frames = {q: f(ctx) for q, f in tpch.QUERIES.items()}
+    t0 = time.perf_counter()
+    n_built = prebuild_plans(frames)
+    log(f"the plans' generated kernels: {n_built} built at once, one nvcc each, in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     per_query, routes = {}, {}
     results = {}
@@ -3686,10 +3757,10 @@ def fa_width_rates(args, kw) -> dict:
 
 
 def phase_zamba2(smi: str):
-    """Zamba2-7B at full width and depth: ``model.prefill`` on SERVE_BATCH ×
-    SERVE_PROMPT numpy-seeded tokens, then ZAMBA_GEN greedy decode steps from
-    that state; pallas (counted: flash_attention once per attention point,
-    14, at D = 112), the plain path, f64 attention (the noise floor) and
+    """Zamba2-7B at full width and ZAMBA_SERVE_LAYERS layers: ``model.prefill``
+    on SERVE_BATCH × SERVE_PROMPT numpy-seeded tokens, then ZAMBA_GEN greedy
+    decode steps from that state; pallas (counted: flash_attention once per
+    attention point, 7, at D = 112), the plain path, f64 attention (the noise floor) and
     chunked, held to the plain path by phase 18's rule; ``ssd_chunked``
     alone (``check_ssd``); then ``serve_loop`` through ``make_run_wave``'s
     hybrid branch, which decodes from an empty state.  Returns (launches,
@@ -3707,7 +3778,7 @@ def phase_zamba2(smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    base = get_config(ZAMBA_ARCH)
+    base = replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_SERVE_LAYERS)
     t0 = time.perf_counter()
     model = build_model(replace(base, attn_mode="pallas"))
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -5732,6 +5803,7 @@ def _sharded_cases(rank: int) -> dict:
         torch.cuda.empty_cache()
     del batch
     out["moe"] = _sharded_moe_case(rank, mesh)
+    out["hybrid"] = _sharded_hybrid_case(rank, mesh)
     return out
 
 
@@ -5823,14 +5895,298 @@ def _sharded_moe_case(rank: int, mesh) -> dict:
     return rec
 
 
-def phase_sharded_train(smi: str) -> dict:
+def _sharded_hybrid_case(rank: int, mesh) -> dict:
+    """Zamba2-7B's widths at SHARDED_HYBRID_DEPTH layers over the mesh, the
+    Mamba2 mixer per rank (``sharding.per_rank_mamba``): the f32 gradients'
+    step against the one-device f32 and f64 steps on rank 0; a warm-up bf16
+    AdamW step (its collectives counted) and SHARDED_HYBRID_STEPS timed
+    ones; then the bf16 prefill with attn_mode="pallas" over the mesh (the
+    launches counted from 0 just before it; its first flash_attention
+    call's local inputs recorded and the kernel held to its plain version
+    on them, rank 0's inputs returned for phase_kernels) and
+    SHARDED_DECODE_STEPS decode steps, beside the one-device bf16 run and
+    its f32 twin (the noise floor) on rank 0."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.frontends.tensor import lower_to_pjit, plan_train_program
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.train.optimizer import AdamW, Optimizer, tree_leaves, tree_map
+
+    base = replace(get_config(ZAMBA_ARCH), n_layers=SHARDED_HYBRID_DEPTH)
+    got = TokenPipeline(vocab=base.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in got.items()}
+    grads_of = Optimizer(lambda p: {}, lambda g, st, p: (g, st))
+    rec: dict = {}
+    t0 = time.perf_counter()
+    # 1. f32: the sharded gradients against one device's, in f32 and f64
+    model = build_model(replace(base, dtype="float32"))
+    params = model.init(torch.Generator(mesh.device).manual_seed(0))
+    plan = plan_train_program(model, n_data=SHARDED_MESH[0])
+    if rank == 0:
+        one, _ = make_train_step(model, grads_of, microbatch=SHARDED_MICRO)
+        ref_g, _, ref_met = one(params, {}, batch)
+        model64 = build_model(replace(base, dtype="float64"))
+        one64, _ = make_train_step(model64, grads_of, microbatch=SHARDED_MICRO)
+        g64, _, met64 = one64(tree_map(lambda t: t.double(), params), {}, batch)
+        rec["witness"] = [_rel_gap(a, b) for a, b in zip(tree_leaves(ref_g), tree_leaves(g64))]
+        rec["one_device_loss"], rec["one_device_f64_loss"] = (float(ref_met["loss"]),
+                                                              float(met64["loss"]))
+        del one64, g64, model64
+        torch.cuda.empty_cache()
+    dist.barrier()
+    step, _ = lower_to_pjit(plan, model, mesh, grads_of, batch_shapes=batch,
+                            microbatch=SHARDED_MICRO)
+    g, _, met = step(*step.place(params, {}, batch))
+    rec["grads_loss"] = float(met["loss"])
+    gaps = []
+    for a, b in zip(tree_leaves(g), tree_leaves(ref_g) if rank == 0 else tree_leaves(g)):
+        full = a.full_tensor()
+        if rank == 0:
+            gaps.append(_rel_gap(full, b))
+    rec["grad_rel"] = gaps
+    del g, params, step
+    if rank == 0:
+        del ref_g
+    torch.cuda.empty_cache()
+    rec["check_s"] = time.perf_counter() - t0
+    # 2. bf16: a warm-up AdamW step and timed ones
+    model = build_model(base)
+    params = model.init(torch.Generator(mesh.device).manual_seed(0))
+    opt = AdamW(lr=TRAIN_LR)
+    step, _ = lower_to_pjit(plan_train_program(model, n_data=SHARDED_MESH[0]), model, mesh, opt,
+                            batch_shapes=batch, microbatch=SHARDED_MICRO)
+    dm = step.device_mesh
+    p, s, b = step.place(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with shd.comm_bytes() as comm:
+        p, s, met = step(p, s, b)
+    torch.cuda.synchronize()
+    rec["warmup_s"] = time.perf_counter() - t0
+    rec["comm"] = comm.by_kind()
+    losses, times = [float(met["loss"])], []
+    for _ in range(SHARDED_HYBRID_STEPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, s, met = step(p, s, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rec["train_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    rec["losses"], rec["step_s"] = losses, times
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["finite"] = all(bool(torch.isfinite(t.to_local()).all()) for t in tree_leaves(p))
+    del p, s, b, step, batch
+    torch.cuda.empty_cache()
+    # 3. the bf16 prefill over the mesh through flash_attention, then decode
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, base.vocab, (TRAIN_B, TRAIN_S))).to(mesh.device)
+    fed = [torch.from_numpy(rng.integers(0, base.vocab, (TRAIN_B, 1))).to(mesh.device)
+           for _ in range(SHARDED_DECODE_STEPS)]
+
+    def serve(m, prm, place=lambda t: t):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = m.prefill(prm, {"tokens": place(tokens)}, TRAIN_S + len(fed))
+        out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
+        torch.cuda.synchronize()
+        pre = time.perf_counter() - t0
+        for tok in fed:
+            logits, state = m.decode(prm, state, place(tok))
+            out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
+        return out, pre, state
+
+    model = build_model(replace(base, attn_mode="pallas"))
+    pp = shd.shard_tree(params, shd.tree_param_specs(params, mesh), dm)
+
+    def place(t):
+        return shd.shard_tree({"tokens": t}, shd.batch_specs({"tokens": (t.shape, t.dtype)},
+                                                              mesh), dm)["tokens"]
+
+    with torch.no_grad(), shd.dtensor_scope(pp):
+        serve(model, pp, place)  # warm-up
+        dist.barrier()
+        ops.reset_launches()
+        with recording(["flash_attention"], keep=lambda i: i == 0) as calls:
+            sharded, pre_s, state = serve(model, pp, place)
+        rec["serve_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        # the first call's local q, k, v (this rank's sequences and heads)
+        # against the plain version; rank 0's go on to phase_kernels
+        _, args, kw = calls[0]
+        err, share = check_attention(f"sharded hybrid prefill: rank {rank}'s flash_attention",
+                                     ops.flash_attention(*args, **kw),
+                                     ref.flash_attention(*args, **kw), args[2])
+        rec["fa_check"] = {"shape": list(args[0].shape), "max_abs_err": err,
+                           "bound_share": share}
+        if rank == 0:
+            rec["fa_call"] = ("flash_attention", tuple(a.cpu() for a in args), kw)
+        rec["state_placements"] = {k: [str(q) for q in state[k].placements]
+                                   for k in ("conv", "ssm", "k", "v")}
+        want = shd.cache_specs({k: state[k] for k in ("conv", "ssm", "k", "v")}, mesh, base)
+        rec["cache_specs"] = {k: [str(q) for q in shd.placements(dm, spec)]
+                              for k, spec in want.items()}
+    rec["prefill_ms"] = pre_s * 1e3
+    rec["local_heads"] = base.n_heads // SHARDED_MESH[1]
+    if rank == 0:  # one device: the same run, and in f32 the witness of bf16's rounding
+        with torch.no_grad():
+            one, one_s, _ = serve(model, params)
+            exact, _, _ = serve(build_model(replace(base, dtype="float32")),
+                                tree_map(lambda t: t.float(), params))
+        def rms(got):
+            return math.sqrt(sum(float(((a.double() - b.double()) ** 2).sum())
+                                 for a, b in zip(got, exact)) / sum(b.numel() for b in exact))
+
+        rec["serve"] = {"max_abs": max(float((a - b).abs().max()) for a, b in zip(sharded, one)),
+                        "std": float(one[0].float().std()), "rms_from_f32": rms(sharded),
+                        "one_device_rms_from_f32": rms(one),
+                        "one_device_max_from_f32": max(float((a - b).abs().max())
+                                                       for a, b in zip(one, exact)),
+                        "finite": all(bool(torch.isfinite(x).all()) for x in sharded),
+                        "one_device_prefill_ms": one_s * 1e3}
+    del params, pp, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_hybrid_report(ranks, label: str) -> dict:
+    """Check and report the ranks' sharded hybrid (``_sharded_hybrid_case``):
+    the f32 loss and gradients against the one-device step, the bf16 steps'
+    collectives equal to the dry-run's of the same cut cell, no kernel
+    launched in training; the sharded prefill's flash_attention launches
+    (once a prefill on every rank) and each rank's first call within the
+    bf16 rule of its plain version (``check_attention``, on the rank), its
+    state in ``cache_specs``'
+    placements, and its logits and decode steps' held to the one-device
+    run's: the RMS distance of the sharded run's logits from the f32 run
+    within NOISE_FACTOR × the one-device bf16 run's (or LOGIT_STD_SHARE of
+    their std)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    recs = [rk["hybrid"] for rk in ranks]
+    r0 = recs[0]
+    full = get_config(ZAMBA_ARCH)
+    cut = replace(full, n_layers=SHARDED_HYBRID_DEPTH)
+    loss_gap = abs(r0["grads_loss"] - r0["one_device_loss"]) / abs(r0["one_device_loss"])
+    bounds = [max(TRAIN_GRAD_REL, WITNESS_FACTOR * w) for w in r0["witness"]]
+    worst = max(r0["grad_rel"])
+    log(f"sharded hybrid check ({label}): {ZAMBA_ARCH} {SHARDED_HYBRID_DEPTH} of "
+        f"{full.n_layers} layers f32 (cut: gloo copies every collective through the host, and "
+        f"the mixer's gather of in_proj's output is B/2 × S × 14,576 a layer), B={TRAIN_B}, "
+        f"S={TRAIN_S}, microbatch {SHARDED_MICRO}: loss {r0['grads_loss']:.9g} against the "
+        f"one-device {r0['one_device_loss']:.9g} (rel {loss_gap:.3g}, rtol {TRAIN_LOSS_RTOL:g}; "
+        f"f64 {r0['one_device_f64_loss']:.9g}); gradients' largest ‖Δ‖/‖g‖ over "
+        f"{len(r0['grad_rel'])} leaves {worst:.3g} (within {TRAIN_GRAD_REL:g}: "
+        f"{sum(g <= TRAIN_GRAD_REL for g in r0['grad_rel'])} leaves); the one-device f32 step's "
+        f"own distance from its f64 step up to {max(r0['witness']):.3g}, so bounds up to "
+        f"{max(bounds):.3g} a leaf")
+    if not (loss_gap <= TRAIN_LOSS_RTOL
+            and all(g <= bnd for g, bnd in zip(r0["grad_rel"], bounds))):
+        raise AssertionError(f"the sharded hybrid step differs from the one-device step: loss "
+                             f"{loss_gap:.3g}, gradients {r0['grad_rel']} against {bounds}")
+    losses = r0["losses"]
+    if any(rk["losses"] != losses for rk in recs):
+        raise AssertionError(f"sharded hybrid: the ranks' losses differ: "
+                             f"{[rk['losses'] for rk in recs]}")
+    if not all(math.isfinite(x) for x in losses) or not all(rk["finite"] for rk in recs):
+        raise AssertionError(f"sharded hybrid losses {losses} or parameters not finite")
+    if any(rk["train_launches"] for rk in recs):
+        raise AssertionError(f"the sharded hybrid train step launched {r0['train_launches']}")
+    if any(rk["comm"] != r0["comm"] for rk in recs):
+        raise AssertionError("sharded hybrid: the ranks issued other collectives")
+    spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
+            for k, d in (("tokens", torch.int32), ("labels", torch.int32),
+                         ("mask", torch.float32))}
+    dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
+                            microbatch=SHARDED_MICRO, batch_override=spec)
+    if dry["collective_by_kind"] != r0["comm"]:
+        raise AssertionError(f"sharded hybrid: the dry-run's collectives "
+                             f"{dry['collective_by_kind']} differ from the card's {r0['comm']}")
+    # the prefill over the mesh: each rank launched flash_attention once a
+    # point, at its own sequences and heads, within the bf16 rule
+    points = cut.n_attn_points
+    local = [TRAIN_B // SHARDED_MESH[0], full.n_heads // SHARDED_MESH[1], TRAIN_S, full.d_head]
+    for r, rk in enumerate(recs):
+        if rk["serve_launches"] != {"flash_attention": points}:
+            raise AssertionError(f"sharded hybrid prefill: rank {r} launched "
+                                 f"{rk['serve_launches']}, not flash_attention {points}")
+        if rk["fa_check"]["shape"] != local:
+            raise AssertionError(f"sharded hybrid prefill: rank {r}'s flash_attention ran at "
+                                 f"{rk['fa_check']['shape']}, not its own {local}")
+        if rk["state_placements"] != rk["cache_specs"]:
+            raise AssertionError(f"sharded hybrid: rank {r}'s state placed "
+                                 f"{rk['state_placements']}, not {rk['cache_specs']}")
+    sv = r0["serve"]
+    limit = max(LOGIT_STD_SHARE * sv["std"], NOISE_FACTOR * sv["one_device_rms_from_f32"])
+    if not (sv["finite"] and sv["rms_from_f32"] <= limit):
+        raise AssertionError(f"sharded hybrid prefill and decode: the logits' RMS distance from "
+                             f"the f32 run {sv['rms_from_f32']} is over {limit} (the larger of "
+                             f"{LOGIT_STD_SHARE} of their std {sv['std']} and {NOISE_FACTOR} × "
+                             f"the one-device bf16 run's {sv['one_device_rms_from_f32']})")
+    step_ms = [statistics.median(rk["step_s"]) * 1e3 for rk in recs]
+    out = {"loss_rel": loss_gap, "grad_rel_max": worst, "witness_max": max(r0["witness"]),
+           "grad_over_bound_max": max(g / bnd for g, bnd in zip(r0["grad_rel"], bounds)),
+           "losses": losses, "step_ms_median_per_rank": step_ms,
+           "step_ms_per_rank": [[t * 1e3 for t in rk["step_s"]] for rk in recs],
+           "warmup_s": [rk["warmup_s"] for rk in recs], "check_s": [rk["check_s"] for rk in recs],
+           "collectives_per_step": r0["comm"], "peak_gb_per_rank": [rk["peak_gb"] for rk in recs],
+           "dryrun": {"collectives": dry["collective_by_kind"],
+                      "peak_gb_per_device": dry["peak_bytes"] / 1e9, "trace_s": dry["trace_s"]},
+           "prefill_ms_per_rank": [rk["prefill_ms"] for rk in recs],
+           "one_device_prefill_ms": sv["one_device_prefill_ms"],
+           "serve": dict(sv, limit=limit), "state_placements": r0["state_placements"],
+           "flash_attention_launches": sum(rk["serve_launches"]["flash_attention"]
+                                           for rk in recs),
+           "flash_attention_per_rank": [rk["fa_check"] for rk in recs]}
+    log(f"sharded hybrid train ({label}): {ZAMBA_ARCH} {SHARDED_HYBRID_DEPTH} layers bf16, "
+        f"B={TRAIN_B}×S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; step "
+        f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_HYBRID_STEPS} per rank "
+        f"(synchronised); collectives a step {json.dumps(r0['comm'])} (the dry-run's on a fake "
+        f"world of 4: the same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB "
+        f"per rank (dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no kernel launched")
+    log(f"sharded hybrid prefill ({label}): {TRAIN_B}×{TRAIN_S} bf16 through flash_attention "
+        f"(fa_wgmma<112>, {r0['local_heads']} of {full.n_heads} heads a rank), "
+        f"{[round(rk['prefill_ms'], 1) for rk in recs]} ms per rank (one device "
+        f"{sv['one_device_prefill_ms']:.1f} ms); flash_attention launched {points} time(s) on "
+        f"each rank, its first call at {local} against the plain version: max |Δ| "
+        f"{[rk['fa_check']['max_abs_err'] for rk in recs]}, share of the bf16 bound "
+        f"{[round(rk['fa_check']['bound_share'], 4) for rk in recs]}; the state in "
+        f"cache_specs' placements {r0['state_placements']}; the "
+        f"prefill's and {SHARDED_DECODE_STEPS} decode steps' logits: RMS distance from the f32 "
+        f"run {sv['rms_from_f32']:.6g} (limit {limit:.6g}: the one-device bf16 run's "
+        f"{sv['one_device_rms_from_f32']:.6g}, std {sv['std']:.6g}); max |Δ| from the "
+        f"one-device bf16 run {sv['max_abs']:.6g}, the one-device run's max |Δ| from f32 "
+        f"{sv['one_device_max_from_f32']:.6g}")
+    return out
+
+
+def phase_sharded_train(smi: str):
     """Qwen2-1.5B's train step sharded over a (data 2, model 2) mesh of
     SHARDED_RANKS gloo ranks sharing the card (``lower_to_pjit``: the
     sharding table's placements, ZeRO-1 moments, the ZeRO-2 accumulator,
     the vocab-split CE), at SHARDED_DEPTH layers: f32 against the one-device
     step, then timed in f32 and bf16; beside it the dry-run of the same cut
     cell on a fake world of 4 (its collectives must be the ones counted
-    here)."""
+    here); then the MoE and the hybrid over the same mesh.  Returns (the
+    report, [rank 0's first flash_attention call of the sharded hybrid
+    prefill, its inputs on the card] for phase_kernels)."""
     import pickle
     import tempfile
     from dataclasses import replace
@@ -5948,10 +6304,12 @@ def phase_sharded_train(smi: str) -> dict:
             f"(dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no all-gather of logits; "
             f"no kernel launched")
     report["moe"] = sharded_moe_report(ranks, label)
+    report["hybrid"] = sharded_hybrid_report(ranks, label)
     report["phase_s"] = time.perf_counter() - t_phase
     log("sharded train: " + json.dumps(report))
     log(f"sharded train phase took {report['phase_s']:.1f} s")
-    return report
+    name, args, kw = ranks[0]["hybrid"]["fa_call"]
+    return report, [(name, tuple(a.cuda() for a in args), kw)]
 
 
 def sharded_moe_report(ranks, label: str) -> dict:
@@ -6100,10 +6458,14 @@ def main() -> int:
         if not a.profile:
             serve_wave = None  # frees Qwen2-1.5B's served parameters before the MoE phases
         stamp("Qwen2-1.5B served and trained")
-        phase_sharded_train(smi)
+        sharded, calls = phase_sharded_train(smi)
+        fa_launches += sharded["hybrid"]["flash_attention_launches"]
+        fa_captured += calls
+        del sharded, calls
         stamp("sharded training")
         phases = {
-            MOE_ARCH: lambda: serve_cell(MOE_ARCH, smi, check_block=True, sample_calls=True),
+            MOE_ARCH: lambda: serve_cell(MOE_ARCH, smi, layers_cut=MOE_SERVE_LAYERS,
+                                         check_block=True, sample_calls=True),
             MIXTRAL_ARCH: lambda: serve_cell(MIXTRAL_ARCH, smi, layers_cut=MIXTRAL_LAYERS,
                                              requests_n=SERVE_BATCH, gen=MIXTRAL_GEN,
                                              chunked=False, sample_calls=True),

@@ -54,11 +54,16 @@ block's points grow by one with each ``attn_every`` layers: 9 and 15 of
 Zamba2-7B's 81), whose layers are alike (stacked leaves, placed by their
 trailing dims), and solved for the cell's m and depth.  Traced whole the 16 × 16 cell
 took about 2,000 s on one CPU core, longer than ``CELL_TIMEOUT_S``; its
-probes take about 130 s.  On 2 × 16 × 16 a single probe still does not
-end within ``CELL_TIMEOUT_S`` (a trace of 3 layers and 2 microbatches ran
-past 28 minutes): DTensor plans the redistributions of the SSD's
-strided-shard specs on the 3-D mesh by a graph search, once per new spec
-in a process, and that planning, not the layers, takes the time.
+probes take about 130 s.  On 2 × 16 × 16 the probes once ran past
+``CELL_TIMEOUT_S`` (one of 3 layers and 2 microbatches alone ran past 28
+minutes): splitting the column-split ``in_proj``'s output gave the SSD's
+inputs ``_StridedShard`` placements, and a gradient of the residual
+stream split on the sequence over ``model`` became one when a product
+flattened it, and DTensor plans each redistribution of such a spec by a
+graph search, once per spec in a process.  The Mamba2 mixer now runs per
+rank on local tensors (``sharding.per_rank_mamba``), and the blocks sum
+their input's partial gradient to its placement once (``tp_input``), so
+no strided placement arises and the cell records within minutes.
 
 A cell that traces for more than ``CELL_TIMEOUT_S`` is recorded as failed.
 

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import ssm
+from .lm import chunked_ce_loss, embed
 from .sharding import zeros_placed_like
 
 
@@ -93,9 +94,7 @@ def backbone(params, cfg, x, positions):
 
 
 def lm_loss(params, cfg, batch):
-    from .lm import chunked_ce_loss
-
-    x = params["emb"][batch["tokens"]]
+    x = embed(params, cfg, batch["tokens"])
     xf = backbone(params, cfg, x, _positions(x.shape[0], x.shape[1], x.device))
     return chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
                            chunk=cfg.loss_chunk)
@@ -142,7 +141,7 @@ def prefill(params, cfg, tokens, cache_capacity: int):
     """The prompt pass building the whole decode state: (last-position
     logits (B, V) f32, {"conv", "ssm": per layer, "k", "v": per attention
     point, positions past S zero, "len": S})."""
-    x = params["emb"][tokens]
+    x = embed(params, cfg, tokens)
     b, s, _ = x.shape
     if cache_capacity < s:
         raise ValueError(f"cache capacity {cache_capacity} below the prompt length {s}")
@@ -182,7 +181,7 @@ def decode_step(params, cfg, state, tokens):
     """One-token decode. tokens: (B, 1) → (logits (B, V), the state with
     this step's keys and values written into its caches in place, new conv
     and SSM states, ``len`` one more)."""
-    x = params["emb"][tokens]
+    x = embed(params, cfg, tokens)
     clen = state["len"]
     convs, ssms = [], []
     for i, lp in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):

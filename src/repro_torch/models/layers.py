@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .sharding import (group_heads, merge_heads, per_rank_attention, per_rank_moe, split_heads,
-                       write_position)
+from .sharding import (group_heads, merge_heads, per_rank_attention, per_rank_moe, placed_like,
+                       split_heads, tp_input, write_position)
 
 Params = Dict[str, Any]
 
@@ -165,6 +165,11 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                     mrope_sections: Optional[Sequence[int]] = None,
                     positions3: Optional[torch.Tensor] = None,
                     attn_mode: Union[str, Callable] = "chunked") -> torch.Tensor:
+    """Self-attention on x (B, S, D).  On DTensors x's gradient is summed to
+    x's placements once (``tp_input``: the column-split QKV products give
+    partial gradients), and the output comes back in x's placements (the
+    row-split ``wo``'s partial sums all-reduced: Megatron's layout)."""
+    x = tp_input(x)
     q, k, v = _qkv(p, x, n_heads, n_kv, d_head)
     if mrope_sections is not None:
         q = apply_mrope(q, positions3, mrope_sections, rope_theta)
@@ -174,7 +179,7 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
         k = apply_rope(k, positions, rope_theta)
     o = per_rank_attention(lambda q, k, v: kops.attention(
         q, k, v, causal=causal, window=window, mode=attn_mode), group_heads(q, n_kv), k, v)
-    return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"]
+    return placed_like(merge_heads(o.transpose(1, 2), n_kv) @ p["wo"], x)
 
 
 def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -187,7 +192,9 @@ def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     value are written in place at ``cache_len % cap`` (a rotating write for
     a window-bounded cache, a plain append otherwise), which is what the
     JAX package's mask-and-where over the whole cache computes; the first
-    ``min(cache_len + 1, cap)`` positions are then valid."""
+    ``min(cache_len + 1, cap)`` positions are then valid.  On DTensors the
+    attention runs per rank (``sharding.per_rank_attention``), as a
+    prefill's does."""
     b = x.shape[0]
     cap = cache_k.shape[2]
     q, k, v = _qkv(p, x, n_heads, n_kv, d_head)
@@ -201,7 +208,9 @@ def decode_attention_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     write_pos = cache_len % cap
     write_position(cache_k, write_pos, k[:, :, 0])
     write_position(cache_v, write_pos, v[:, :, 0])
-    o = kops.decode_attention(group_heads(q, n_kv), cache_k, cache_v, min(cache_len + 1, cap))
+    n = min(cache_len + 1, cap)
+    o = per_rank_attention(lambda q, k, v: kops.decode_attention(q, k, v, n),
+                           group_heads(q, n_kv), cache_k, cache_v)
     return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"], cache_k, cache_v
 
 
@@ -238,10 +247,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str = "swi
 
 
 def mlp_block(p: Params, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Tensor:
+    """The dense MLP on x; on DTensors placed as ``attention_block``'s."""
+    x = tp_input(x)
     if mlp_type == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    # jax.nn.gelu is the tanh approximation by default
-    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:  # jax.nn.gelu is the tanh approximation by default
+        y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return placed_like(y, x)
 
 
 # ---------------------------------------------------------------------------

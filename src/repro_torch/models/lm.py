@@ -38,7 +38,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .sharding import (placed_like, tp_input, vocab_parallel_ce, vocab_parallel_embedding,
+from .sharding import (tp_input, vocab_parallel_ce, vocab_parallel_embedding,
                        zeros_placed_like)
 
 
@@ -69,23 +69,23 @@ def _ffn(cfg, lp, z):
     """The layer's MLP or MoE on z: (out, aux); an MLP has no aux (None:
     JAX adds a zero, which changes no value)."""
     if cfg.is_moe:
-        return L.moe_block(lp["moe"], z, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        return L.moe_block(lp["moe"], tp_input(z), n_experts=cfg.n_experts, top_k=cfg.top_k,
                            capacity_factor=cfg.moe_capacity_factor)
     return L.mlp_block(lp["mlp"], z, cfg.mlp_type), None
 
 
 def _layer_fwd(cfg, lp, x, positions, positions3):
-    # on DTensors the residual stream keeps x's placement: the row-split
-    # projections' partial sums are all-reduced into it (Megatron's layout)
-    h = x + placed_like(L.attention_block(
-        lp["attn"], tp_input(L.rmsnorm(x, lp["attn_norm"])), positions,
+    # on DTensors the residual stream keeps x's placement: the blocks
+    # all-reduce the row-split projections' partial sums (Megatron's layout)
+    h = x + L.attention_block(
+        lp["attn"], L.rmsnorm(x, lp["attn_norm"]), positions,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
         causal=cfg.causal, window=cfg.window, rope_theta=cfg.rope_theta,
         mrope_sections=cfg.mrope_sections, positions3=positions3,
         attn_mode=cfg.attn_mode,
-    ), x)
-    y, aux = _ffn(cfg, lp, tp_input(L.rmsnorm(h, lp["mlp_norm"])))
-    return h + placed_like(y, x), aux
+    )
+    y, aux = _ffn(cfg, lp, L.rmsnorm(h, lp["mlp_norm"]))
+    return h + y, aux
 
 
 def _layers_fwd(cfg, layers, x, aux, positions, positions3):
@@ -155,6 +155,7 @@ def chunked_ce_loss(params, cfg, x_final, labels, mask, chunk: int = 512):
     x_final: (B, S, D); labels, mask: (B, S).  A loop over sequence chunks,
     each checkpointed when a gradient is being recorded, so backward
     recomputes each chunk's logits."""
+    x_final = tp_input(x_final)  # on DTensors the CE's partial gradient summed once
     b, s, d = x_final.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -178,7 +179,7 @@ def lm_loss(params, cfg, batch):
     x = embed(params, cfg, batch.get("tokens"), batch.get("embeds"))
     b, s = x.shape[0], x.shape[1]
     xf, aux = backbone(params, cfg, x, _positions(b, s, x.device), batch.get("positions3"))
-    ce = chunked_ce_loss(params, cfg, tp_input(xf), batch["labels"], batch["mask"],
+    ce = chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
                          chunk=cfg.loss_chunk)
     return ce + cfg.moe_aux_weight * aux
 

@@ -237,8 +237,13 @@ def device_mesh(mesh, device_type: Optional[str] = None):
     from torch.distributed.device_mesh import DeviceMesh
 
     dev = device_type or mesh.device.type
-    if dev == "cuda" and dist.is_initialized() and dist.get_backend() == "gloo":
-        gather_through_c10d("CUDA")
+    if dev == "cuda":
+        # the rank's own card, set before DeviceMesh would set LOCAL_RANK's
+        # (ranks sharing one card have no card of that number)
+        torch.cuda.set_device(mesh.device)
+        torch.cuda.init()
+        if dist.is_initialized() and dist.get_backend() == "gloo":
+            gather_through_c10d("CUDA")
     ranks = torch.tensor(mesh.ranks, dtype=torch.int64).reshape(mesh.shape)
     return DeviceMesh(dev, ranks, mesh_dim_names=tuple(mesh.axis_names))
 
@@ -495,6 +500,136 @@ def per_rank_scan(fn, r, k, v, w, u, st):
                      in_placements=(keep,) * 4 + (heads, state),
                      in_grad_placements=(keep,) * 4 + (u_grad, state),
                      device_mesh=mesh)(*args)
+
+
+#: the leaves of a Mamba2 block that its mixer reads, each replicated by
+#: the sharding table (``norm`` by no rule, the rest as small)
+MAMBA_MIXER_LEAVES = ("conv_w", "A_log", "D", "dt_bias", "norm")
+
+
+def per_rank_mamba(fn, x, p, state=None, *, d_inner: int, d_head: int, ssm_state: int, **kw):
+    """A Mamba2 block on x (B, S, D): u = x @ ``in_proj``, then ``fn(u, p,
+    state, …)``, Mamba2's mixer (``ssm._mamba_mix``) from u (B, S, 2·Di +
+    2·N + H) to the normed y (B, S, Di) and the new (conv, SSM) state, then
+    (y @ ``out_proj``) in x's dtype.  On plain tensors that and nothing
+    else.  On DTensors x's gradient is summed to its placement once
+    (``tp_input``) and the output comes back in x's placement (the partial
+    sums of the row-split ``out_proj`` all-reduced), as the dense blocks'.
+
+    On DTensors each rank mixes its own sequences and its own contiguous
+    heads through ``local_map``, since the conv is per channel and the SSD
+    per sequence and per head.  u, column-split over ``model`` (where
+    ``in_proj`` divides), is first gathered over ``model`` (one all-gather
+    of (B/dp, S, 2·Di + 2·N + H)): split on the local tensor, its z, x and
+    dt keep no strided placement.  Each rank keeps the z, x and dt of its
+    H/m heads and B and C whole, and slices the replicated leaves
+    (``MAMBA_MIXER_LEAVES``) to its heads and channels.  The norm over Di
+    sums its squares over ``model`` (one all-reduce of (B/dp, S, 1) f32
+    partial sums, also in backward: each rank normalises its own channels
+    by the sum), so its mean differs from one device's by that sum's order.
+    y comes back split on Di over ``model`` in contiguous heads, as the
+    row-split ``out_proj`` takes it without a gather.  On a mesh dim where u
+    is not split on B (``model``, a sequence split) it is gathered.
+
+    The state comes in and goes out in ``cache_specs``' placements, per
+    layer: the batch split as u's, the SSM state (B, H, N, P) on H over
+    ``model`` and the conv state (B, K − 1, Di) on Di, which contiguous
+    heads give as they are.  Where H does not divide over ``model``, every
+    ``model`` rank mixes every head (y replicated over ``model``, the norm
+    its own); the state is gathered in and sliced out to ``cache_specs``'
+    placements (the SSM state then on N where N divides).
+
+    Under autograd u's gradient is a partial sum over ``model`` (each
+    rank's heads, and B's and C's parts), and each leaf's a partial sum
+    over ``model`` (each rank's own slice, zeros elsewhere) and over the
+    mesh dims that split B, so each reaches its replicated leaf as one
+    device's autograd gives it."""
+    kw.update(d_inner=d_inner, d_head=d_head, ssm_state=ssm_state)
+    if not hasattr(x, "placements"):
+        y, new_state = fn(x @ p["in_proj"], p, state, **kw)
+        return (y @ p["out_proj"]).to(x.dtype), new_state
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    u = tp_input(x) @ p["in_proj"]
+    h = d_inner // d_head
+    mdim = next((i for i, name in enumerate(mesh.mesh_dim_names or ())
+                 if name == "model" and mesh.size(i) > 1), None)
+    m = mesh.size(mdim) if mdim is not None else 1
+    split = mdim is not None and h % m == 0
+    keep = tuple(pl if pl == Shard(0) and i != mdim else Replicate()
+                 for i, pl in enumerate(u.placements))
+
+    def on(dim):
+        """keep, with the ``model`` dim splitting tensor dim ``dim`` (None: none)."""
+        return tuple(Shard(dim) if i == mdim and dim is not None else pl
+                     for i, pl in enumerate(keep))
+
+    conv_out = on(2 if mdim is not None and d_inner % m == 0 else None)
+    ssm_out = on(1 if mdim is not None and h % m == 0
+                 else 2 if mdim is not None and ssm_state % m == 0 else None)
+    conv_in, ssm_in = (conv_out, ssm_out) if split else (on(None), on(None))
+    whole = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if pl == Shard(0) or (split and i == mdim) else Replicate()
+                 for i, pl in enumerate(keep))
+    u_grad = tuple(Partial() if split and i == mdim else pl for i, pl in enumerate(keep))
+    if split:
+        group = mesh.get_group(mdim)
+        kw["heads"] = (mesh.get_local_rank(mdim) * (h // m), h // m)
+
+        def norm(y, w, eps: float = 1e-6):  # L.rmsnorm, its mean of squares over all of Di
+            y32 = y.float()
+            var = _SumEverywhere.apply(torch.sum(y32 * y32, dim=-1, keepdim=True), group) / d_inner
+            return (y32 * torch.rsqrt(var + eps)).to(y.dtype) * w
+
+        kw["norm"] = norm
+    st = ()
+    if state is not None:
+        st = tuple(t if isinstance(t, DTensor) else  # a state of zeros made on every rank
+                   DTensor.from_local(t, mesh, whole, run_check=False) for t in state)
+        st = (placed_to(st[0], conv_in), placed_to(st[1], ssm_in))
+
+    def local(ul, *args):
+        leaves = dict(zip(MAMBA_MIXER_LEAVES, args[:len(MAMBA_MIXER_LEAVES)]))
+        y, (conv, ssm) = fn(ul, leaves, args[len(MAMBA_MIXER_LEAVES):] or None, **kw)
+        return y, conv, ssm
+
+    n_st = len(st)
+    y, conv, ssm = local_map(
+        local, out_placements=(on(2) if split else keep, conv_in, ssm_in),
+        in_placements=(keep,) + (whole,) * len(MAMBA_MIXER_LEAVES) + (conv_in, ssm_in)[:n_st],
+        in_grad_placements=(u_grad,) + (part,) * len(MAMBA_MIXER_LEAVES)
+        + (conv_in, ssm_in)[:n_st],
+        device_mesh=mesh, redistribute_inputs=True)(
+            placed_to(u, keep), *(p[k] for k in MAMBA_MIXER_LEAVES), *st)
+    out = placed_to((y @ p["out_proj"]).to(x.dtype), x.placements)
+    return out, (placed_to(conv, conv_out), placed_to(ssm, ssm_out))
+
+
+class _SumEverywhere(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` forward and backward: every rank goes
+    on with the same sum into a computation of its own, so each part's
+    gradient is the sum of the ranks' gradients of the sum.
+    ``torch.distributed.nn.functional.all_reduce`` computes the same, but
+    torch 2.13 deprecates it with a FutureWarning on every call."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def write_position(cache, pos: int, value) -> None:

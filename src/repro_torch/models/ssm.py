@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .sharding import per_rank_scan
+from .sharding import per_rank_mamba, per_rank_scan
 
 #: Mamba2's head width, fixed as in JAX (``init_decode_state`` and
 #: ``mamba2_block``'s default): d_inner / 64 SSM heads
@@ -137,27 +137,46 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Te
     return y, st
 
 
-def mamba2_block(p, x: torch.Tensor, *, d_inner: int, ssm_state: int,
-                 d_head: int = MAMBA_HEAD, chunk: int = 64, state=None):
-    """x: (B, S, D) → (y, (conv state, SSM state)); ``state`` = (conv
-    state, SSM state) for decode, None for a prompt from zeros."""
-    b, s, _ = x.shape
-    h = d_inner // d_head
+def _mamba_mix(u: torch.Tensor, p, state, *, d_inner: int, ssm_state: int, d_head: int,
+               chunk: int, heads: Optional[Tuple[int, int]] = None, norm=None):
+    """Mamba2's mixer, from ``in_proj``'s output u (B, S, [z (Di), x (Di),
+    B (N), C (N), dt (H)]) to the normed y (B, S, h·d_head) that meets
+    ``out_proj``, and the new (conv, SSM) state: the causal conv, softplus(dt),
+    the SSD, the D skip, the SiLU gate and the norm over d_inner.  ``p``
+    holds the mixer's leaves (``conv_w``, ``A_log``, ``D``, ``dt_bias``,
+    ``norm``) whole; ``heads`` = (first, h) mixes heads first … first + h − 1
+    alone (all by default): their slices of z, x, dt and of the leaves, B
+    and C whole.  ``norm(y, w)`` normalises (``L.rmsnorm`` by default).
+    ``state`` = (conv (B, K − 1, h·d_head), SSM (B, h, N, d_head)) or None."""
+    b, s, _ = u.shape
     n = ssm_state
-    u = x @ p["in_proj"]
-    z, xs, Bm, Cm, dt = torch.split(u, [d_inner, d_inner, n, n, h], dim=-1)
+    first, h = heads if heads is not None else (0, d_inner // d_head)
+    c0, c1 = first * d_head, (first + h) * d_head
+    dt0 = 2 * d_inner + 2 * n + first
+    z, xs = u[..., c0:c1], u[..., d_inner + c0:d_inner + c1]
+    Bm, Cm = u[..., 2 * d_inner:2 * d_inner + n], u[..., 2 * d_inner + n:2 * d_inner + 2 * n]
+    dt = u[..., dt0:dt0 + h]
     conv_state = state[0] if state is not None else None
-    xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
-    dt = F.softplus(dt.to(_math_dtype(x.dtype)) + p["dt_bias"])      # (B,S,H)
-    A = -torch.exp(p["A_log"])                                       # (H,) < 0
+    xs, new_conv = _causal_conv(xs, p["conv_w"][..., c0:c1], conv_state)
+    dt = F.softplus(dt.to(_math_dtype(u.dtype)) + p["dt_bias"][first:first + h])   # (B,S,h)
+    A = -torch.exp(p["A_log"][first:first + h])                      # (h,) < 0
     a = dt * A                                                       # log-decay
     xh = xs.reshape(b, s, h, d_head) * dt[..., None].to(xs.dtype)
     ssm0 = state[1] if state is not None else None
     y, new_ssm = ssd_chunked(xh, a, Bm, Cm, chunk=chunk, init_state=ssm0)
-    y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
-    y = y.reshape(b, s, d_inner) * F.silu(z)
-    y = L.rmsnorm(y, p["norm"])
-    return (y @ p["out_proj"]).to(x.dtype), (new_conv, new_ssm)
+    y = y + xh * p["D"][first:first + h].to(xh.dtype)[None, None, :, None]
+    y = y.reshape(b, s, h * d_head) * F.silu(z)
+    return (norm or L.rmsnorm)(y, p["norm"][c0:c1]), (new_conv, new_ssm)
+
+
+def mamba2_block(p, x: torch.Tensor, *, d_inner: int, ssm_state: int,
+                 d_head: int = MAMBA_HEAD, chunk: int = 64, state=None):
+    """x: (B, S, D) → (y, (conv state, SSM state)); ``state`` = (conv
+    state, SSM state) for decode, None for a prompt from zeros.  On
+    DTensors the mixer runs per rank, each rank its own sequences and
+    heads (``sharding.per_rank_mamba``)."""
+    return per_rank_mamba(_mamba_mix, x, p, state, d_inner=d_inner, ssm_state=ssm_state,
+                          d_head=d_head, chunk=chunk)
 
 
 def mamba2_decode(p, x: torch.Tensor, state, *, d_inner: int, ssm_state: int,

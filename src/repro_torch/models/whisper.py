@@ -88,9 +88,8 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
 
 
 def _cross_kv(lp, enc: torch.Tensor, n_heads: int, d_head: int):
-    b, s, _ = enc.shape
-    k = (enc @ lp["cross"]["wk"]).reshape(b, s, n_heads, d_head).transpose(1, 2)
-    v = (enc @ lp["cross"]["wv"]).reshape(b, s, n_heads, d_head).transpose(1, 2)
+    k = L.split_heads(enc @ lp["cross"]["wk"], n_heads, d_head).transpose(1, 2)
+    v = L.split_heads(enc @ lp["cross"]["wv"], n_heads, d_head).transpose(1, 2)
     return k, v
 
 

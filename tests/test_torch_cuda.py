@@ -1557,3 +1557,109 @@ def test_one_rank_mesh_places_the_tree_on_card_and_keeps_the_steps_bits(card, tm
             assert torch.equal(a.to_local(), b)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 mixer per rank: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: two ranks on ``cuda:0`` over gloo, a (data 1, model 2) mesh: one Mamba2
+#: block (d_model 128, SSM state 16, heads of 64) with d_inner 256 (2 heads
+#: a rank) and 192 (3 heads: the gather path), its leaves placed by the
+#: sharding table, against the plain block on the same tensors on the card:
+#: a prompt's output, state and gradients, then a decode step from that state
+MAMBA_CARD_SCRIPT = '''
+import datetime, json, os
+import numpy as np
+import torch, torch.distributed as dist
+from torch.distributed.tensor import Replicate, distribute_tensor
+
+dist.init_process_group("gloo", init_method="file://" + os.environ["INIT_FILE"],
+                        rank=int(os.environ["RANK"]),
+                        world_size=int(os.environ["WORLD_SIZE"]),
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import sharding as shd, ssm
+
+mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+dm = shd.device_mesh(mesh)
+rel = lambda a, b: float((a.double() - b.double()).norm() / b.double().norm())
+out = {}
+for d_inner in (256, 192):
+    kw = dict(d_inner=d_inner, ssm_state=16, chunk=16)
+    p = ssm.init_mamba2(torch.Generator().manual_seed(0), 128, d_inner, 16)
+    rng = np.random.default_rng(0)
+    h = d_inner // 64
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), h))
+    p["A_log"] = torch.from_numpy(np.log(rng.uniform(1, 16, h))).float()
+    p["dt_bias"] = torch.from_numpy(dt + np.log(-np.expm1(-dt))).float()
+    p["D"] = torch.from_numpy(rng.normal(1, 0.3, h)).float()
+    p = {k: v.cuda() for k, v in p.items()}
+    x = torch.from_numpy(rng.normal(size=(2, 32, 128))).float().cuda()
+    x1 = torch.from_numpy(rng.normal(size=(2, 1, 128))).float().cuda()
+    w = torch.from_numpy(rng.normal(size=(2, 32, 128))).float().cuda()
+    pl = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    y, st = ssm.mamba2_block(pl, x, **kw)
+    (y * w).sum().backward()
+    y1, st1 = ssm.mamba2_decode(p, x1, st, d_inner=d_inner, ssm_state=16)
+    pd = shd.shard_tree(p, shd.tree_param_specs(p, mesh), dm)
+    for t in pd.values():
+        t.requires_grad_(True)
+    rep = [Replicate(), Replicate()]
+    with shd.dtensor_scope(pd), shd.comm_bytes() as comm:
+        yd, std_ = ssm.mamba2_block(pd, distribute_tensor(x, dm, rep), **kw)
+        (yd * distribute_tensor(w, dm, rep)).sum().backward()
+        yd1, std1 = ssm.mamba2_decode(pd, distribute_tensor(x1, dm, rep), std_,
+                                      d_inner=d_inner, ssm_state=16)
+    out[d_inner] = {
+        "device": str(yd.to_local().device),
+        "y": rel(yd.full_tensor(), y), "decode_y": rel(yd1.full_tensor(), y1),
+        "state": [rel(a.full_tensor(), b) for a, b in zip(std_, st)],
+        "decode_state": [rel(a.full_tensor(), b) for a, b in zip(std1, st1)],
+        "state_placements": [[str(q) for q in a.placements] for a in std_],
+        "grads": {k: rel(pd[k].grad.full_tensor(), pl[k].grad) for k in p},
+        "comm": comm.by_kind()}
+print("RESULTS" + json.dumps(out), flush=True)
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def mamba_on_card(tmp_path_factory):
+    """Two rank processes sharing the card over gloo, once per module."""
+    import json
+    import os
+    from pathlib import Path
+
+    from repro_torch.launch.hermetic import run_ranks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (no CUDA device is visible)")
+    root = Path(__file__).resolve().parents[1]
+    passed = {k: os.environ[k] for k in ("CUDA_HOME", "LD_LIBRARY_PATH") if k in os.environ}
+    ranks = run_ranks(MAMBA_CARD_SCRIPT, 2, tmp_path_factory.mktemp("mamba_card"), root,
+                      timeout=600, **passed)
+    for r, (rc, _, err) in enumerate(ranks):
+        assert rc == 0, f"rank {r} exited {rc}:\n{err[-4000:]}"
+    line = [ln for ln in ranks[0][1].splitlines() if ln.startswith("RESULTS")][0]
+    return json.loads(line[len("RESULTS"):])
+
+
+@pytest.mark.parametrize("d_inner", ["256", "192"])
+def test_mamba_mixer_per_rank_on_the_card_is_the_plain_block(mamba_on_card, d_inner):
+    """``sharding.per_rank_mamba`` on the card (2 heads a rank, or 3 heads
+    gathered on both) against the plain block: the output, the state, every
+    gradient and a decode step from that state within 1e-5 of their norms
+    (the norm's f32 sum of squares added over the ranks); the state in
+    ``cache_specs``' placements; the gathers and sums as collectives."""
+    got = mamba_on_card[d_inner]
+    assert got["device"].startswith("cuda")
+    for name in ("y", "decode_y"):
+        assert got[name] <= 1e-5, (name, got[name])
+    assert max(got["state"] + got["decode_state"]) <= 1e-5, got
+    assert max(got["grads"].values()) <= 1e-5, got["grads"]
+    ssm_on = "S(1)" if d_inner == "256" else "S(2)"
+    assert got["state_placements"] == [["R", "S(2)"], ["R", ssm_on]]
+    assert got["comm"]["all_gather_into_tensor"]["calls"] > 0
+    if d_inner == "256":
+        assert got["comm"]["all_reduce"]["calls"] > 0

@@ -228,3 +228,52 @@ def test_hybrid_train_cell_solved_from_microbatch_probes_equals_the_eager_trace(
     assert got["collective_by_kind"]
     assert abs(got["peak_bytes"] - want["peak_bytes"]) <= 0.25 * want["peak_bytes"]
     assert "peak an estimate" in got["method"]
+
+
+def test_hybrid_train_cell_on_the_multi_pod_mesh_plans_no_strided_placement(monkeypatch):
+    """The reduced Zamba2's train cell on a (pod 2, data 2, model 2) fake
+    world of 8, as the CLI records Zamba2-7B × train_4k on 2 × 16 × 16.
+    The Mamba mixer runs per rank (``sharding.per_rank_mamba``: in_proj's
+    output gathered over model and split on each rank's local tensor), and
+    the blocks sum their inputs' partial gradients once: no DTensor op of
+    the step, the Mamba layers' among them, outputs a ``_StridedShard``
+    placement (a hook on ``OpDispatcher.wrap``, which wraps every op's
+    local result in its output spec), and DTensor plans no redistribution
+    by its graph search (a hook on the planner; it runs for strided
+    specs).  Then ``trace_affine``'s counts, solved from probes at 3 and 5
+    layers and 2 and 3 microbatches, equal the eager trace's of 7 layers
+    and 4 microbatches, the peak within a quarter."""
+    import torch.distributed.tensor._redistribute as redist
+    from torch.distributed.tensor._dispatch import OpDispatcher
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    from repro_torch.configs.shapes import Shape
+
+    strided, searched = [], []
+    wrap = OpDispatcher.wrap
+    planner = redist.DTensorRedistributePlanner
+    search = planner.generate_graph_based_transform_infos
+
+    def wrapped(res, spec):
+        for s in spec if isinstance(spec, (list, tuple)) else [spec]:
+            if any(isinstance(p, _StridedShard) for p in getattr(s, "placements", ())):
+                strided.append((tuple(s.placements), tuple(s.shape)))
+        return wrap(res, spec)
+
+    def searching(self, src, dst, shape):
+        searched.append((src.placements, dst.placements))
+        return search(self, src, dst, shape)
+
+    monkeypatch.setattr(OpDispatcher, "wrap", staticmethod(wrapped))
+    monkeypatch.setattr(planner, "generate_graph_based_transform_infos", searching)
+    cfg = replace(get_reduced("zamba2-7b"), n_layers=7, remat=True)
+    monkeypatch.setitem(dryrun.SHAPES, "tiny", Shape("tiny", 32, 16, "train"))
+    mesh, axes = (2, 2, 2), ("pod", "data", "model")
+    want = dryrun.trace_cell(cfg, "tiny", mesh, axes)
+    assert not strided and not searched, (strided[:4], searched[:4])
+    assert want["collective_by_kind"]["all_gather_into_tensor"]["calls"] > 0
+    got = dryrun.trace_affine(cfg, "tiny", mesh, axes)
+    assert got["flops"] == want["flops"] > 0
+    assert got["bytes"] == want["bytes"] > 0
+    assert got["collective_by_kind"] == want["collective_by_kind"]
+    assert abs(got["peak_bytes"] - want["peak_bytes"]) <= 0.25 * want["peak_bytes"]

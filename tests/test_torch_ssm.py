@@ -211,6 +211,72 @@ def test_mamba2_decode_is_the_block_at_chunk_one():
     assert torch.equal(y, y2) and torch.equal(c, c2) and torch.equal(s, s2)
 
 
+def _block_by_split(p, x, *, d_inner, ssm_state, d_head, chunk, state=None):
+    """``mamba2_block`` as one ``torch.split`` of in_proj's output, the
+    formulation before the mixer could run per rank."""
+    from repro_torch.models import layers as L
+
+    b, s, _ = x.shape
+    h, n = d_inner // d_head, ssm_state
+    u = x @ p["in_proj"]
+    z, xs, Bm, Cm, dt = torch.split(u, [d_inner, d_inner, n, n, h], dim=-1)
+    xs, new_conv = ssm._causal_conv(xs, p["conv_w"], state[0] if state is not None else None)
+    dt = torch.nn.functional.softplus(dt.to(ssm._math_dtype(x.dtype)) + p["dt_bias"])
+    xh = xs.reshape(b, s, h, d_head) * dt[..., None].to(xs.dtype)
+    y, new_ssm = ssm.ssd_chunked(xh, dt * -torch.exp(p["A_log"]), Bm, Cm, chunk=chunk,
+                                 init_state=state[1] if state is not None else None)
+    y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
+    y = L.rmsnorm(y.reshape(b, s, d_inner) * torch.nn.functional.silu(z), p["norm"])
+    return (y @ p["out_proj"]).to(x.dtype), (new_conv, new_ssm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+def test_per_rank_mamba_on_plain_tensors_keeps_the_blocks_bits(dtype, with_state):
+    """On plain tensors ``sharding.per_rank_mamba`` is the block itself:
+    ``mamba2_block`` (which calls it) gives the bits of the block written
+    as one split of in_proj's output, and the mixer given all its heads
+    the same y and state."""
+    from repro_torch.models.sharding import per_rank_mamba
+
+    _, tp = _block_params(dtype, seed=5)
+    rng = np.random.default_rng(10)
+    _, x = _pair(rng.normal(size=(2, 16, D_MODEL)), dtype)
+    kw = dict(d_inner=D_INNER, ssm_state=N_STATE, d_head=D_HEAD, chunk=8)
+    state = None
+    if with_state:
+        _, conv = _pair(rng.normal(size=(2, 3, D_INNER)), dtype)
+        state = (conv, torch.from_numpy(rng.normal(size=(2, D_INNER // D_HEAD, N_STATE, D_HEAD))
+                                        .astype(np.float32)))
+    y, (conv, st) = ssm.mamba2_block(tp, x, state=state, **kw)
+    want, (want_conv, want_st) = _block_by_split(tp, x, state=state, **kw)
+    assert torch.equal(y, want) and torch.equal(conv, want_conv) and torch.equal(st, want_st)
+    out, (conv, st) = per_rank_mamba(ssm._mamba_mix, x, tp, state, **kw)
+    mixed, (conv2, st2) = ssm._mamba_mix(x @ tp["in_proj"], tp, state,
+                                         heads=(0, D_INNER // D_HEAD), **kw)
+    assert torch.equal(conv, conv2) and torch.equal(st, st2)
+    assert torch.equal(out, y) and torch.equal((mixed @ tp["out_proj"]).to(x.dtype), y)
+
+
+def test_mamba_mix_of_a_slice_of_heads_is_that_slice_of_the_whole():
+    """``_mamba_mix`` given heads (first, h) computes those heads' channels
+    of the pre-norm y and their state (the norm then over all of d_inner,
+    as ``per_rank_mamba`` sums it over the ranks)."""
+    _, tp = _block_params("float32", seed=6)
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy(rng.normal(size=(2, 16, 2 * D_INNER + 2 * N_STATE + D_INNER // D_HEAD))
+                         .astype(np.float32))
+    kw = dict(d_inner=D_INNER, ssm_state=N_STATE, d_head=D_HEAD, chunk=8,
+              norm=lambda y, w: y * w)
+    whole, (conv, st) = ssm._mamba_mix(u, tp, None, **kw)
+    for first, h in ((0, 2), (2, 2), (1, 1)):
+        part, (pc, ps) = ssm._mamba_mix(u, tp, None, heads=(first, h), **kw)
+        c = slice(first * D_HEAD, (first + h) * D_HEAD)
+        torch.testing.assert_close(part, whole[..., c], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(pc, conv[..., c], rtol=0, atol=0)
+        torch.testing.assert_close(ps, st[:, first:first + h], rtol=1e-6, atol=1e-6)
+
+
 def test_mamba2_chunked_matches_stepwise():
     """The chunked SSD equals feeding one token at a time through the
     decode path (``tests/test_models_smoke.py``'s check, in the port)."""
