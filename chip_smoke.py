@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the torch port: TPC-H, k-means, serving and training
 Qwen2-1.5B (its train step also sharded over four ranks sharing the
-card), serving Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B,
-Zamba2-7B and RWKV6-1.6B, serving and training Whisper-base, serving
+card, as are the MoE, hybrid, VLM and enc-dec families'), serving
+Moonlight-16B-A3B, Mixtral-8x7B's widths, Qwen2-VL-7B, Zamba2-7B and
+RWKV6-1.6B, serving and training Whisper-base, serving
 StarCoder2-15B, GLM4-9B and Granite-34B whole, and training each family
 at full width through ``repro_torch`` on one GPU.
 
@@ -30,7 +31,12 @@ Phases, each printing its own lines:
    took; for segsum ids at K−1 and out of range, empty segments, d = 1 and
    d = 3 views that start mid-granule, accumulators past 48 KB and past the
    opt-in shared memory, each printing its route);
-3. the TPC-H path: TPC-H at ``--sf`` (seed 0), the six queries through
+3. the TPC-H path: TPC-H at ``--sf`` (seed 0); first the generated
+   kernels of the six queries' plans under every strategy the later phases
+   collect them under, and of the determinism, dict and stream phases'
+   calls, built at once, one nvcc each (``prebuild_plans``,
+   ``later_phase_calls``; a kernel a later phase still builds one at a
+   time is listed with its phase at the end); then the six queries through
    ``Frame.collect(device="cuda")``, each held against the numpy
    reference, with the kernels' launch counts and the generated kernels'
    routes read around that one run (Q1 on ``gsa_reg``, Q4's inner count
@@ -235,10 +241,19 @@ Phases, each printing its own lines:
    state in ``cache_specs``' placements (checked), and 4 decode steps fed
    the same seeded tokens, the logits' RMS distance from the one-device
    run of the same weights in f32 within 1.5× the one-device bf16 run's
-   (or 5 % of their std: phase 18's rule over RMS distances from f32,
-   since the sharded run rounds every row-split product's partial sums to
-   bf16 and this random hybrid's bf16 logits lie tenths of their std from
-   f32's);
+   (phase 18's noise factor over RMS distances from f32, since the sharded
+   run rounds every row-split product's partial sums to bf16); then the
+   same, through the same code (``SHARDED_FAMILIES``: the hybrid alone has
+   the f64 witness), for the VLM and the enc-dec families: Qwen2-VL-7B's widths at 2 of 28 layers on stub
+   embeddings with an image-then-text positions3 (S = 2048), and
+   Whisper-base whole on stub frames and tokens of 448; the f32 step
+   against one device's, 2 timed bf16 AdamW steps and their collectives,
+   then a bf16 prefill through flash_attention per rank (Qwen2-VL's 2
+   layers at (2, 14, 2048, 128) with 2 KV heads on M-RoPE-rotated q and k;
+   Whisper's 6 encoder layers non-causal at (2, 4, 1500, 64)), each rank's
+   first call held to its plain version and rank 0's timed in phase 28,
+   the cache (Whisper's cross K/V and empty self cache) in
+   ``cache_specs``' placements, and 4 decode steps held as the hybrid's;
 21. the MoE family at full width: Moonlight-16B-A3B at 24 of its 48 layers
    (``MOE_SERVE_LAYERS``; ``configs/moonshot_v1_16b_a3b.py`` ``CONFIG``: 64 experts,
    top-6, bf16, parameters from ``model.init`` with seed 0), after the
@@ -434,6 +449,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -575,26 +591,36 @@ SHARDED_JOIN_S = 900
 #: B = TRAIN_B, S = TRAIN_S, microbatch SHARDED_MICRO: the f32 step against
 #: the one-device step, then SHARDED_MOE_STEPS timed f32 steps
 SHARDED_MOE_DEPTH, SHARDED_MOE_STEPS = 1, 2
-#: the sharded hybrid: Zamba2-7B's full widths at SHARDED_HYBRID_DEPTH of its
-#: 81 layers (the shared block at layer 0) on the same mesh, the Mamba2 mixer
-#: per rank (sharding.per_rank_mamba: 56 of 112 SSM heads a rank).  The f32
-#: step against the one-device step on rank 0, B = TRAIN_B, S = TRAIN_S,
-#: microbatch SHARDED_MICRO: the loss rtol TRAIN_LOSS_RTOL, each gradient
-#: leaf ‖Δ‖/‖g‖ within TRAIN_GRAD_REL or WITNESS_FACTOR × the one-device f32
-#: step's own distance from its f64 step on the card (the random Mamba
-#: layers carry f32's rounding past TRAIN_GRAD_REL: WITNESS_FACTOR's note);
-#: then a warm-up and SHARDED_HYBRID_STEPS timed bf16 AdamW steps; then the
-#: bf16 prefill of TRAIN_B × TRAIN_S numpy-seeded tokens with
-#: attn_mode="pallas" over the mesh (the shared attention per rank:
-#: flash_attention at 16 of 32 heads a rank, once a prefill) and
-#: SHARDED_DECODE_STEPS decode steps fed the same seeded tokens: the logits'
-#: RMS distance from the one-device run of the same weights in f32 within the
-#: larger of LOGIT_STD_SHARE of their std and NOISE_FACTOR × the one-device
-#: bf16 run's own (phase 18's rule over RMS distances from f32: this random
-#: hybrid's bf16 logits lie tenths of their std from f32's, and the sharded
-#: run rounds every row-split product's partial sums to bf16 before they
-#: are added over the ranks, so two bf16 runs differ by about twice that)
-SHARDED_HYBRID_DEPTH, SHARDED_HYBRID_STEPS, SHARDED_DECODE_STEPS = 2, 2, 4
+#: the hybrid, VLM and enc-dec families over the same mesh, case → (arch,
+#: its decoder depth, the train batch's S, the prefill's S, AdamW's lr,
+#: whether the f32 gradients have the f64 witness): Zamba2-7B's full widths
+#: at 2 of its 81 layers (the shared block at layer 0; the Mamba2 mixer per
+#: rank, sharding.per_rank_mamba: 56 of 112 SSM heads a rank) on
+#: TokenPipeline's tokens; Qwen2-VL-7B's at 2 of its 28 layers on stub
+#: embeddings with an image-then-text positions3 (VLM_GRID), at its family
+#: cell's lr; Whisper-base whole (6 + 6 layers) on stub frames, trained on
+#: WHISPER_CAP tokens and frames and prefilled on WHISPER_FRAMES.  Each as
+#: the Qwen2 step: the f32 step against the one-device f32 step on rank 0,
+#: B = TRAIN_B, microbatch SHARDED_MICRO: the loss rtol TRAIN_LOSS_RTOL,
+#: each gradient leaf ‖Δ‖/‖g‖ within TRAIN_GRAD_REL (the dense families'
+#: one-device f32 steps lie within 3.4e-6 of their f64 steps on an H100),
+#: or for the hybrid within WITNESS_FACTOR × the one-device f32 step's own
+#: distance from its f64 step on the card (the random Mamba layers carry
+#: f32's rounding past TRAIN_GRAD_REL: WITNESS_FACTOR's note); a warm-up and
+#: SHARDED_FAMILY_STEPS timed bf16 AdamW steps, their collectives the
+#: dry-run's; then the bf16 prefill with attn_mode="pallas" over the mesh
+#: (flash_attention per rank at its own sequences and heads, each rank's
+#: first call held to its plain version) and SHARDED_DECODE_STEPS decode
+#: steps fed numpy-seeded tokens: the logits' RMS distance from the
+#: one-device run of the same weights in f32 within NOISE_FACTOR × the
+#: one-device bf16 run's own (phase 18's rule over RMS distances from f32:
+#: the sharded run rounds every row-split product's partial sums to bf16
+#: before they are added over the ranks; on an H100 the three cases' ratios
+#: were 0.99, 1.05 and 1.05)
+SHARDED_FAMILIES = {"hybrid": (ZAMBA_ARCH, 2, TRAIN_S, TRAIN_S, TRAIN_LR, True),
+                    "vlm": (VLM_ARCH, 2, TRAIN_S, TRAIN_S, 3e-5, False),
+                    "encdec": (WHISPER_ARCH, 6, WHISPER_CAP, WHISPER_FRAMES, TRAIN_LR, False)}
+SHARDED_FAMILY_STEPS, SHARDED_DECODE_STEPS = 2, 4
 #: training the MoE, VLM, hybrid and RWKV families and the dense configs
 #: other than Qwen2-1.5B on the card, per arch:
 #: (the card-vs-host check's depth and S at B = 1, the bf16 cell's depth,
@@ -679,6 +705,7 @@ def stamp(what: str) -> None:
 
     log(f"[{time.perf_counter() - T_START:.1f} s since the start] {what} done "
         f"({build.GEN_STATS['built']} generated kernels built)")
+    LAST_STAMP[0] = what
 
 
 # ---------------------------------------------------------------------------
@@ -984,6 +1011,8 @@ def report_generated(when: str) -> None:
         f"reused, {kernels} distinct query kernels; nvcc {g['nvcc_s']:.2f} s in all, "
         f"{per:.2f} s per library, slowest {g['nvcc_max_s']:.2f} s")
     log("generated: " + json.dumps({"when": when, **g, "queries": kernels}))
+    log(f"generated kernels built one at a time after the prebuilds: {len(LATE_BUILDS)} "
+        + json.dumps(LATE_BUILDS))
 
 
 def routed(fn, *args, **kw):
@@ -1145,11 +1174,11 @@ class _Recorded(BaseException):
 def build_at_once(calls) -> int:
     """Build the generated kernels that ``calls`` (thunks of the relational
     wrappers) would build at their first launch, one nvcc each and all at
-    once, so that the calls then find them built: a first pass runs each
-    call up to its kernel's build and notes the kernel's text instead, then
-    each distinct text not built yet is built in a thread of its own.  A
-    call whose kernel is already loaded runs whole in the first pass.
-    Returns how many kernels it built."""
+    once, so that the calls then find them built: a pass runs each call up
+    to its first kernel not built yet and notes the kernel's text instead
+    (a kernel built already is loaded, and the call goes on), then each
+    distinct text noted is built in a thread of its own.  A call whose
+    kernels are all built runs whole.  Returns how many kernels it built."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
@@ -1158,8 +1187,9 @@ def build_at_once(calls) -> int:
 
     def note(family, text):
         path = build.generated_path(family, text)
-        if not path.exists():
-            texts.setdefault(path, (family, text))
+        if path.exists():  # built already (by an earlier pass): load it and go on
+            return real(family, text)
+        texts.setdefault(path, (family, text))
         raise _Recorded
 
     build.build_generated = note
@@ -1177,23 +1207,86 @@ def build_at_once(calls) -> int:
     return len(texts)
 
 
-def prebuild_plans(frames) -> int:
+def prebuild_plans(frames, more=()) -> int:
     """``build_at_once`` over whole plans: each frame collected on the card
     (no plan cache) under the strategies the later phases collect the six
-    queries under stops at its first generated kernel not yet built, so
-    passes repeat, each building what it noted at once, until a pass notes
-    none; a plan left out builds its kernels at first use.  Returns how
-    many it built."""
+    queries under, and the calls ``more`` (``later_phase_calls``), stops at
+    its first generated kernel not yet built, so passes repeat, each
+    building what it noted at once, until a pass notes none; a plan left
+    out builds its kernels at first use (``watch_late_builds`` notes it).
+    Returns how many it built."""
     variants = ({}, {"parallel": PARALLEL}, {"strategy": SORTED},
                 {"parallel": PARALLEL, "strategy": SORTED},
                 {"strategy": {"fuse": "unfused"}}, {"strategy": {"encode": "dict"}})
     calls = [lambda f=f, kw=kw: f.collect(device="cuda", cache=False, **kw)
-             for f in frames.values() for kw in variants]
+             for f in frames.values() for kw in variants] + list(more)
     total = n = build_at_once(calls)
     while n:
         n = build_at_once(calls)
         total += n
     return total
+
+
+def later_phase_calls(ctx, tables, frames, dev: str = "cuda") -> list:
+    """Thunks that reach the generated kernels later phases first build:
+    the determinism phase's grouped routes (``_grouped_route_call`` at a
+    few rows: a kernel's text depends on the query, the column types and
+    the key domains, not on the rows), the dict phase's three shapes under
+    their strategies, the stream phase's queries (the per-order revenue
+    state among them) folded through the stream target, the SQL phase's
+    grouped query and the admission phase's wide group-by under its two
+    tiers."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    calls = []
+    for name, nb in DETERMINISM_BUCKETS.items():
+        v, g = _summands("random", 1024, nb, rng)
+        calls.append(_grouped_route_call(name, nb, v, g, rng, dev)[0])
+    for _, data, build, _, strategies in _dict_shapes():
+        c = _dict_context(data)
+        calls += [lambda c=c, build=build, st=st: build(c).collect(device=dev, strategy=st,
+                                                                  cache=False)
+                  for st in strategies]
+    stream = [frames[q] for q in STREAM_QUERIES if q != "revenue"]
+    stream.append(revenue_query(ctx, len(tables["orders"]["o_orderkey"])))
+    calls += [lambda f=f: ctx.execute(f, target="stream", stream_table="lineitem",
+                                      batch_rows=STREAM_BATCH, device=dev, cache=False)
+              for f in stream]
+    calls.append(lambda: _sql_grouped_frame(ctx).collect(device=dev, cache=False))
+    wide, frame = _wide_groupby()
+    calls += [lambda tier=tier: wide.compile(frame, device=dev, cache=False,
+                                             strategy={"groupby": tier})(wide.sources(dev))
+              for tier in ("sorted", "direct")]
+    return calls
+
+
+#: the generated kernels built one at a time after the prebuilds: (family,
+#: the stamp before the phase that built it, this script's functions on the
+#: stack, outermost first)
+LATE_BUILDS: list = []
+LAST_STAMP = ["the start"]
+
+
+def watch_late_builds() -> None:
+    """From here on note each generated kernel a phase builds itself (not
+    found built by ``prebuild_plans``), with the phase; ``report_generated``
+    lists them."""
+    import traceback
+
+    from repro_torch.kernels import build
+
+    real = build.build_generated
+
+    def noted(family, text):
+        if not build.generated_path(family, text).exists():
+            here = [f.name for f in traceback.extract_stack()
+                    if f.filename.endswith("chip_smoke.py")
+                    and f.name not in ("noted", "main", "<module>")]
+            LATE_BUILDS.append((family, f"after {LAST_STAMP[0]}", here))
+        return real(family, text)
+
+    build.build_generated = noted
 
 
 def _edge_join_cases(t, preds, rng):
@@ -1345,9 +1438,10 @@ def phase_main_path(sf: float):
         f"set-up {time.perf_counter() - t0:.1f} s")
     frames = {q: f(ctx) for q, f in tpch.QUERIES.items()}
     t0 = time.perf_counter()
-    n_built = prebuild_plans(frames)
-    log(f"the plans' generated kernels: {n_built} built at once, one nvcc each, in "
-        f"{time.perf_counter() - t0:.1f} s")
+    n_built = prebuild_plans(frames, later_phase_calls(ctx, tables, frames))
+    log(f"the plans' generated kernels and the later phases' (determinism, dict, stream): "
+        f"{n_built} built at once, one nvcc each, in {time.perf_counter() - t0:.1f} s")
+    watch_late_builds()
 
     per_query, routes = {}, {}
     results = {}
@@ -1696,6 +1790,37 @@ def _summands(kind: str, n: int, buckets: int, rng):
     return v, rng.integers(0, min(buckets, 4), n)
 
 
+def _grouped_route_call(name: str, nb: int, v, g, rng, dev: str):
+    """``phase_determinism``'s call of a grouped route (``name`` in
+    DETERMINISM_BUCKETS) on values ``v`` in buckets ``g`` of ``nb``, a join
+    to 2^16 build rows drawing its probe keys from ``rng``: (the call, the
+    values and buckets the join keeps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.expr import AggSpec, col, const
+    from repro_torch.kernels import ops
+    from repro_torch.relational import runtime as rt
+
+    aggs = (AggSpec("sum", col("v"), "s"), AggSpec("min", col("v"), "m"),
+            AggSpec("count", const(1), "c"))
+    n = len(v)
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)  # noqa: E731
+    cols = {"g": torch.from_numpy(g.astype(np.int32)).to(dev), "v": torch.from_numpy(v).to(dev)}
+    if name.startswith("gsa"):
+        t = rt.VecTable(cols, ones(n))
+        return (lambda: _dense_sums(ops.grouped_select_agg(
+            t, None, ("g",), aggs, nb, ((0, nb - 1),), nb), nb)), v, g
+    m = 1 << 16
+    fk = rng.integers(0, m + 1000, n).astype(np.int32)
+    left = rt.VecTable(dict(cols, fk=torch.from_numpy(fk).to(dev)), ones(n))
+    right = rt.VecTable({"rk": torch.arange(m, dtype=torch.int32, device=dev)}, ones(m))
+    return (lambda: _dense_sums(ops.grouped_join_agg(
+        left, right, left_on=("fk",), right_on=("rk",), join_key_domains=((0, m - 1),),
+        join_num_buckets=m, keys=("g",), aggs=aggs, max_groups=nb,
+        key_domains=((0, nb - 1),), num_buckets=nb), nb)), v[fk < m], g[fk < m]
+
+
 def phase_determinism(dev: str = "cuda") -> dict:
     """Each route that adds f32 sums in no fixed order (the grouped
     kernels' gsa_smem, gsa_global, gja_smem and gja_global routes, kms_main,
@@ -1709,14 +1834,10 @@ def phase_determinism(dev: str = "cuda") -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.expr import AggSpec, col, const
     from repro_torch.kernels import ops, ref
     from repro_torch.relational import runtime as rt
 
     rng = np.random.default_rng(28)
-    aggs = (AggSpec("sum", col("v"), "s"), AggSpec("min", col("v"), "m"),
-            AggSpec("count", const(1), "c"))
-    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)  # noqa: E731
     out = {}
 
     def record(name, kind, call, counts, plain):
@@ -1746,26 +1867,8 @@ def phase_determinism(dev: str = "cuda") -> dict:
     for name, nb in DETERMINISM_BUCKETS.items():
         for kind in ("ordered", "random"):
             v, g = _summands(kind, DETERMINISM_ROWS, nb, rng)
-            cols = {"g": torch.from_numpy(g.astype(np.int32)).to(dev),
-                    "v": torch.from_numpy(v).to(dev)}
             n = len(v)
-            if name.startswith("gsa"):
-                t = rt.VecTable(cols, ones(n))
-                call = lambda t=t, nb=nb: _dense_sums(ops.grouped_select_agg(  # noqa: E731
-                    t, None, ("g",), aggs, nb, ((0, nb - 1),), nb), nb)
-                kv, kg = v, g
-            else:
-                m = 1 << 16
-                fk = rng.integers(0, m + 1000, n).astype(np.int32)
-                left = rt.VecTable(dict(cols, fk=torch.from_numpy(fk).to(dev)), ones(n))
-                right = rt.VecTable({"rk": torch.arange(m, dtype=torch.int32, device=dev)},
-                                    ones(m))
-                call = lambda left=left, right=right, nb=nb, m=m: _dense_sums(  # noqa: E731
-                    ops.grouped_join_agg(left, right, left_on=("fk",), right_on=("rk",),
-                                         join_key_domains=((0, m - 1),), join_num_buckets=m,
-                                         keys=("g",), aggs=aggs, max_groups=nb,
-                                         key_domains=((0, nb - 1),), num_buckets=nb), nb)
-                kv, kg = v[fk < m], g[fk < m]
+            call, kv, kg = _grouped_route_call(name, nb, v, g, rng, dev)
 
             def plain(got, kv=kv, kg=kg, nb=nb, n=n, name=name):
                 want = ref.fixed_sum(torch.from_numpy(kv), torch.from_numpy(kg), nb, rows=n)
@@ -2027,9 +2130,11 @@ def phase_plan_cache(frames, reps: int) -> None:
     log("plan_cache: " + json.dumps(summary))
 
 
+@functools.lru_cache(maxsize=1)
 def _dict_shapes():
     """tests/test_dict_encoding.py's three shapes at DICT_ROWS rows (seed
-    0): (name, tables, query builder, numpy oracle, strategies)."""
+    0): (name, tables, query function, numpy oracle, strategies); made once
+    (``later_phase_calls`` and ``phase_dict`` read them)."""
     import numpy as np
 
     from repro_torch.frontends.dataflow import count_, sum_
@@ -2093,6 +2198,16 @@ def _dict_shapes():
     ]
 
 
+def _dict_context(tables):
+    """A Context holding one of ``_dict_shapes``' tables."""
+    from repro_torch.frontends.dataflow import Context
+
+    ctx = Context(pad_to=256)
+    for tname, data in tables.items():
+        ctx.register(tname, data)
+    return ctx
+
+
 def check_frame(what: str, got, want) -> None:
     """A result against its numpy oracle, in order: strings and integers
     exact, floats within QUERY_RTOL of the f64 oracle."""
@@ -2117,14 +2232,11 @@ def phase_dict(reps: int) -> None:
     and its median ms over ``reps`` plan-cache hits."""
     import torch
 
-    from repro_torch.frontends.dataflow import Context
     from repro_torch.kernels import ops
 
     for name, tables, build, oracle, strategies in _dict_shapes():
         t0 = time.perf_counter()
-        ctx = Context(pad_to=256)
-        for tname, data in tables.items():
-            ctx.register(tname, data)
+        ctx = _dict_context(tables)
         ctx.sources("cuda")
         want = oracle()
         setup = time.perf_counter() - t0
@@ -2158,6 +2270,20 @@ def phase_dict(reps: int) -> None:
                 f"{reps} (set-up {setup:.1f} s)")
 
 
+def _sql_grouped_frame(ctx):
+    """``phase_sql``'s grouped ORDER BY … LIMIT 3 written in the Python
+    frontend (``later_phase_calls`` builds its kernel beforehand)."""
+    from repro_torch.core.expr import col
+    from repro_torch.frontends.dataflow import count_, sum_
+    from repro_torch.relational import tpch
+
+    return (ctx.table("lineitem").filter(col("l_shipdate") <= tpch.Q1_CUTOFF)
+            .group_by("l_returnflag", "l_linestatus", max_groups=4096)
+            .agg(sum_("l_quantity").as_("sum_qty"), sum_("l_extendedprice").as_("sum_base_price"),
+                 count_().as_("count_order"))
+            .order_by("l_returnflag", "l_linestatus").limit(3))
+
+
 def phase_sql(tables, ctx) -> None:
     """TPC-H Q6 and a grouped ORDER BY … LIMIT 3 through
     ``sql.query(ctx, ..., device="cuda")``, counts set to 0 just before and
@@ -2168,9 +2294,7 @@ def phase_sql(tables, ctx) -> None:
 
     from repro_torch.compiler import PLAN_CACHE
     from repro_torch.compiler.fingerprint import fingerprint
-    from repro_torch.core.expr import col
     from repro_torch.frontends import sql
-    from repro_torch.frontends.dataflow import count_, sum_
     from repro_torch.kernels import ops
     from repro_torch.relational import tpch
 
@@ -2181,12 +2305,7 @@ def phase_sql(tables, ctx) -> None:
     grouped = ("SELECT sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS sum_base_price, "
                f"count(*) AS count_order FROM lineitem WHERE l_shipdate <= {tpch.Q1_CUTOFF} "
                "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus LIMIT 3")
-    py_grouped = (ctx.table("lineitem").filter(col("l_shipdate") <= tpch.Q1_CUTOFF)
-                  .group_by("l_returnflag", "l_linestatus", max_groups=4096)
-                  .agg(sum_("l_quantity").as_("sum_qty"),
-                       sum_("l_extendedprice").as_("sum_base_price"),
-                       count_().as_("count_order"))
-                  .order_by("l_returnflag", "l_linestatus").limit(3))
+    py_grouped = _sql_grouped_frame(ctx)
     li = tables["lineitem"]
     keep = li["l_shipdate"] <= tpch.Q1_CUTOFF
     flag, status = li["l_returnflag"][keep], li["l_linestatus"][keep]
@@ -4514,6 +4633,27 @@ ADMISSION_STRATEGIES = {"port": None, "sorted": SORTED, "dict": {"encode": "dict
                         "unfused": {"fuse": "unfused"}}
 
 
+#: phase_admission's wide group-by (ROADMAP Queue 3 item 14's input):
+#: WIDE_ROWS rows over keys in [0, WIDE_SPAN)
+WIDE_ROWS, WIDE_SPAN = 1 << 16, 1_000_000
+
+
+def _wide_groupby():
+    """(a Context holding the wide group-by's table, seed 0, the group-by
+    frame) of ``phase_admission`` (``later_phase_calls`` builds its kernels
+    beforehand)."""
+    import numpy as np
+
+    from repro_torch.frontends.dataflow import Context, count_, sum_
+
+    rng = np.random.default_rng(0)
+    wide = Context(pad_to=1024)
+    wide.register("w", {"k": rng.integers(0, WIDE_SPAN, WIDE_ROWS).astype(np.int32),
+                        "v": rng.normal(size=WIDE_ROWS).astype(np.float32)})
+    return wide, wide.table("w").group_by("k", max_groups=WIDE_ROWS).agg(
+        sum_("v").as_("s"), count_().as_("n"))
+
+
 def phase_admission(tables, ctx, frames, dev: str = "cuda") -> None:
     """Admission on the card (``robust/admission.py``'s model of the port's
     own allocations, ROADMAP Queue 3 item 14).  The six queries under each
@@ -4532,7 +4672,7 @@ def phase_admission(tables, ctx, frames, dev: str = "cuda") -> None:
     import torch
 
     from repro_torch.compiler import PlanCache
-    from repro_torch.frontends.dataflow import Context, _to_numpy, count_, sum_
+    from repro_torch.frontends.dataflow import _to_numpy
     from repro_torch.relational import tpch
     from repro_torch.robust.admission import AdmissionError, estimate_peak_bytes
 
@@ -4591,13 +4731,8 @@ def phase_admission(tables, ctx, frames, dev: str = "cuda") -> None:
         f"{json.dumps(dict(res.strategy))} and matches numpy; below every estimate it rejects "
         f"all ({rejected})")
 
-    rng = np.random.default_rng(0)
-    n, span = 1 << 16, 1_000_000
-    wide = Context(pad_to=1024)
-    wide.register("w", {"k": rng.integers(0, span, n).astype(np.int32),
-                        "v": rng.normal(size=n).astype(np.float32)})
-    frame = wide.table("w").group_by("k", max_groups=n).agg(sum_("v").as_("s"),
-                                                            count_().as_("n"))
+    n, span = WIDE_ROWS, WIDE_SPAN
+    wide, frame = _wide_groupby()
     k, v = wide.tables["w"]["k"], wide.tables["w"]["v"]
     keys, inv = np.unique(k, return_inverse=True)
 
@@ -5803,7 +5938,8 @@ def _sharded_cases(rank: int) -> dict:
         torch.cuda.empty_cache()
     del batch
     out["moe"] = _sharded_moe_case(rank, mesh)
-    out["hybrid"] = _sharded_hybrid_case(rank, mesh)
+    for case in SHARDED_FAMILIES:
+        out[case] = _sharded_family_case(rank, mesh, case)
     return out
 
 
@@ -5895,52 +6031,99 @@ def _sharded_moe_case(rank: int, mesh) -> dict:
     return rec
 
 
-def _sharded_hybrid_case(rank: int, mesh) -> dict:
-    """Zamba2-7B's widths at SHARDED_HYBRID_DEPTH layers over the mesh, the
-    Mamba2 mixer per rank (``sharding.per_rank_mamba``): the f32 gradients'
-    step against the one-device f32 and f64 steps on rank 0; a warm-up bf16
-    AdamW step (its collectives counted) and SHARDED_HYBRID_STEPS timed
-    ones; then the bf16 prefill with attn_mode="pallas" over the mesh (the
-    launches counted from 0 just before it; its first flash_attention
+def _sharded_family_config(case: str):
+    """The cut config of a SHARDED_FAMILIES case, in its own dtype (bf16)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    arch, depth = SHARDED_FAMILIES[case][:2]
+    return replace(get_config(arch), n_layers=depth)
+
+
+def _sharded_family_batch(cfg, case: str, dev):
+    """The train batch of a SHARDED_FAMILIES case on ``dev``: the
+    launcher's (TokenPipeline(seed=0)'s step 0 and the family's stub
+    inputs) at TRAIN_B × the case's S, the VLM's positions3 an image then
+    text."""
+    import torch
+
+    batch = _family_batch(cfg, TRAIN_B, SHARDED_FAMILIES[case][2], dev)
+    if cfg.family == "vlm":
+        batch["positions3"] = torch.from_numpy(
+            image_then_text(TRAIN_B, SHARDED_FAMILIES[case][2], VLM_GRID)).to(dev)
+    return batch
+
+
+def _sharded_family_prompt(cfg, case: str, dev):
+    """(the prompt, the tokens fed to the decode steps) of a
+    SHARDED_FAMILIES case on ``dev``, numpy-seeded: TRAIN_B × the
+    prefill's S tokens (the hybrid), stub embeddings with an image-then-text
+    positions3 (the VLM) or stub frames (the enc-dec), then
+    SHARDED_DECODE_STEPS tokens."""
+    import numpy as np
+    import torch
+
+    s_pre = SHARDED_FAMILIES[case][3]
+    rng = np.random.default_rng(0)
+    if cfg.family == "hybrid":
+        prompt = {"tokens": rng.integers(0, cfg.vocab, (TRAIN_B, s_pre)).astype(np.int32)}
+    else:
+        stub = rng.normal(size=(TRAIN_B, s_pre, cfg.d_model)).astype(np.float32)
+        prompt = ({"embeds": stub, "positions3": image_then_text(TRAIN_B, s_pre, VLM_GRID)}
+                  if cfg.family == "vlm" else {"frames": stub})
+    fed = [torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_B, 1)).astype(np.int32)).to(dev)
+           for _ in range(SHARDED_DECODE_STEPS)]
+    return {k: torch.from_numpy(v).to(dev) for k, v in prompt.items()}, fed
+
+
+def _sharded_family_case(rank: int, mesh, case: str) -> dict:
+    """A SHARDED_FAMILIES case over the mesh: the f32 gradients' step
+    against the one-device f32 step on rank 0 (and the one-device f64 step,
+    the witness of f32's rounding, where the case asks for it); a warm-up
+    bf16 AdamW step (its collectives counted) and SHARDED_FAMILY_STEPS
+    timed ones; then the bf16 prefill with attn_mode="pallas" over the mesh
+    (the launches counted from 0 just before it; its first flash_attention
     call's local inputs recorded and the kernel held to its plain version
     on them, rank 0's inputs returned for phase_kernels) and
     SHARDED_DECODE_STEPS decode steps, beside the one-device bf16 run and
-    its f32 twin (the noise floor) on rank 0."""
+    its f32 twin on rank 0."""
     from dataclasses import replace
 
-    import numpy as np
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
     from repro_torch.frontends.tensor import lower_to_pjit, plan_train_program
     from repro_torch.kernels import ops, ref
     from repro_torch.models import sharding as shd
     from repro_torch.models.api import build_model, make_train_step
     from repro_torch.train.optimizer import AdamW, Optimizer, tree_leaves, tree_map
 
-    base = replace(get_config(ZAMBA_ARCH), n_layers=SHARDED_HYBRID_DEPTH)
-    got = TokenPipeline(vocab=base.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0).batch_at(0)
-    batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in got.items()}
+    dev = mesh.device
+    base = _sharded_family_config(case)
+    _, _, _, s_pre, lr, witness = SHARDED_FAMILIES[case]
+    batch = _sharded_family_batch(base, case, dev)
+    prompt, fed = _sharded_family_prompt(base, case, dev)
     grads_of = Optimizer(lambda p: {}, lambda g, st, p: (g, st))
     rec: dict = {}
     t0 = time.perf_counter()
-    # 1. f32: the sharded gradients against one device's, in f32 and f64
+    # 1. f32: the sharded gradients against one device's (and f64's)
     model = build_model(replace(base, dtype="float32"))
-    params = model.init(torch.Generator(mesh.device).manual_seed(0))
+    params = model.init(torch.Generator(dev).manual_seed(0))
     plan = plan_train_program(model, n_data=SHARDED_MESH[0])
     if rank == 0:
         one, _ = make_train_step(model, grads_of, microbatch=SHARDED_MICRO)
         ref_g, _, ref_met = one(params, {}, batch)
-        model64 = build_model(replace(base, dtype="float64"))
-        one64, _ = make_train_step(model64, grads_of, microbatch=SHARDED_MICRO)
-        g64, _, met64 = one64(tree_map(lambda t: t.double(), params), {}, batch)
-        rec["witness"] = [_rel_gap(a, b) for a, b in zip(tree_leaves(ref_g), tree_leaves(g64))]
-        rec["one_device_loss"], rec["one_device_f64_loss"] = (float(ref_met["loss"]),
-                                                              float(met64["loss"]))
-        del one64, g64, model64
-        torch.cuda.empty_cache()
+        rec["one_device_loss"] = float(ref_met["loss"])
+        if witness:
+            model64 = build_model(replace(base, dtype="float64"))
+            one64, _ = make_train_step(model64, grads_of, microbatch=SHARDED_MICRO)
+            g64, _, met64 = one64(tree_map(lambda t: t.double(), params), {}, batch)
+            rec["witness"] = [_rel_gap(a, b) for a, b in zip(tree_leaves(ref_g),
+                                                             tree_leaves(g64))]
+            rec["one_device_f64_loss"] = float(met64["loss"])
+            del one64, g64, model64
+            torch.cuda.empty_cache()
     dist.barrier()
     step, _ = lower_to_pjit(plan, model, mesh, grads_of, batch_shapes=batch,
                             microbatch=SHARDED_MICRO)
@@ -5959,30 +6142,30 @@ def _sharded_hybrid_case(rank: int, mesh) -> dict:
     rec["check_s"] = time.perf_counter() - t0
     # 2. bf16: a warm-up AdamW step and timed ones
     model = build_model(base)
-    params = model.init(torch.Generator(mesh.device).manual_seed(0))
-    opt = AdamW(lr=TRAIN_LR)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    opt = AdamW(lr=lr)
     step, _ = lower_to_pjit(plan_train_program(model, n_data=SHARDED_MESH[0]), model, mesh, opt,
                             batch_shapes=batch, microbatch=SHARDED_MICRO)
     dm = step.device_mesh
     p, s, b = step.place(params, opt.init(params), batch)
-    torch.cuda.synchronize()
+    sync(dev)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     dist.barrier()
     t0 = time.perf_counter()
     with shd.comm_bytes() as comm:
         p, s, met = step(p, s, b)
-    torch.cuda.synchronize()
+    sync(dev)
     rec["warmup_s"] = time.perf_counter() - t0
     rec["comm"] = comm.by_kind()
     losses, times = [float(met["loss"])], []
-    for _ in range(SHARDED_HYBRID_STEPS):
-        torch.cuda.synchronize()
+    for _ in range(SHARDED_FAMILY_STEPS):
+        sync(dev)
         dist.barrier()
         t0 = time.perf_counter()
         p, s, met = step(p, s, b)
         losses.append(float(met["loss"]))
-        torch.cuda.synchronize()
+        sync(dev)
         times.append(time.perf_counter() - t0)
     rec["train_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
     rec["losses"], rec["step_s"] = losses, times
@@ -5991,30 +6174,32 @@ def _sharded_hybrid_case(rank: int, mesh) -> dict:
     del p, s, b, step, batch
     torch.cuda.empty_cache()
     # 3. the bf16 prefill over the mesh through flash_attention, then decode
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, base.vocab, (TRAIN_B, TRAIN_S))).to(mesh.device)
-    fed = [torch.from_numpy(rng.integers(0, base.vocab, (TRAIN_B, 1))).to(mesh.device)
-           for _ in range(SHARDED_DECODE_STEPS)]
+    cap = WHISPER_CAP if base.family == "encdec" else s_pre + len(fed)
 
-    def serve(m, prm, place=lambda t: t):
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def serve(m, prm, place=lambda b: b):
         out = []
-        torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
-        logits, state = m.prefill(prm, {"tokens": place(tokens)}, TRAIN_S + len(fed))
-        out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
-        torch.cuda.synchronize()
+        state = m.prefill(prm, place(prompt), cap)
+        if base.family != "encdec":  # the enc-dec prefill gives no logits
+            logits, state = state
+            out.append(whole(logits))
+        sync(dev)
         pre = time.perf_counter() - t0
         for tok in fed:
-            logits, state = m.decode(prm, state, place(tok))
-            out.append(logits.full_tensor() if hasattr(logits, "full_tensor") else logits)
+            logits, state = m.decode(prm, state, place({"tokens": tok})["tokens"])
+            out.append(whole(logits))
         return out, pre, state
 
     model = build_model(replace(base, attn_mode="pallas"))
     pp = shd.shard_tree(params, shd.tree_param_specs(params, mesh), dm)
 
-    def place(t):
-        return shd.shard_tree({"tokens": t}, shd.batch_specs({"tokens": (t.shape, t.dtype)},
-                                                              mesh), dm)["tokens"]
+    def place(tree):
+        return shd.shard_tree(tree, shd.batch_specs({k: (v.shape, v.dtype)
+                                                     for k, v in tree.items()}, mesh), dm)
 
     with torch.no_grad(), shd.dtensor_scope(pp):
         serve(model, pp, place)  # warm-up
@@ -6026,25 +6211,27 @@ def _sharded_hybrid_case(rank: int, mesh) -> dict:
         # the first call's local q, k, v (this rank's sequences and heads)
         # against the plain version; rank 0's go on to phase_kernels
         _, args, kw = calls[0]
-        err, share = check_attention(f"sharded hybrid prefill: rank {rank}'s flash_attention",
+        err, share = check_attention(f"sharded {case} prefill: rank {rank}'s flash_attention",
                                      ops.flash_attention(*args, **kw),
                                      ref.flash_attention(*args, **kw), args[2])
-        rec["fa_check"] = {"shape": list(args[0].shape), "max_abs_err": err,
-                           "bound_share": share}
+        rec["fa_check"] = {"shape": list(args[0].shape), "kv_shape": list(args[1].shape),
+                           "max_abs_err": err, "bound_share": share}
         if rank == 0:
             rec["fa_call"] = ("flash_attention", tuple(a.cpu() for a in args), kw)
-        rec["state_placements"] = {k: [str(q) for q in state[k].placements]
-                                   for k in ("conv", "ssm", "k", "v")}
-        want = shd.cache_specs({k: state[k] for k in ("conv", "ssm", "k", "v")}, mesh, base)
+        # every tensor the cache or state carries (the hybrid's conv, SSM
+        # and KV state, the VLM's KV cache, the enc-dec's self and cross K/V)
+        keys = sorted(k for k, v in state.items() if torch.is_tensor(v))
+        rec["state_placements"] = {k: [str(q) for q in state[k].placements] for k in keys}
+        want = shd.cache_specs({k: state[k] for k in keys}, mesh, base)
         rec["cache_specs"] = {k: [str(q) for q in shd.placements(dm, spec)]
                               for k, spec in want.items()}
     rec["prefill_ms"] = pre_s * 1e3
-    rec["local_heads"] = base.n_heads // SHARDED_MESH[1]
     if rank == 0:  # one device: the same run, and in f32 the witness of bf16's rounding
         with torch.no_grad():
             one, one_s, _ = serve(model, params)
-            exact, _, _ = serve(build_model(replace(base, dtype="float32")),
+            exact, _, _ = serve(build_model(replace(base, dtype="float32", attn_mode="pallas")),
                                 tree_map(lambda t: t.float(), params))
+
         def rms(got):
             return math.sqrt(sum(float(((a.double() - b.double()) ** 2).sum())
                                  for a, b in zip(got, exact)) / sum(b.numel() for b in exact))
@@ -6061,87 +6248,86 @@ def _sharded_hybrid_case(rank: int, mesh) -> dict:
     return rec
 
 
-def sharded_hybrid_report(ranks, label: str) -> dict:
-    """Check and report the ranks' sharded hybrid (``_sharded_hybrid_case``):
-    the f32 loss and gradients against the one-device step, the bf16 steps'
-    collectives equal to the dry-run's of the same cut cell, no kernel
-    launched in training; the sharded prefill's flash_attention launches
-    (once a prefill on every rank) and each rank's first call within the
-    bf16 rule of its plain version (``check_attention``, on the rank), its
-    state in ``cache_specs``'
-    placements, and its logits and decode steps' held to the one-device
-    run's: the RMS distance of the sharded run's logits from the f32 run
-    within NOISE_FACTOR × the one-device bf16 run's (or LOGIT_STD_SHARE of
-    their std)."""
-    from dataclasses import replace
+def _attention_points(cfg) -> int:
+    """How many times a prefill of ``cfg`` calls attention: the hybrid's
+    shared-attention points, the VLM's layers, the enc-dec's encoder layers
+    (the decoder's self-attention on an empty cache and its cross-attention
+    go through chunked attention)."""
+    return {"hybrid": cfg.n_attn_points, "vlm": cfg.n_layers,
+            "encdec": cfg.n_enc_layers}[cfg.family]
 
-    import torch
 
+def sharded_family_report(ranks, label: str, case: str, dry: dict) -> dict:
+    """Check and report the ranks' SHARDED_FAMILIES ``case``
+    (``_sharded_family_case``): the f32 loss and gradients against the
+    one-device step (each leaf within TRAIN_GRAD_REL, or WITNESS_FACTOR ×
+    the one-device step's own distance from its f64 step where the case
+    has that witness); the bf16 steps' collectives the dry-run's ``dry``
+    of the same cut cell, no kernel launched in training; flash_attention
+    launched once an attention point on every rank at its own sequences
+    and heads, each rank's first call within the bf16 rule of its plain
+    version (``check_attention``, on the rank); the cache or state in
+    ``cache_specs``' placements; the prefill's and decode steps' logits'
+    RMS distance from the one-device f32 run within NOISE_FACTOR × the
+    one-device bf16 run's own."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
 
-    recs = [rk["hybrid"] for rk in ranks]
+    recs = [rk[case] for rk in ranks]
     r0 = recs[0]
-    full = get_config(ZAMBA_ARCH)
-    cut = replace(full, n_layers=SHARDED_HYBRID_DEPTH)
+    cut = _sharded_family_config(case)
+    arch, depth, s, s_pre, lr, witness = SHARDED_FAMILIES[case]
     loss_gap = abs(r0["grads_loss"] - r0["one_device_loss"]) / abs(r0["one_device_loss"])
-    bounds = [max(TRAIN_GRAD_REL, WITNESS_FACTOR * w) for w in r0["witness"]]
     worst = max(r0["grad_rel"])
-    log(f"sharded hybrid check ({label}): {ZAMBA_ARCH} {SHARDED_HYBRID_DEPTH} of "
-        f"{full.n_layers} layers f32 (cut: gloo copies every collective through the host, and "
-        f"the mixer's gather of in_proj's output is B/2 × S × 14,576 a layer), B={TRAIN_B}, "
-        f"S={TRAIN_S}, microbatch {SHARDED_MICRO}: loss {r0['grads_loss']:.9g} against the "
-        f"one-device {r0['one_device_loss']:.9g} (rel {loss_gap:.3g}, rtol {TRAIN_LOSS_RTOL:g}; "
-        f"f64 {r0['one_device_f64_loss']:.9g}); gradients' largest ‖Δ‖/‖g‖ over "
-        f"{len(r0['grad_rel'])} leaves {worst:.3g} (within {TRAIN_GRAD_REL:g}: "
-        f"{sum(g <= TRAIN_GRAD_REL for g in r0['grad_rel'])} leaves); the one-device f32 step's "
-        f"own distance from its f64 step up to {max(r0['witness']):.3g}, so bounds up to "
-        f"{max(bounds):.3g} a leaf")
+    bounds = ([max(TRAIN_GRAD_REL, WITNESS_FACTOR * w) for w in r0["witness"]] if witness
+              else [TRAIN_GRAD_REL] * len(r0["grad_rel"]))
+    seen = (f"; f64 {r0['one_device_f64_loss']:.9g}); gradients' largest ‖Δ‖/‖g‖ over "
+            f"{len(r0['grad_rel'])} leaves {worst:.3g} (within {TRAIN_GRAD_REL:g}: "
+            f"{sum(g <= TRAIN_GRAD_REL for g in r0['grad_rel'])} leaves); the one-device f32 "
+            f"step's own distance from its f64 step up to {max(r0['witness']):.3g}, so bounds "
+            f"up to {max(bounds):.3g} a leaf" if witness else
+            f"); gradients' largest ‖Δ‖/‖g‖ over {len(r0['grad_rel'])} leaves {worst:.3g} "
+            f"(bound {TRAIN_GRAD_REL:g})")
+    log(f"sharded {case} check ({label}): {arch} {depth} of {get_config(arch).n_layers} "
+        f"{'decoder ' if cut.family == 'encdec' else ''}layers f32, B={TRAIN_B}, S={s}, "
+        f"microbatch {SHARDED_MICRO}: loss {r0['grads_loss']:.9g} against the one-device "
+        f"{r0['one_device_loss']:.9g} (rel {loss_gap:.3g}, rtol {TRAIN_LOSS_RTOL:g}{seen}")
     if not (loss_gap <= TRAIN_LOSS_RTOL
             and all(g <= bnd for g, bnd in zip(r0["grad_rel"], bounds))):
-        raise AssertionError(f"the sharded hybrid step differs from the one-device step: loss "
+        raise AssertionError(f"the sharded {case} step differs from the one-device step: loss "
                              f"{loss_gap:.3g}, gradients {r0['grad_rel']} against {bounds}")
     losses = r0["losses"]
     if any(rk["losses"] != losses for rk in recs):
-        raise AssertionError(f"sharded hybrid: the ranks' losses differ: "
+        raise AssertionError(f"sharded {case}: the ranks' losses differ: "
                              f"{[rk['losses'] for rk in recs]}")
     if not all(math.isfinite(x) for x in losses) or not all(rk["finite"] for rk in recs):
-        raise AssertionError(f"sharded hybrid losses {losses} or parameters not finite")
+        raise AssertionError(f"sharded {case} losses {losses} or parameters not finite")
     if any(rk["train_launches"] for rk in recs):
-        raise AssertionError(f"the sharded hybrid train step launched {r0['train_launches']}")
+        raise AssertionError(f"the sharded {case} train step launched {r0['train_launches']}")
     if any(rk["comm"] != r0["comm"] for rk in recs):
-        raise AssertionError("sharded hybrid: the ranks issued other collectives")
-    spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
-            for k, d in (("tokens", torch.int32), ("labels", torch.int32),
-                         ("mask", torch.float32))}
-    dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
-                            microbatch=SHARDED_MICRO, batch_override=spec)
+        raise AssertionError(f"sharded {case}: the ranks issued other collectives")
     if dry["collective_by_kind"] != r0["comm"]:
-        raise AssertionError(f"sharded hybrid: the dry-run's collectives "
+        raise AssertionError(f"sharded {case}: the dry-run's collectives "
                              f"{dry['collective_by_kind']} differ from the card's {r0['comm']}")
-    # the prefill over the mesh: each rank launched flash_attention once a
-    # point, at its own sequences and heads, within the bf16 rule
-    points = cut.n_attn_points
-    local = [TRAIN_B // SHARDED_MESH[0], full.n_heads // SHARDED_MESH[1], TRAIN_S, full.d_head]
+    points = _attention_points(cut)
+    local = [TRAIN_B // SHARDED_MESH[0], cut.n_heads // SHARDED_MESH[1], s_pre, cut.d_head]
     for r, rk in enumerate(recs):
         if rk["serve_launches"] != {"flash_attention": points}:
-            raise AssertionError(f"sharded hybrid prefill: rank {r} launched "
+            raise AssertionError(f"sharded {case} prefill: rank {r} launched "
                                  f"{rk['serve_launches']}, not flash_attention {points}")
         if rk["fa_check"]["shape"] != local:
-            raise AssertionError(f"sharded hybrid prefill: rank {r}'s flash_attention ran at "
+            raise AssertionError(f"sharded {case} prefill: rank {r}'s flash_attention ran at "
                                  f"{rk['fa_check']['shape']}, not its own {local}")
         if rk["state_placements"] != rk["cache_specs"]:
-            raise AssertionError(f"sharded hybrid: rank {r}'s state placed "
+            raise AssertionError(f"sharded {case}: rank {r}'s cache placed "
                                  f"{rk['state_placements']}, not {rk['cache_specs']}")
     sv = r0["serve"]
-    limit = max(LOGIT_STD_SHARE * sv["std"], NOISE_FACTOR * sv["one_device_rms_from_f32"])
+    limit = NOISE_FACTOR * sv["one_device_rms_from_f32"]
     if not (sv["finite"] and sv["rms_from_f32"] <= limit):
-        raise AssertionError(f"sharded hybrid prefill and decode: the logits' RMS distance from "
-                             f"the f32 run {sv['rms_from_f32']} is over {limit} (the larger of "
-                             f"{LOGIT_STD_SHARE} of their std {sv['std']} and {NOISE_FACTOR} × "
-                             f"the one-device bf16 run's {sv['one_device_rms_from_f32']})")
+        raise AssertionError(f"sharded {case} prefill and decode: the logits' RMS distance from "
+                             f"the f32 run {sv['rms_from_f32']} is over {limit} ({NOISE_FACTOR} "
+                             f"× the one-device bf16 run's {sv['one_device_rms_from_f32']})")
     step_ms = [statistics.median(rk["step_s"]) * 1e3 for rk in recs]
-    out = {"loss_rel": loss_gap, "grad_rel_max": worst, "witness_max": max(r0["witness"]),
+    out = {"loss_rel": loss_gap, "grad_rel_max": worst,
            "grad_over_bound_max": max(g / bnd for g, bnd in zip(r0["grad_rel"], bounds)),
            "losses": losses, "step_ms_median_per_rank": step_ms,
            "step_ms_per_rank": [[t * 1e3 for t in rk["step_s"]] for rk in recs],
@@ -6155,26 +6341,56 @@ def sharded_hybrid_report(ranks, label: str) -> dict:
            "flash_attention_launches": sum(rk["serve_launches"]["flash_attention"]
                                            for rk in recs),
            "flash_attention_per_rank": [rk["fa_check"] for rk in recs]}
-    log(f"sharded hybrid train ({label}): {ZAMBA_ARCH} {SHARDED_HYBRID_DEPTH} layers bf16, "
-        f"B={TRAIN_B}×S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; step "
-        f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_HYBRID_STEPS} per rank "
+    if witness:
+        out["witness_max"] = max(r0["witness"])
+    log(f"sharded {case} train ({label}): {arch} {depth} layers bf16, B={TRAIN_B}×S={s}, "
+        f"AdamW lr {lr:g}: losses {[round(x, 4) for x in losses]}; step "
+        f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_FAMILY_STEPS} per rank "
         f"(synchronised); collectives a step {json.dumps(r0['comm'])} (the dry-run's on a fake "
         f"world of 4: the same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB "
         f"per rank (dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no kernel launched")
-    log(f"sharded hybrid prefill ({label}): {TRAIN_B}×{TRAIN_S} bf16 through flash_attention "
-        f"(fa_wgmma<112>, {r0['local_heads']} of {full.n_heads} heads a rank), "
+    log(f"sharded {case} prefill ({label}): {TRAIN_B}×{s_pre} bf16 through flash_attention, "
         f"{[round(rk['prefill_ms'], 1) for rk in recs]} ms per rank (one device "
         f"{sv['one_device_prefill_ms']:.1f} ms); flash_attention launched {points} time(s) on "
-        f"each rank, its first call at {local} against the plain version: max |Δ| "
-        f"{[rk['fa_check']['max_abs_err'] for rk in recs]}, share of the bf16 bound "
-        f"{[round(rk['fa_check']['bound_share'], 4) for rk in recs]}; the state in "
-        f"cache_specs' placements {r0['state_placements']}; the "
-        f"prefill's and {SHARDED_DECODE_STEPS} decode steps' logits: RMS distance from the f32 "
-        f"run {sv['rms_from_f32']:.6g} (limit {limit:.6g}: the one-device bf16 run's "
-        f"{sv['one_device_rms_from_f32']:.6g}, std {sv['std']:.6g}); max |Δ| from the "
+        f"each rank, its first call at q {local}, k {r0['fa_check']['kv_shape']} against the "
+        f"plain version: max |Δ| {[rk['fa_check']['max_abs_err'] for rk in recs]}, share of "
+        f"the bf16 bound {[round(rk['fa_check']['bound_share'], 4) for rk in recs]}; the cache "
+        f"in cache_specs' placements {r0['state_placements']}; "
+        f"{'the prefill and ' if cut.family != 'encdec' else ''}{SHARDED_DECODE_STEPS} decode "
+        f"steps: the logits' RMS distance from the f32 run {sv['rms_from_f32']:.6g} (limit "
+        f"{limit:.6g}: {NOISE_FACTOR} × the one-device bf16 run's "
+        f"{sv['one_device_rms_from_f32']:.6g}; std {sv['std']:.6g}); max |Δ| from the "
         f"one-device bf16 run {sv['max_abs']:.6g}, the one-device run's max |Δ| from f32 "
         f"{sv['one_device_max_from_f32']:.6g}")
     return out
+
+
+def _sharded_dry_runs() -> dict:
+    """The dry-run (``dryrun.trace_cell``, meta tensors on a fake world of
+    SHARDED_RANKS) of each cut cell the ranks run, by key of their record:
+    Qwen2-1.5B's in f32 and bf16, the MoE's, and each SHARDED_FAMILIES
+    case's; their collectives must be the ones the card counts."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    tokens = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
+              for k, d in (("tokens", torch.int32), ("labels", torch.int32),
+                           ("mask", torch.float32))}
+    cells = {dtype: (replace(get_config(SERVE_ARCH), n_layers=SHARDED_DEPTH, dtype=dtype), tokens)
+             for dtype in ("float32", "bfloat16")}
+    cells["moe"] = (replace(get_config(MOE_ARCH), n_layers=SHARDED_MOE_DEPTH, dtype="float32"),
+                    tokens)
+    for case in SHARDED_FAMILIES:
+        cut = _sharded_family_config(case)
+        cells[case] = (cut, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                             for k, v in _sharded_family_batch(cut, case, "cpu").items()})
+    return {key: dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
+                                   microbatch=SHARDED_MICRO, batch_override=spec)
+            for key, (cut, spec) in cells.items()}
 
 
 def phase_sharded_train(smi: str):
@@ -6183,19 +6399,18 @@ def phase_sharded_train(smi: str):
     sharding table's placements, ZeRO-1 moments, the ZeRO-2 accumulator,
     the vocab-split CE), at SHARDED_DEPTH layers: f32 against the one-device
     step, then timed in f32 and bf16; beside it the dry-run of the same cut
-    cell on a fake world of 4 (its collectives must be the ones counted
-    here); then the MoE and the hybrid over the same mesh.  Returns (the
-    report, [rank 0's first flash_attention call of the sharded hybrid
-    prefill, its inputs on the card] for phase_kernels)."""
+    cell on a fake world of 4, traced while the ranks run (its collectives
+    must be the ones counted here); then the MoE and SHARDED_FAMILIES'
+    hybrid, VLM and enc-dec over the same mesh.  Returns (the report,
+    [rank 0's first flash_attention call of each SHARDED_FAMILIES prefill,
+    its inputs on the card] for phase_kernels)."""
     import pickle
     import tempfile
-    from dataclasses import replace
 
     import torch
     import torch.multiprocessing as mp
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
     # the ranks are other processes: what this one's allocator keeps cached
@@ -6215,6 +6430,13 @@ def phase_sharded_train(smi: str):
         for p in procs:
             p.start()
         deadline = time.monotonic() + SHARDED_JOIN_S
+        try:  # traced on the host while the ranks run
+            dry = _sharded_dry_runs()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.join()
+            raise
         for p in procs:
             p.join(max(deadline - time.monotonic(), 1.0))
         hung = [p for p in procs if p.is_alive()]
@@ -6273,15 +6495,10 @@ def phase_sharded_train(smi: str):
                   and len(x[1]) == 3 and x[1][-1] in (base.vocab, base.vocab // SHARDED_MESH[1])]
         if logits:
             raise AssertionError(f"sharded {dtype}: logits were all-gathered: {logits[:4]}")
-        cut = replace(base, n_layers=SHARDED_DEPTH, dtype=dtype)
-        spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
-                for k, d in (("tokens", torch.int32), ("labels", torch.int32),
-                             ("mask", torch.float32))}
-        dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
-                                microbatch=SHARDED_MICRO, batch_override=spec)
-        if dry["collective_by_kind"] != recs[0]["comm"]:
+        cell = dry[dtype]
+        if cell["collective_by_kind"] != recs[0]["comm"]:
             raise AssertionError(f"sharded {dtype}: the dry-run's collectives "
-                                 f"{dry['collective_by_kind']} differ from the card's "
+                                 f"{cell['collective_by_kind']} differ from the card's "
                                  f"{recs[0]['comm']}")
         step_ms = [statistics.median(rk["step_s"]) * 1e3 for rk in recs]
         report[dtype] = {
@@ -6291,43 +6508,43 @@ def phase_sharded_train(smi: str):
             "collectives_per_step": recs[0]["comm"],
             "peak_gb_per_rank": [rk["peak_gb"] for rk in recs],
             "placed_state_gb_per_rank": [rk["local_gb"] for rk in recs],
-            "dryrun": {"collectives": dry["collective_by_kind"],
-                       "peak_gb_per_device": dry["peak_bytes"] / 1e9,
-                       "flops_per_device": dry["flops"], "bytes_per_device": dry["bytes"],
-                       "trace_s": dry["trace_s"]}}
+            "dryrun": {"collectives": cell["collective_by_kind"],
+                       "peak_gb_per_device": cell["peak_bytes"] / 1e9,
+                       "flops_per_device": cell["flops"], "bytes_per_device": cell["bytes"],
+                       "trace_s": cell["trace_s"]}}
         log(f"sharded train ({label}): {base.arch} {SHARDED_DEPTH} layers {dtype}, "
             f"B={TRAIN_B}×S={TRAIN_S}: losses {[round(x, 4) for x in losses]}; step "
             f"{[round(x, 1) for x in step_ms]} ms median of {SHARDED_STEPS} per rank "
             f"(synchronised; warm-up {max(rk['warmup_s'] for rk in recs):.2f} s); collectives "
             f"a step {json.dumps(recs[0]['comm'])} (the dry-run's on a fake world of 4: the "
             f"same); peak allocated {[round(rk['peak_gb'], 3) for rk in recs]} GB per rank "
-            f"(dry-run {dry['peak_bytes'] / 1e9:.3f} GB per device); no all-gather of logits; "
+            f"(dry-run {cell['peak_bytes'] / 1e9:.3f} GB per device); no all-gather of logits; "
             f"no kernel launched")
-    report["moe"] = sharded_moe_report(ranks, label)
-    report["hybrid"] = sharded_hybrid_report(ranks, label)
+    report["moe"] = sharded_moe_report(ranks, label, dry["moe"])
+    for case in SHARDED_FAMILIES:
+        report[case] = sharded_family_report(ranks, label, case, dry[case])
     report["phase_s"] = time.perf_counter() - t_phase
     log("sharded train: " + json.dumps(report))
     log(f"sharded train phase took {report['phase_s']:.1f} s")
-    name, args, kw = ranks[0]["hybrid"]["fa_call"]
-    return report, [(name, tuple(a.cuda() for a in args), kw)]
+    calls = []
+    for case in SHARDED_FAMILIES:
+        name, args, kw = ranks[0][case]["fa_call"]
+        calls.append((name, tuple(a.cuda() for a in args), kw))
+    report["flash_attention_launches"] = sum(report[case]["flash_attention_launches"]
+                                             for case in SHARDED_FAMILIES)
+    return report, calls
 
 
-def sharded_moe_report(ranks, label: str) -> dict:
+def sharded_moe_report(ranks, label: str, dry: dict) -> dict:
     """Check and report the ranks' sharded MoE step (``_sharded_moe_case``):
     the f32 loss and gradients against the one-device step, the dropped
     choices equal to its, the collectives a step equal to the dry-run's of
     the same cut cell, no kernel launched; step ms and peak GB per rank."""
-    from dataclasses import replace
-
-    import torch
-
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
 
     recs = [rk["moe"] for rk in ranks]
     r0 = recs[0]
     full = get_config(MOE_ARCH)
-    cut = replace(full, n_layers=SHARDED_MOE_DEPTH, dtype="float32")
     loss_gap = abs(r0["grads_loss"] - r0["one_device_loss"]) / abs(r0["one_device_loss"])
     worst = max(r0["grad_rel"])
     log(f"sharded MoE check ({label}): {MOE_ARCH} {SHARDED_MOE_DEPTH} of {full.n_layers} "
@@ -6354,11 +6571,6 @@ def sharded_moe_report(ranks, label: str) -> dict:
         raise AssertionError(f"the sharded MoE step launched {r0['launches']}")
     if any(rk["comm"] != r0["comm"] for rk in recs):
         raise AssertionError("sharded MoE: the ranks issued other collectives")
-    spec = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=d, device="meta")
-            for k, d in (("tokens", torch.int32), ("labels", torch.int32),
-                         ("mask", torch.float32))}
-    dry = dryrun.trace_cell(cut, "train_4k", SHARDED_MESH, ("data", "model"),
-                            microbatch=SHARDED_MICRO, batch_override=spec)
     if dry["collective_by_kind"] != r0["comm"]:
         raise AssertionError(f"sharded MoE: the dry-run's collectives {dry['collective_by_kind']} "
                              f"differ from the card's {r0['comm']}")
@@ -6459,7 +6671,7 @@ def main() -> int:
             serve_wave = None  # frees Qwen2-1.5B's served parameters before the MoE phases
         stamp("Qwen2-1.5B served and trained")
         sharded, calls = phase_sharded_train(smi)
-        fa_launches += sharded["hybrid"]["flash_attention_launches"]
+        fa_launches += sharded["flash_attention_launches"]
         fa_captured += calls
         del sharded, calls
         stamp("sharded training")

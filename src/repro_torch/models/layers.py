@@ -220,11 +220,13 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
     """Decoder cross-attention against precomputed encoder K/V (B, Hkv,
     S_enc, D): no RoPE, and ``chunked_attention`` whatever the config's
     attention mode, as JAX's (so its blocks, taken from x's length, see the
-    first S encoder positions only: ROADMAP Queue 3 item 30)."""
+    first S encoder positions only: ROADMAP Queue 3 item 30).  On DTensors
+    placed as ``attention_block``'s."""
+    x = tp_input(x)
     q = split_heads(x @ p["wq"], n_heads, d_head).transpose(1, 2)
     o = per_rank_attention(lambda q, k, v: kops.attention(q, k, v, causal=False, mode="chunked"),
                            group_heads(q, n_kv), enc_k, enc_v)
-    return merge_heads(o.transpose(1, 2), n_kv) @ p["wo"]
+    return placed_like(merge_heads(o.transpose(1, 2), n_kv) @ p["wo"], x)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .lm import chunked_ce_loss, embed
 from .sharding import per_rank_mamba, per_rank_scan
 
 #: Mamba2's head width, fixed as in JAX (``init_decode_state`` and
@@ -345,10 +346,7 @@ def rwkv_backbone(params, cfg, x: torch.Tensor, state=None):
 
 
 def rwkv_lm_loss(params, cfg, batch):
-    from .lm import chunked_ce_loss
-
-    x = params["emb"][batch["tokens"]]
-    xf, _ = rwkv_backbone(params, cfg, x)
+    xf, _ = rwkv_backbone(params, cfg, embed(params, cfg, batch["tokens"]))
     return chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
                            chunk=cfg.loss_chunk)
 
@@ -370,12 +368,12 @@ def _logits(params, xf):
 
 def rwkv_decode_step(params, cfg, state, tokens):
     """tokens: (B, 1) → (logits (B, V), the new state). O(1) per token, no KV cache."""
-    xf, new_state = rwkv_backbone(params, cfg, params["emb"][tokens], state=state)
+    xf, new_state = rwkv_backbone(params, cfg, embed(params, cfg, tokens), state=state)
     return _logits(params, xf), new_state
 
 
 def rwkv_prefill(params, cfg, tokens):
     """The prompt in one pass: (last-position logits (B, V), the recurrent
     state: the constant-size 'cache' of an attention-free model)."""
-    xf, state = rwkv_backbone(params, cfg, params["emb"][tokens])
+    xf, state = rwkv_backbone(params, cfg, embed(params, cfg, tokens))
     return _logits(params, xf), state

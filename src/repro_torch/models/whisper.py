@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .lm import chunked_ce_loss, embed, init_cache
 
 
 def init_encdec(cfg, gen: torch.Generator) -> Dict[str, Any]:
@@ -110,7 +111,7 @@ def _dec_layer(cfg, lp, x, positions, enc):
 
 def decode_train(params, cfg, enc: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder forward → final hidden states (B, S_dec, D)."""
-    x = params["emb"][tokens]
+    x = embed(params, cfg, tokens)
     b, s, _ = x.shape
     x = _run_layers(cfg, params["dec_layers"], cfg.n_layers, _dec_layer, x,
                     _positions(b, s, x.device), enc)
@@ -120,8 +121,6 @@ def decode_train(params, cfg, enc: torch.Tensor, tokens: torch.Tensor) -> torch.
 def encdec_loss(params, cfg, batch) -> torch.Tensor:
     """batch: {frames (B, S_enc, D), tokens, labels, mask (B, S_dec)} →
     the chunked CE loss of the teacher-forced decoder, f32."""
-    from .lm import chunked_ce_loss
-
     enc = encode(params, cfg, batch["frames"])
     xf = decode_train(params, cfg, enc, batch["tokens"])
     return chunked_ce_loss(params, cfg, xf, batch["labels"], batch["mask"],
@@ -141,18 +140,16 @@ def prefill(params, cfg, frames: torch.Tensor, cache_capacity: int) -> Dict[str,
     enc = encode(params, cfg, frames)
     kv = [_cross_kv(lp, enc, cfg.n_heads, cfg.d_head)
           for lp in L.unstack_layers(params["dec_layers"], cfg.n_layers)]
-    shape = (cfg.n_layers, frames.shape[0], cfg.n_kv_heads, cache_capacity, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=enc.device),
-            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=enc.device),
-            "cross_k": torch.stack([k for k, _ in kv]),
-            "cross_v": torch.stack([v for _, v in kv]),
-            "len": 0}
+    # the self cache is lm's, placed as a layer's cross keys where they are DTensors
+    cache = init_cache(cfg, frames.shape[0], cache_capacity, enc.device, like=kv[0][0])
+    return dict(cache, cross_k=torch.stack([k for k, _ in kv]),
+                cross_v=torch.stack([v for _, v in kv]))
 
 
 def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """One decode step. tokens: (B, 1) → (logits (B, V) f32, the cache with
     this step's keys and values written in and ``len`` one more)."""
-    x = params["emb"][tokens]
+    x = embed(params, cfg, tokens)
     clen = cache["len"]
     for i, lp in enumerate(L.unstack_layers(params["dec_layers"], cfg.n_layers)):
         att, _, _ = L.decode_attention_block(

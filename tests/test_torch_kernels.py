@@ -377,6 +377,40 @@ def test_chip_smoke_builds_each_distinct_kernel_once_and_at_once(monkeypatch):
     assert smoke.build_at_once([lambda: ran.append(1)]) == 0 and ran == [1]
 
 
+def test_chip_smoke_build_at_once_loads_a_built_kernel_and_goes_on(monkeypatch, tmp_path):
+    """A call of two generated kernels whose first is built already (by
+    an earlier pass of ``prebuild_plans``): ``build_at_once`` loads the
+    first through the real build function and notes and builds the second, so a
+    query's second kernel is built with the others and not one at a time
+    at its first launch."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    (tmp_path / "first.so").touch()
+    monkeypatch.setattr(build, "generated_path", lambda family, text: tmp_path / f"{text}.so")
+    done = []
+
+    def fake_build(family, text):
+        done.append(text)
+        (tmp_path / f"{text}.so").touch()
+        return text
+
+    monkeypatch.setattr(build, "build_generated", fake_build)
+
+    def call():
+        return [build.build_generated("grouped_join_agg", "first"),
+                build.build_generated("grouped_select_agg", "second")]
+
+    assert smoke.build_at_once([call]) == 1
+    assert done == ["first", "second"]
+    assert build.build_generated is fake_build
+    assert call() == ["first", "second"]  # both built: the call runs whole
+
+
 # ---------------------------------------------------------------------------
 # segsum on the tensor cores: its recipe against the Pallas kernel
 # ---------------------------------------------------------------------------
